@@ -1,18 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prompt->image path once on one NVIDIA GPU, in phases.
+"""Drive the PyTorch port's prompt->image and train paths once on one NVIDIA GPU,
+in phases.
 
     python3 chip_smoke.py
 
-1. Device: needs torch.cuda.is_available(); prints the card's name and power
+1. [device] Needs torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi), torch and CUDA versions, and whether triton imports.
-2. Build: compiles csrc/*.cu with nvcc for sm_90a (ops/kernels/build.py).
-3. VQ kernel against its plain version on the card (stated near-tie rule).
-4. Mixer-block kernel against its plain version, float32 (TF32 off) and bf16.
-5. Kernel and plain times at the flagship shapes, CUDA events.
-6. The slice: the flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
+2. [build] Compiles csrc/*.cu with nvcc for sm_90a (ops/kernels/build.py).
+3. [vq] VQ kernel against its plain version on the card (stated near-tie rule).
+4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
+   and bf16.
+5. [mixer-train] The train kernels (forward with residuals, channel backward,
+   token backward) against their plain versions, float32 and bf16; the train
+   forward's output equal to the inference block's; two backward runs bitwise
+   equal.
+6. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
+   each kernel's bound.
+7. [reference] The tiny prompt->image slice, card against CPU module path.
+8. [train-reference] A tiny train step, f32, card (kernels) against CPU
+   (module path): loss and mapper grads.
+9. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
    VQGAN f16-16384, bf16, random weights from a seed) answers requests of
    batch 1, 4 and 16; the kernels' launch counters must rise; one PNG grid.
-7. Prints the kernels' JSON line, then `{"ok": true, "device": {...}}` last.
+10. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
+   cutouts with Ji/Er, ViT-B/32 loss, Adam): a warm-up step, then 3 timed steps,
+   each with a finite loss, changed parameters and the train kernels' counters
+   up by 32 each and the VQ kernel's by 1; per-stage CUDA-event times.
+11. Prints the card's line, the kernels' JSON line, then
+   `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -30,7 +45,11 @@ MIXER_F32_TOL = 1e-3
 MIXER_BF16_TOL = 3e-2
 VQ_MIN_AGREEMENT = 0.999
 REQUEST_BATCHES = (1, 4, 16)
+TRAIN_STEPS = 3
 SEED = 0
+# published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg):
@@ -98,8 +117,10 @@ def phase_build():
     log(f"[build] {build.library_path().name} built (or found) and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+        if "Compiling entry function" in line:
+            log(f"[build]   {line.split(chr(39))[1]}")  # the mangled kernel name
+        elif "registers" in line or "spill" in line:
+            log(f"[build]     {line.strip()}")
 
 
 def _vq_case(n, k, c, gen, tie=False):
@@ -202,17 +223,103 @@ def phase_mixer(gen):
     return worst_bf16
 
 
-def phase_timing(gen, smi):
+def phase_mixer_train(gen):
+    """The three train kernels against their plain versions, each output and
+    parameter grad within the ceiling relative to max |plain|; -> {kernel name:
+    max abs err at the flagship shape in bf16}."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block,
+        mixer_block_fwd_res,
+        mixer_block_fwd_res_plain,
+        mixer_channel_bwd,
+        mixer_channel_bwd_plain,
+        mixer_token_bwd,
+        mixer_token_bwd_plain,
+    )
+
+    worst = {}
+    for (b, t, d) in ((8, 256, 1024), (3, 64, 96), (2, 50, 100)):
+        for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
+            w = random_block_weights(t, d, dtype, gen)
+            x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
+            dout = torch.randn(b, t, d, generator=gen, device="cuda")
+            out, res = mixer_block_fwd_res(x, w)
+            if not torch.equal(out, mixer_block(x, w)):
+                raise AssertionError(f"train forward output differs from mixer_block at "
+                                     f"{(b, t, d)} {dtype}")
+            ch = mixer_channel_bwd(dout, res, w)
+            tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
+            ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
+            pairs = {
+                "mixer_fwd_res": [(out, ref_out)] + list(zip(res, ref_res)),
+                "mixer_channel_bwd": list(zip(ch, mixer_channel_bwd_plain(dout, res, w))),
+                "mixer_token_bwd": list(zip(
+                    tok, mixer_token_bwd_plain(ch.dr, x, res.g1, res.dg1, w))),
+            }
+            for name, outs in pairs.items():
+                abs_err = max((g.float() - r.float()).abs().max().item() for g, r in outs)
+                ratio = max((g.float() - r.float()).abs().max().item()
+                            / max(r.float().abs().max().item(), 1e-30) for g, r in outs)
+                finite = all(torch.isfinite(g).all().item() for g, _ in outs)
+                log(f"[mixer-train] {name} B={b} T={t} D={d} {str(dtype)[6:]}: max abs err "
+                    f"{abs_err:.3e}, worst err / max|plain| over {len(outs)} outputs "
+                    f"{ratio:.3e} (ceiling {tol:g})")
+                if not (finite and ratio <= tol):
+                    raise AssertionError(f"{name} disagrees with its plain version at "
+                                         f"{(b, t, d)} {dtype}")
+                if dtype == torch.bfloat16 and b == 8:
+                    worst[name] = abs_err
+            again = mixer_token_bwd(mixer_channel_bwd(dout, res, w).dr, x, res.g1, res.dg1, w)
+            if not all(torch.equal(a, c) for a, c in zip(tok, again)):
+                raise AssertionError(f"backward grads differ between two runs at {(b, t, d)}")
+    log("[mixer-train] train forward output equals mixer_block's bit for bit; two backward "
+        "runs bitwise equal at every shape")
+    return worst
+
+
+def bound(inputs, outputs, flops, peak):
+    """(bound_ms, bound_by): the larger of the bytes the function must move (each
+    input read once, each output written once) over the memory rate and its
+    operations over the peak rate of their type."""
+    import torch
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+    t_bytes = (nbytes(inputs) + nbytes(outputs)) / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_timing(gen, smi):
+    """Kernel and plain times (CUDA events) at the paths' shapes, each beside its
+    bound; -> {kernel name: {ms, plain_ms, bound_ms, bound_by}} at the shapes the
+    JSON line reports (VQ and Mixer block at the slice's B=4, the train kernels at
+    the train step's B=8)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        mixer_block,
+        mixer_block_fwd_res,
+        mixer_block_fwd_res_plain,
         mixer_block_plain,
+        mixer_channel_bwd,
+        mixer_channel_bwd_plain,
+        mixer_token_bwd,
+        mixer_token_bwd_plain,
     )
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel,
         nearest_codebook_indices_plain,
     )
+
+    def record(label, k_ms, p_ms, bnd, flops=None):
+        rate = f" ({flops / k_ms / 1e9:.1f} TFLOP/s)" if flops else ""
+        log(f"[time] {label}: kernel {k_ms:.4f} ms{rate}, plain {p_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
 
     times = {}
     cb = torch.rand(16384, 256, generator=gen, device="cuda") * (2.0 / 16384)
@@ -220,18 +327,48 @@ def phase_timing(gen, smi):
         x = torch.randn(b * 256, 256, generator=gen, device="cuda") * (2.0 / 16384)
         k_ms, p_ms = paired_ms(lambda: nearest_codebook_indices_kernel(x, cb),
                                lambda: nearest_codebook_indices_plain(x, cb))
-        log(f"[time] vq N={b * 256} K=16384 C=256 f32: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms ({smi})")
-        times[("vq", b)] = (k_ms, p_ms)
+        out = nearest_codebook_indices_kernel(x, cb)
+        bnd = bound([x, cb], [out], 2 * x.shape[0] * 16384 * 256, "f32")
+        row = record(f"vq N={b * 256} K=16384 C=256 f32", k_ms, p_ms, bnd)
+        if b == 4:
+            times["vq_argmin"] = row
+    t, d, et, ec = 256, 1024, 1024, 4096
     for b in (1, 4, 16):
-        w = random_block_weights(256, 1024, torch.bfloat16, gen)
-        x = torch.randn(b, 256, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+        w = random_block_weights(t, d, torch.bfloat16, gen)
+        x = torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
         k_ms, p_ms = paired_ms(lambda: mixer_block(x, w), lambda: mixer_block_plain(x, w))
-        flops = b * 2 * 256 * 1024 * (2 * 1024 + 2 * 4096)
-        log(f"[time] mixer block B={b} T=256 D=1024 bf16: kernel {k_ms:.4f} ms "
-            f"({flops / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms "
-            f"({flops / p_ms / 1e9:.1f} TFLOP/s) ({smi})")
-        times[("mixer", b)] = (k_ms, p_ms)
+        flops = b * 2 * t * d * (2 * et + 2 * ec)
+        bnd = bound([x, *w], [x], flops, "bf16")
+        row = record(f"mixer block B={b} T={t} D={d} bf16", k_ms, p_ms, bnd,
+                     flops)
+        if b == 4:
+            times["mixer_block"] = row
+    b = 8
+    w = random_block_weights(t, d, torch.bfloat16, gen)
+    x = torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    dout = torch.randn(b, t, d, generator=gen, device="cuda")
+    out, res = mixer_block_fwd_res(x, w)
+    ch = mixer_channel_bwd(dout, res, w)
+    tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
+    fwd_flops = b * 2 * t * d * (2 * et + 2 * ec)
+    cases = {
+        "mixer_fwd_res": (lambda: mixer_block_fwd_res(x, w),
+                          lambda: mixer_block_fwd_res_plain(x, w),
+                          bound([x, *w], [out, *res], fwd_flops, "bf16"), fwd_flops),
+        "mixer_channel_bwd": (lambda: mixer_channel_bwd(dout, res, w),
+                              lambda: mixer_channel_bwd_plain(dout, res, w),
+                              bound([dout, res.rhat, res.inv2, res.g3, res.dg3, w.ln2_w, w.ln2_b,
+                                     w.w1, w.w2], list(ch), 4 * 2 * b * t * d * ec, "bf16"),
+                              4 * 2 * b * t * d * ec),
+        "mixer_token_bwd": (lambda: mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w),
+                            lambda: mixer_token_bwd_plain(ch.dr, x, res.g1, res.dg1, w),
+                            bound([ch.dr, x, res.g1, res.dg1, w.ln1_w, w.ln1_b, w.t1, w.t2],
+                                  list(tok), 4 * 2 * b * et * t * d, "bf16"),
+                            4 * 2 * b * et * t * d),
+    }
+    for name, (kernel_fn, plain_fn, bnd, flops) in cases.items():
+        k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
+        times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops)
     return times
 
 
@@ -287,7 +424,11 @@ def phase_slice(smi):
 
     t0 = time.perf_counter()
     prompt_to_image, _ = entry("cuda", batch=4, seed=SEED)
-    prompt_to_image(example_tokens(1, "cuda"))  # warm-up, outside the counted run
+    # warm-up at every request size, outside the counted run: after a batch-1
+    # warm-up alone, the median batch-4 latency of one tree ranged 31.9-49.1 ms
+    # between runs on an H100 (first requests at a new size pay one-time costs)
+    for b in REQUEST_BATCHES:
+        prompt_to_image(example_tokens(b, "cuda"))
     torch.cuda.synchronize()
     log(f"[slice] flagship generator built and warmed in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -327,6 +468,161 @@ def phase_slice(smi):
     return launches
 
 
+TINY_TRAIN = dict(clip_model="tiny", vqgan_arch=TINY_VQGAN, dim=64, depth=2, vq_image_size=4,
+                  batch_size=3, cutn=2, compute_dtype="float32", noise_fac=0.0,
+                  l2_coef=0.1, tv_coef=0.1, normalize_input=True, input_loss=True)
+
+
+def phase_train_reference():
+    """A tiny train step, float32, with the same weights on the card (Mixer train
+    kernels) and on the CPU (module path); augmentations emptied and noise_fac 0,
+    so no random draw enters. Loss within 1e-4 relative; every mapper grad within
+    1e-3 of its max |CPU grad| plus 1e-3 of the largest grad of all (f32 sums in
+    other orders through 2 blocks, the decoder and the image tower; the floor
+    covers grads that are zero but for rounding, such as the token-FF output
+    bias, whose per-token shift the next LayerNorms remove)."""
+    import copy
+
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        mixer_block_fwd_res,
+        mixer_channel_bwd,
+        mixer_token_bwd,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import (
+        FrozenModels,
+        build_frozen,
+        make_train_step,
+    )
+
+    cfg = make_config(**TINY_TRAIN)
+    frozen = build_frozen(cfg, torch.float32, device="cpu", seed=SEED)
+    mapper = build_mapper(dict(cfg), vq_channels=8, device="cpu")
+    mapper.init_random_(torch.Generator().manual_seed(SEED + 1))
+    tokens = example_tokens(3)
+    tokens[1, 1], tokens[2, 1:4] = 1000, torch.tensor([2000, 3000, 49407])
+    results = {}
+    for dev in ("cpu", "cuda"):
+        fz = frozen if dev == "cpu" else FrozenModels(
+            frozen.perceptor._replace(module=copy.deepcopy(frozen.perceptor.module).cuda()),
+            copy.deepcopy(frozen.vq).cuda())
+        m = mapper if dev == "cpu" else copy.deepcopy(mapper).cuda()
+        cutouts = MakeCutouts(cut_size=32, cutn=2, pool_size=32, augs=["Ji", "Er"],
+                              noise_fac=0.0)
+        cutouts.augs = []  # neutralised: no draw
+        _, loss_fn = make_train_step(cfg, m, fz, cutouts, inp_is_tokens=True,
+                                     out_is_tokens=True)
+        counts = (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
+                  mixer_token_bwd.launches)
+        loss, _ = loss_fn({"inp": tokens.to(dev), "out": tokens.to(dev)},
+                          torch.Generator(device=dev).manual_seed(0))
+        loss.backward()
+        launched = (mixer_block_fwd_res.launches - counts[0],
+                    mixer_channel_bwd.launches - counts[1], mixer_token_bwd.launches - counts[2])
+        if launched != ((2, 2, 2) if dev == "cuda" else (0, 0, 0)):
+            raise AssertionError(f"train kernel launches on {dev}: {launched}")
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        results[dev] = (loss.detach().item(), grads)
+    (l_cpu, g_cpu), (l_card, g_card) = results["cpu"], results["cuda"]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    grad_err, worst = max(
+        ((g_card[n] - g).abs().max().item() / (g.abs().max().item() + 1e-3 * top), n)
+        for n, g in g_cpu.items())
+    log(f"[train-reference] tiny step f32, card vs CPU module path: loss {l_card:.6f} vs "
+        f"{l_cpu:.6f} (rel err {loss_err:.3e}, limit 1e-4), worst mapper grad err / "
+        f"(max|grad| + 1e-3 max over all grads) {grad_err:.3e} at {worst} (max|grad| "
+        f"{g_cpu[worst].abs().max().item():.3e}, largest grad {top:.3e}) over {len(g_cpu)} "
+        f"parameters (limit 1e-3)")
+    # without the floor: which grad is zero but for rounding (no limit applies)
+    bare, bare_at = max(
+        ((g_card[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+        for n, g in g_cpu.items())
+    log(f"[train-reference] without the floor, worst err / max|grad| {bare:.3e} at {bare_at} "
+        f"(max|grad| {g_cpu[bare_at].abs().max().item():.3e}, card max|grad| "
+        f"{g_card[bare_at].abs().max().item():.3e})")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-3):
+        raise AssertionError("the card's train step disagrees with the CPU module path")
+
+
+def phase_train(smi):
+    """The flagship train step through entry.train_entry: a warm-up step, then
+    TRAIN_STEPS timed steps (host clock around each, ending in a synchronize),
+    with per-stage CUDA events. -> the kernels' launches in the timed steps."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        mixer_block_fwd_res,
+        mixer_channel_bwd,
+        mixer_token_bwd,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
+        nearest_codebook_indices_kernel as vq_kernel,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
+
+    counters = {"vq_argmin": vq_kernel, "mixer_fwd_res": mixer_block_fwd_res,
+                "mixer_channel_bwd": mixer_channel_bwd, "mixer_token_bwd": mixer_token_bwd}
+    per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
+                "mixer_token_bwd": 32}
+    t0 = time.perf_counter()
+    step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step_fn(state, batch, gen)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    log(f"[train] flagship train step built and warmed in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in state.params) / 1e6:.1f} M mapper parameters)")
+    watch = [state.params[0], state.params[len(state.params) // 2], state.params[-1]]
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    step_ms, stage_ms, losses = [], {s: [] for s in STAGES}, []
+    for _ in range(TRAIN_STEPS):
+        before = {k: fn.launches for k, fn in counters.items()}
+        snapshot = [p.detach().clone() for p in watch]
+        events = [torch.cuda.Event(enable_timing=True)]
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            marks.append(stage)
+
+        t = time.perf_counter()
+        events[0].record()
+        state, metrics = step_fn(state, batch, gen, mark)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        for i, stage in enumerate(marks):
+            stage_ms[stage].append(events[i].elapsed_time(events[i + 1]))
+        loss = metrics["loss"].item()
+        losses.append(loss)
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if launched != per_step:
+            raise AssertionError(f"train step launches {launched}, need {per_step}")
+        if not torch.isfinite(torch.tensor(loss)).item():
+            raise AssertionError(f"train step loss {loss} is not finite")
+        if all(torch.equal(a, p.detach()) for a, p in zip(snapshot, watch)):
+            raise AssertionError("train step left the watched parameters unchanged")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    stages = ", ".join(f"{s} {sorted(v)[len(v) // 2]:.2f}" for s, v in stage_ms.items())
+    log(f"[train] losses {', '.join(f'{x:.6f}' for x in losses)}; avg_loss "
+        f"{state.avg_loss.item():.6f}; step {state.step}")
+    log(f"[train] B=8 cutn=8: median step {med:.2f} ms of {TRAIN_STEPS} "
+        f"({', '.join(f'{x:.2f}' for x in step_ms)}), {8 / med * 1e3:.2f} img/s ({smi})")
+    log(f"[train] median stage ms (CUDA events): {stages} ({smi})")
+    log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches in the timed steps {dict((k, fn.launches) for k, fn in counters.items())}")
+    return {k: fn.launches for k, fn in counters.items()}
+
+
 def main():
     import torch
 
@@ -339,21 +635,29 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     vq_err = phase_vq(gen)
     mixer_err = phase_mixer(gen)
+    train_errs = phase_mixer_train(gen)
     times = phase_timing(gen, smi)
     phase_reference()
+    phase_train_reference()
     launches = phase_slice(smi)
-    kernels = [
-        {"name": "vq_argmin", "route": "cuda",
-         "source": "feed_forward_vqgan_clip_tpu_torch/csrc/vq_lookup.cu",
-         "replaces": "feed_forward_vqgan_clip_tpu/ops/pallas/vq_lookup.py:33",
-         "launches": launches["vq"], "max_abs_err": vq_err,
-         "ms": times[("vq", 4)][0], "plain_ms": times[("vq", 4)][1]},
-        {"name": "mixer_block", "route": "cuda",
-         "source": "feed_forward_vqgan_clip_tpu_torch/csrc/mixer_block.cu",
-         "replaces": "feed_forward_vqgan_clip_tpu/ops/pallas/mixer_block.py:225",
-         "launches": launches["mixer_block"], "max_abs_err": mixer_err,
-         "ms": times[("mixer", 4)][0], "plain_ms": times[("mixer", 4)][1]},
+    launches.update(phase_train(smi))
+    pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
+    csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
+    rows = [  # name, source, TPU kernel replaced, launches (the path's run), max abs err
+        ("vq_argmin", "vq_lookup.cu", "vq_lookup.py:33", launches["vq"], vq_err),
+        ("mixer_block", "mixer_block.cu", "mixer_block.py:225", launches["mixer_block"],
+         mixer_err),
+        ("mixer_fwd_res", "mixer_block.cu", "mixer_block.py:726", launches["mixer_fwd_res"],
+         train_errs["mixer_fwd_res"]),
+        ("mixer_channel_bwd", "mixer_train.cu", "mixer_block.py:853",
+         launches["mixer_channel_bwd"], train_errs["mixer_channel_bwd"]),
+        ("mixer_token_bwd", "mixer_train.cu", "mixer_block.py:970",
+         launches["mixer_token_bwd"], train_errs["mixer_token_bwd"]),
     ]
+    # no single PyTorch call computes any of these functions: library_ms is null
+    kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
+                "launches": n, "max_abs_err": err, **times[name], "library_ms": None}
+               for name, src, tpu, n, err in rows]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     print(smi, flush=True)

@@ -8,8 +8,8 @@ kernels written for Hopper (sm_90a) in `csrc/`, built with nvcc at first use
 (ops/kernels/build.py). Each kernel's wrapper runs the kernel for a CUDA tensor
 and the kernel's plain PyTorch version for a CPU tensor.
 
-The port imports torch, numpy and the JAX package's dependency-free `registry`
-module, and never jax, flax, yaml or PIL.
+The port imports torch and numpy, and never jax, flax, yaml, PIL or anything of
+the JAX package: it keeps its own copy of the constants it needs (`registry.py`).
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,22 @@
-"""The port's counterpart of `__graft_entry__.entry`: the flagship prompt->image
-step (CLIP ViT-B/32 text encode -> MLP-Mixer 32x1024 mapper -> clamp ->
-straight-through VQ -> VQGAN f16-16384 decode -> [0, 1] image) with random
-weights from a seed, in bf16, on one device.
+"""The port's entry points, flagship geometry, random weights from a seed, bf16,
+one device:
+
+  * `entry`: the counterpart of `__graft_entry__.entry`, the prompt->image step
+    (CLIP ViT-B/32 text encode -> MLP-Mixer 32x1024 mapper -> clamp ->
+    straight-through VQ -> VQGAN f16-16384 decode -> [0, 1] image);
+  * `train_entry`: the set-up of the JAX package's train bench
+    (`bench.train_bench`), one train step of the mapper at B=8, cutn=8, 224-px
+    cutouts, ViT-B/32 spherical loss, Adam with bf16 moments.
 """
 
 import torch
 
+from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.infer import build_generator
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+from feed_forward_vqgan_clip_tpu_torch.train.loop import build_frozen, make_train_step
+from feed_forward_vqgan_clip_tpu_torch.train.state import make_optimizer, make_train_state
 
 SOT, EOT = 49406, 49407  # CLIP's start/end-of-text ids
 
@@ -27,3 +37,35 @@ def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0)
         return gen.render(gen.encode_tokens(tokens))
 
     return prompt_to_image, (example_tokens(batch, device),)
+
+
+# colour jitter and random erasing: the default set's codes that do not warp
+TRAIN_AUGS = ("Ji", "Er")
+
+
+def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0):
+    """-> (step_fn, state, batch_dict): `step_fn(state, batch_dict, generator,
+    mark=None)` runs one train step and returns (state, metrics).
+
+    The geometry of `bench.train_bench`: CLIP ViT-B/32 (both towers, frozen),
+    Mixer dim 1024 depth 32 over 16x16 tokens, noise_dim 0, dropout 0, VQGAN
+    f16-16384 (frozen), bf16 compute with float32 master weights, Adam lr 1e-3
+    with bf16 moments, `cutn` 224-px pooled cutouts with additive noise, one
+    text encode per step (same_io), tokens `[SOT, 0, EOT, 0...]`. The
+    augmentations are TRAIN_AUGS, Ji and Er: the geometric codes Af/Pe of the
+    bench's default set are not ported yet (ROADMAP A8)."""
+    dtype = torch.bfloat16
+    cfg = make_config(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32,
+                      dropout=0, vq_image_size=16, noise_dim=0, batch_size=batch, cutn=cutn,
+                      compute_dtype="bfloat16", augs=list(TRAIN_AUGS))
+    frozen = build_frozen(cfg, dtype, device=device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    mapper = build_mapper(dict(cfg), vq_channels=256, dtype=dtype, device=device)
+    mapper.init_random_(gen)
+    state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
+    cutouts = MakeCutouts(cut_size=224, cutn=cutn, pool_size=224, augs=list(TRAIN_AUGS))
+    step_fn, _ = make_train_step(cfg, mapper, frozen, cutouts, inp_is_tokens=True,
+                                 out_is_tokens=True, same_io=True)
+    tokens = torch.zeros(batch, 77, dtype=torch.long, device=device)
+    tokens[:, 0], tokens[:, 2] = SOT, EOT
+    return step_fn, state, {"inp": tokens, "out": tokens}

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from feed_forward_vqgan_clip_tpu.registry import VQGAN_CONFIGS
+from feed_forward_vqgan_clip_tpu_torch.registry import VQGAN_CONFIGS
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_mapper_apply
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
@@ -53,13 +53,13 @@ class Generator:
 
 def build_generator(*, clip_model: str = "ViT-B/32", vqgan_config=None, dim: int = 1024,
                     depth: int = 32, vq_image_size: int = 16, noise_dim: int = 0,
-                    dtype=torch.bfloat16, device=None, seed: int = 0) -> Generator:
-    """A Generator with random weights drawn from `seed`; the defaults are the
-    flagship (`__graft_entry__.entry`): CLIP ViT-B/32 text tower, Mixer 32x1024,
-    VQGAN f16-16384."""
+                    dtype=torch.bfloat16, device="cuda", seed: int = 0) -> Generator:
+    """A Generator with random weights drawn from `seed`, on `device`; the
+    defaults are the flagship (`__graft_entry__.entry`): CLIP ViT-B/32 text
+    tower, Mixer 32x1024, VQGAN f16-16384."""
     vq_cfg = dict(vqgan_config or VQGAN_CONFIGS["vqgan_imagenet_f16_16384"])
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
-    perceptor = load_perceptor(clip_model, dtype=dtype, device=device, seed=seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    perceptor = load_perceptor(clip_model, dtype=dtype, device=device, seed=seed, image=False)
     vq = make_vqgan(vq_cfg, dtype=dtype, device=device).init_random_(gen)
     mapper_cfg = dict(clip_model=clip_model, model_type="mlp_mixer", dim=dim, depth=depth,
                       vq_image_size=vq_image_size, noise_dim=noise_dim)

@@ -1,9 +1,9 @@
 """JAX parameter pytrees -> state dicts of the port's modules.
 
 The inverse of the JAX package's torch converters (io/torch_import.py) for the
-modules of the served path: the MLP-Mixer mapper, the VQGAN decoder and the CLIP
-text tower. Parity tests use these to run the JAX module and its port on the
-same weights. Inputs are the pytrees as the JAX modules' `init` returns them
+modules of the served and trained paths: the MLP-Mixer mapper, the VQGAN decoder
+and the CLIP text and image towers. Parity tests use these to run the JAX module
+and its port on the same weights. Inputs are the pytrees as the JAX modules' `init` returns them
 (with or without the top-level 'params'), leaves as numpy arrays (or anything
 np.asarray takes). Layouts:
 
@@ -102,20 +102,9 @@ def vqgan_state_dict(tree):
     return sd
 
 
-def clip_text_state_dict(tree):
-    """models.clip_vit.CLIP params -> the port's TextTransformer state dict
-    (OpenAI CLIP names)."""
-    p = _params(tree)
-    text = p["text"] if "text" in p else p
-    sd = {
-        "token_embedding.weight": _t(text["token_embedding"]),
-        "positional_embedding": _t(text["positional_embedding"]),
-        "text_projection": _t(text["text_projection"]),
-    }
-    _norm(sd, "ln_final", text["ln_final"]["LayerNorm_0"])
-    for name, blk in text["transformer"].items():
-        i = int(name.split("_")[1])
-        pre = f"transformer.resblocks.{i}"
+def _clip_resblocks(sd, prefix, blocks):
+    for name, blk in blocks.items():
+        pre = f"{prefix}transformer.resblocks.{int(name.split('_')[1])}"
         _norm(sd, f"{pre}.ln_1", blk["ln_1"]["LayerNorm_0"])
         _norm(sd, f"{pre}.ln_2", blk["ln_2"]["LayerNorm_0"])
         attn = blk["attn"]
@@ -128,4 +117,42 @@ def clip_text_state_dict(tree):
         _linear(sd, f"{pre}.attn.out_proj", attn["out"])
         _linear(sd, f"{pre}.mlp.c_fc", blk["c_fc"])
         _linear(sd, f"{pre}.mlp.c_proj", blk["c_proj"])
+
+
+def clip_text_state_dict(tree):
+    """models.clip_vit.CLIP params -> the port's TextTransformer state dict
+    (OpenAI CLIP names)."""
+    p = _params(tree)
+    text = p["text"] if "text" in p else p
+    sd = {
+        "token_embedding.weight": _t(text["token_embedding"]),
+        "positional_embedding": _t(text["positional_embedding"]),
+        "text_projection": _t(text["text_projection"]),
+    }
+    _norm(sd, "ln_final", text["ln_final"]["LayerNorm_0"])
+    _clip_resblocks(sd, "", text["transformer"])
+    return sd
+
+
+def clip_image_state_dict(tree):
+    """models.clip_vit.CLIP params -> the port's image-tower entries (`visual.*`,
+    OpenAI CLIP names). The JAX patch kernel (p, p, 3, width) HWIO becomes the
+    Conv2d weight (width, 3, p, p)."""
+    vis = _params(tree)["visual"]
+    sd = {
+        "visual.conv1.weight": _t(np.transpose(np.asarray(vis["conv1"]["kernel"]), (3, 2, 0, 1))),
+        "visual.class_embedding": _t(vis["class_embedding"]),
+        "visual.positional_embedding": _t(vis["positional_embedding"]),
+        "visual.proj": _t(vis["proj"]),
+    }
+    _norm(sd, "visual.ln_pre", vis["ln_pre"]["LayerNorm_0"])
+    _norm(sd, "visual.ln_post", vis["ln_post"]["LayerNorm_0"])
+    _clip_resblocks(sd, "visual.", vis["transformer"])
+    return sd
+
+
+def clip_state_dict(tree):
+    """models.clip_vit.CLIP params (both towers) -> the port's CLIP state dict."""
+    sd = {**clip_text_state_dict(tree), **clip_image_state_dict(tree)}
+    sd["logit_scale"] = _t(_params(tree)["logit_scale"]).reshape(())
     return sd

@@ -1,20 +1,24 @@
-"""CLIP ViT text tower (the `encode_text` half of OpenAI CLIP).
+"""CLIP ViT text and image towers (OpenAI CLIP's `encode_text` / `encode_image`).
 
-Port of the text half of feed_forward_vqgan_clip_tpu/models/clip_vit.py.
-Attributes carry OpenAI CLIP's state-dict names (io/torch_import.convert_clip_vit
-documents them): `token_embedding`, `positional_embedding`,
+Port of feed_forward_vqgan_clip_tpu/models/clip_vit.py. Attributes carry OpenAI
+CLIP's state-dict names (io/torch_import.convert_clip_vit documents them): the
+text tower at the top level (`token_embedding`, `positional_embedding`,
 `transformer.resblocks.{i}.{ln_1, attn.in_proj_weight, attn.in_proj_bias,
-attn.out_proj, ln_2, mlp.c_fc, mlp.c_proj}`, `ln_final`, `text_projection`.
-Parameters are float32; `dtype` is the compute dtype. Attention is plain
-matmul + f32 softmax (the JAX MHSA has no kernel either). The image tower is
-slice 2 (ROADMAP A7).
+attn.out_proj, ln_2, mlp.c_fc, mlp.c_proj}`, `ln_final`, `text_projection`), the
+image tower under `visual.` (`conv1.weight`, `class_embedding`,
+`positional_embedding`, `ln_pre`, `transformer.resblocks.{i}...`, `ln_post`,
+`proj`), and `logit_scale`. Parameters are float32; `dtype` is the compute
+dtype. Attention is plain matmul + f32 softmax (the JAX MHSA has no kernel
+either). Images are NHWC at the public functions, as in the JAX package; the
+patchify is the reference's stride-p Conv2d (the JAX matmul patchify was a TPU
+lowering fix computing the same function).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from feed_forward_vqgan_clip_tpu.registry import CLIP_VIT_CONFIGS
+from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_VIT_CONFIGS
 
 
 def quick_gelu(x):
@@ -133,7 +137,18 @@ class TextTransformer(nn.Module):
         """The JAX module's init from a torch.Generator: embeddings N(0, 0.02),
         positions N(0, 0.01), projection N(0, width^-1/2), lecun-normal dense
         kernels, zero biases, unit norms."""
-        for m in self.modules():
+        _init_blocks_(self.transformer, self.ln_final, generator=generator)
+        self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
+        self.positional_embedding.normal_(0.0, 0.01, generator=generator)
+        self.text_projection.normal_(0.0, self.width ** -0.5, generator=generator)
+        return self
+
+
+@torch.no_grad()
+def _init_blocks_(*modules, generator):
+    """lecun-normal dense kernels, zero biases, unit norms (flax defaults)."""
+    for module in modules:
+        for m in module.modules():
             if isinstance(m, nn.Linear):
                 m.weight.normal_(0.0, m.weight.shape[1] ** -0.5, generator=generator)
                 m.bias.zero_()
@@ -144,15 +159,89 @@ class TextTransformer(nn.Module):
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
+
+
+class VisionTransformer(nn.Module):
+    """images (B, H, W, 3) NHWC, CLIP-normalised -> (B, embed_dim) float32: stride-p
+    patchify, class token, positions, pre-LN transformer, LN of the class token,
+    projection."""
+
+    def __init__(self, image_size=224, patch_size=32, width=768, layers=12, heads=12,
+                 embed_dim=512, act="quick_gelu", *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.patch_size, self.width, self.embed_dim = patch_size, width, embed_dim
+        self.dtype = dtype
+        grid = image_size // patch_size
+        self.conv1 = nn.Conv2d(3, width, patch_size, stride=patch_size, bias=False,
+                               device=device)
+        self.class_embedding = nn.Parameter(torch.empty(width, device=device))
+        self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width,
+                                                             device=device))
+        self.ln_pre = LayerNorm(width, dtype=dtype, device=device)
+        self.transformer = Transformer(width, layers, heads, act, dtype=dtype, device=device)
+        self.ln_post = LayerNorm(width, dtype=dtype, device=device)
+        self.proj = nn.Parameter(torch.empty(width, embed_dim, device=device))
+
+    def forward(self, x):
+        dt = self.dtype
+        h = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
+                     stride=self.patch_size)
+        h = h.flatten(2).transpose(1, 2)  # (B, grid*grid, width), patches row-major
+        cls = self.class_embedding.to(dt).expand(h.shape[0], 1, self.width)
+        h = torch.cat([cls, h], dim=1) + self.positional_embedding.to(dt)
+        h = self.transformer(self.ln_pre(h))
+        return (self.ln_post(h[:, 0, :]) @ self.proj.to(dt)).float()
+
+    @torch.no_grad()
+    def init_random_(self, generator):
+        """The JAX module's init: lecun-normal patch kernel and dense kernels, class
+        token N(0, 0.02), positions N(0, 0.01), projection N(0, width^-1/2)."""
+        _init_blocks_(self.transformer, self.ln_pre, self.ln_post, generator=generator)
+        self.conv1.weight.normal_(0.0, self.conv1.weight[0].numel() ** -0.5,
+                                  generator=generator)
+        self.class_embedding.normal_(0.0, 0.02, generator=generator)
         self.positional_embedding.normal_(0.0, 0.01, generator=generator)
-        self.text_projection.normal_(0.0, self.width ** -0.5, generator=generator)
+        self.proj.normal_(0.0, self.width ** -0.5, generator=generator)
+        return self
+
+
+class CLIP(TextTransformer):
+    """Both towers and `logit_scale`: the text tower's attributes at the top level
+    and the image tower under `visual`, as in OpenAI CLIP's state dict."""
+
+    def __init__(self, cfg: dict, act="quick_gelu", *, dtype=torch.float32, device=None):
+        super().__init__(
+            context_length=cfg["context_length"], vocab_size=cfg["vocab_size"],
+            width=cfg["text_width"], layers=cfg["text_layers"], heads=cfg["text_heads"],
+            embed_dim=cfg["embed_dim"], act=act, dtype=dtype, device=device,
+        )
+        self.visual = VisionTransformer(
+            image_size=cfg["image_size"], patch_size=cfg["patch_size"],
+            width=cfg["vision_width"], layers=cfg["vision_layers"],
+            heads=cfg["vision_heads"], embed_dim=cfg["embed_dim"], act=act, dtype=dtype,
+            device=device,
+        )
+        self.logit_scale = nn.Parameter(torch.full((), 4.6052, device=device))
+
+    def encode_image(self, x):
+        return self.visual(x)
+
+    @torch.no_grad()
+    def init_random_(self, generator):
+        """Text tower first (the same draws as a text-only tower from the same
+        generator), then the image tower."""
+        super().init_random_(generator)
+        self.visual.init_random_(generator)
+        self.logit_scale.fill_(4.6052)
         return self
 
 
 def make_clip_from_config(cfg: dict, act: str = "quick_gelu", dtype=torch.float32,
-                          device=None) -> TextTransformer:
-    """The text tower of a CLIP ViT from a CLIP_VIT_CONFIGS-schema dict."""
+                          device=None, image: bool = False) -> TextTransformer:
+    """A CLIP ViT from a CLIP_VIT_CONFIGS-schema dict: both towers (`CLIP`) with
+    `image`, else the text tower alone."""
+    if image:
+        return CLIP(cfg, act, dtype=dtype, device=device)
     return TextTransformer(
         context_length=cfg["context_length"], vocab_size=cfg["vocab_size"],
         width=cfg["text_width"], layers=cfg["text_layers"], heads=cfg["text_heads"],
@@ -160,9 +249,11 @@ def make_clip_from_config(cfg: dict, act: str = "quick_gelu", dtype=torch.float3
     )
 
 
-def make_clip(name: str, dtype=torch.float32, device=None) -> TextTransformer:
-    """The text tower of a CLIP ViT from a backbone name ('ViT-B/32',
-    'openclip/ViT-B-32/<tag>'; non-quickgelu OpenCLIP tags use exact GELU)."""
+def make_clip(name: str, dtype=torch.float32, device=None,
+              image: bool = False) -> TextTransformer:
+    """A CLIP ViT from a backbone name ('ViT-B/32', 'openclip/ViT-B-32/<tag>';
+    non-quickgelu OpenCLIP tags use exact GELU): both towers with `image`, else
+    the text tower alone."""
     act = "quick_gelu"
     arch = name
     if name.startswith("openclip/"):
@@ -173,4 +264,5 @@ def make_clip(name: str, dtype=torch.float32, device=None) -> TextTransformer:
     if arch not in CLIP_VIT_CONFIGS:
         raise ValueError(f"unknown CLIP ViT arch {arch!r} (from {name!r}); known archs: "
                          f"{sorted(CLIP_VIT_CONFIGS)}")
-    return make_clip_from_config(CLIP_VIT_CONFIGS[arch], act=act, dtype=dtype, device=device)
+    return make_clip_from_config(CLIP_VIT_CONFIGS[arch], act=act, dtype=dtype, device=device,
+                                 image=image)

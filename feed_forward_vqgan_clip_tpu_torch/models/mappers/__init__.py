@@ -6,7 +6,7 @@ ROADMAP A14.
 
 import torch
 
-from feed_forward_vqgan_clip_tpu.registry import CLIP_DIM
+from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_DIM
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 
 

@@ -97,8 +97,24 @@ class MixerBlock(nn.Sequential):
         h = F.linear(h, c2.weight.to(dt), c2.bias.to(dt))
         return x + ch.fn[4](h)
 
+    def train_weights(self):
+        """This block's float32 parameters in the kernels' layout as differentiable
+        views, for ops/kernels/mixer_block.MixerBlockTrain (which casts the
+        matrices to the compute dtype inside its forward, so grads reach these
+        parameters in float32)."""
+        tok, ch = self[0], self[1]
+        return MixerBlockWeights(
+            ln1_w=tok.norm.weight, ln1_b=tok.norm.bias,
+            t1=tok.fn[0].weight[:, :, 0], t1b=tok.fn[0].bias,
+            t2=tok.fn[3].weight[:, :, 0], t2b=tok.fn[3].bias,
+            ln2_w=ch.norm.weight, ln2_b=ch.norm.bias,
+            w1=ch.fn[0].weight, b1=ch.fn[0].bias,
+            w2=ch.fn[3].weight, b2=ch.fn[3].bias,
+        )
+
     def kernel_weights(self, dtype):
-        """This block's parameters in the layout ops/kernels/mixer_block takes."""
+        """This block's parameters in the layout ops/kernels/mixer_block takes,
+        detached: the inference path."""
         tok, ch = self[0], self[1]
         f32 = lambda p: p.detach().float().contiguous()  # noqa: E731
         mat = lambda p: p.detach().to(dtype).contiguous()  # noqa: E731

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled in one `nvcc` call into a shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds, not minutes):
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o libffvc_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <stem>.o csrc/<stem>.cu          (one per source)
+    nvcc ... -shared -o libffvc_<hash>.so *.o
 
 into `build/ffvc_torch_kernels/` beside the package (listed in .gitignore). The
 file name carries a hash of the sources and flags, so an edited source rebuilds
@@ -44,10 +46,26 @@ _SIGNATURES = {
     "ffvc_vq_argmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, scale, bias, out, rows, d, dtype, stream
     "ffvc_ln_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, scale, bias, out, rhat, inv, rows, d, centered, dtype, stream
+    "ffvc_ln_rows_train": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, lda, sa, b, ldb, sb, b_kmajor, c, ldc, sc, res, ldr, sr, bias, bias_mode,
     # gelu, m, n, k, batch, splits, k_per_split, workspace, dtype, stream
     "ffvc_gemm": [_P, _L, _L, _P, _L, _L, _I, _P, _L, _L, _P, _L, _L, _P, _I,
                   _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # a, lda, sa, a_mmajor, b, ldb, sb, b_kmajor, c, ldc, sc, c_f32, res, ldr, sr,
+    # bias, bias_mode, gelu, gelu_grad, mul, out_f32, m, n, k, batch, batch_sum,
+    # splits, k_per_split, workspace, dtype, stream
+    "ffvc_gemm_train": [_P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L, _I, _P, _L, _L,
+                        _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _P, _I, _P],
+    # x, scale, bias, out, total, d, dtype, stream
+    "ffvc_affine_rows": [_P, _P, _P, _P, _L, _I, _I, _P],
+    # dy, xsrc, inv_saved, scale, res, out, prod, rows, d, dtype, stream
+    "ffvc_ln_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, out, rows, d, stream
+    "ffvc_row_sum": [_P, _P, _I, _I, _P],
+    # a, out, partial, rows, cols, rows_per_chunk, stream
+    "ffvc_col_sum": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -82,17 +100,37 @@ def library_path():
 
 
 def _compile(out):
+    """One nvcc per source, all started together, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees no half-written library
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in _sources():
+            if src.suffix != ".cu":
+                continue
+            obj = str(Path(tmpdir) / f"{src.stem}.o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            output = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + output)
+            if proc.returncode != 0:
+                failed.append(output)
+        if not failed:
+            tmp = str(Path(tmpdir) / out.name)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f[-8000:] for f in failed))
+        os.replace(tmp, out)  # atomic: a concurrent loader sees no half-written library
 
 
 def load_library():

@@ -1,21 +1,40 @@
-"""One inference MLP-Mixer block on the card: the CUDA kernels in csrc/mixer_block.cu.
+"""One MLP-Mixer block on the card, inference and train: the CUDA kernels in
+csrc/mixer_block.cu and csrc/mixer_train.cu.
 
-Replaces feed_forward_vqgan_clip_tpu/ops/pallas/mixer_block.py `_block_kernel`
-(`fused_mixer_block` -> `_fused_mixer_block_impl`) and `_pipe_kernel`
-(`_fused_mixer_block_pipe_impl`, the same function on a skewed TPU schedule at
-B >= 16). Per batch element x (T, D), following `_block_math`:
+Replaces, in feed_forward_vqgan_clip_tpu/ops/pallas/mixer_block.py:
+
+  * `mixer_block`: `_block_kernel` (`fused_mixer_block` ->
+    `_fused_mixer_block_impl`) and `_pipe_kernel` (the same function on a skewed
+    TPU schedule at B >= 16);
+  * `mixer_block_fwd_res`: `_block_res_kernel` and `_block_res_pipe_kernel`
+    (`_fwd_res` / `_fwd_res_pipe`), the forward that also saves the residuals;
+  * `mixer_channel_bwd`: `_channel_bwd_kernel` and `_channel_bwd_pipe_kernel`;
+  * `mixer_token_bwd`: `_token_bwd_kernel`;
+
+and `MixerBlockTrain` is the counterpart of the `fused_mixer_block_train`
+custom_vjp that joins the last three. Per batch element x (T, D), following
+`_block_math`:
 
     xn = LN(x)                                  f32 statistics, eps 1e-5
-    g1 = gelu(t1^T xn + t1b)                    (Et, D), per-hidden-token bias
-    r  = x + (t2^T g1 + t2b)                    (T, D), per-token bias
-    y  = r + (gelu(LN(r) W1 + b1) W2 + b2)      channel FF over D -> Ec -> D
+    g1 = gelu(t1 xn + t1b)                      (Et, D), per-hidden-token bias
+    r  = x + (t2 g1 + t2b)                      (T, D), per-token bias
+    y  = r + (gelu(LN(r) W1^T + b1) W2^T + b2)  channel FF over D -> Ec -> D
 
-`mixer_block` launches two LayerNorm-rows kernels and four GEMMs with fused
-bias / exact-GELU / residual epilogues: the token GEMMs batched over B with the
-weights shared (batch stride 0), the channel GEMMs with the batch folded into
-M = B*T rows. Where a GEMM's output tiles would leave SMs idle (small batch),
-`split_k_plan` cuts K across blocks and an f32 workspace collects the ranges. The TPU-only parts of the Pallas kernel (polynomial erf, pair and
-diagnostic knobs, VMEM gates) have no counterpart.
+The block launches LayerNorm-rows kernels and GEMMs with fused bias /
+exact-GELU (and gelu') / multiply / residual epilogues: the token GEMMs batched
+over B with the weights shared (batch stride 0), the channel GEMMs with the batch
+folded into M = B*T rows. Where a GEMM's output tiles would leave SMs idle,
+`split_k_plan` cuts K across blocks and an f32 workspace collects the ranges.
+Parameter gradients are sums over the batch taken in a fixed order, never with
+atomics: the channel weight grads fold B*T into K, the token weight grads add
+the batch's partial products in order (`batch_sum`), the bias and norm grads go
+through a two-pass column sum. The TPU-only parts of the Pallas kernels
+(polynomial erf and gelu', pair and diagnostic knobs, VMEM gates) have no
+counterpart: gelu and gelu' use `erff` / `expf`.
+
+Every wrapper launches its kernels for a CUDA tensor, runs its plain PyTorch
+version (the `*_plain` function beside it) only for a CPU tensor, and counts its
+launches on `.launches`.
 """
 
 from typing import NamedTuple
@@ -29,6 +48,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 # (BM, BN, BK) of gemm_f32_kernel / gemm_bf16_kernel in csrc/mixer_block.cu
 _TILES = {torch.float32: (64, 64, 16), torch.bfloat16: (128, 128, 32)}
 _MAX_SPLITS = 16
+_COL_SUM_ROWS_PER_CHUNK = 32
+_SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def split_k_plan(m, n, k, batch, dtype, sms):
@@ -62,16 +84,87 @@ class MixerBlockWeights(NamedTuple):
     b2: torch.Tensor     # (D,)
 
 
-def _layer_norm_plain(x, weight, bias):
+MATRICES = ("t1", "t2", "w1", "w2")
+
+
+class MixerResiduals(NamedTuple):
+    """What the train forward saves for the backward (`_block_res_kernel`'s
+    outputs besides the block output), per batch element."""
+
+    g1: torch.Tensor    # (B, Et, D) gelu(a1), working dtype
+    dg1: torch.Tensor   # (B, Et, D) gelu'(a1)
+    rhat: torch.Tensor  # (B, T, D)  LN2-normalised r, working dtype
+    inv2: torch.Tensor  # (B, T, 1)  LN2 inverse std, float32
+    g3: torch.Tensor    # (B, T, Ec) gelu(a3)
+    dg3: torch.Tensor   # (B, T, Ec) gelu'(a3)
+
+
+class ChannelGrads(NamedTuple):
+    """`_channel_bwd_kernel`'s outputs: dr and the channel half's parameter
+    grads summed over the batch, float32, in MixerBlockWeights' layouts."""
+
+    dr: torch.Tensor     # (B, T, D)
+    ln2_w: torch.Tensor  # (D,)
+    ln2_b: torch.Tensor  # (D,)
+    w1: torch.Tensor     # (Ec, D)
+    b1: torch.Tensor     # (Ec,)
+    w2: torch.Tensor     # (D, Ec)
+    b2: torch.Tensor     # (D,)
+
+
+class TokenGrads(NamedTuple):
+    """`_token_bwd_kernel`'s outputs: dx and the token half's parameter grads
+    summed over the batch, float32."""
+
+    dx: torch.Tensor     # (B, T, D)
+    ln1_w: torch.Tensor  # (D,)
+    ln1_b: torch.Tensor  # (D,)
+    t1: torch.Tensor     # (Et, T)
+    t1b: torch.Tensor    # (Et,)
+    t2: torch.Tensor     # (T, Et)
+    t2b: torch.Tensor    # (T,)
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def _ln_rhat(x):
+    """(rhat, inv) in f32, the forward's rounding order rf*inv - mean*inv."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True) - mean * mean
     inv = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
-    return ((xf * inv - mean * inv) * weight + bias).to(x.dtype)
+    return xf * inv - mean * inv, inv
+
+
+def _ln_stats(x):
+    """(xhat, inv) in f32, the backward's rounding order (x - mean)*inv (`_ln_stats`)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+    inv = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
+    return (xf - mean) * inv, inv
+
+
+def _layer_norm_plain(x, weight, bias):
+    return (_ln_rhat(x)[0] * weight + bias).to(x.dtype)
+
+
+def _ln_bwd_plain(dy, xhat, inv, scale):
+    """LayerNorm input gradient (`_ln_bwd`), all f32."""
+    g = dy * scale
+    m1 = g.mean(-1, keepdim=True)
+    m2 = (g * xhat).mean(-1, keepdim=True)
+    return inv * ((g - m1) - xhat * m2)
+
+
+def _gelu_grad(v):
+    """d/dv gelu(v) = Phi(v) + v phi(v), exact erf and exp."""
+    return 0.5 * (1.0 + torch.erf(v * _SQRT_HALF)) + v * torch.exp(-0.5 * v * v) * _INV_SQRT_2PI
 
 
 def mixer_block_plain(x, w: MixerBlockWeights):
-    """The same block in plain PyTorch ops, for x (B, T, D) float32 or bfloat16."""
+    """The block in plain PyTorch ops, for x (B, T, D) float32 or bfloat16."""
     dt = x.dtype
     xn = _layer_norm_plain(x, w.ln1_w, w.ln1_b)
     g1 = F.gelu(torch.matmul(w.t1, xn).float() + w.t1b[:, None]).to(dt)
@@ -79,6 +172,64 @@ def mixer_block_plain(x, w: MixerBlockWeights):
     rn = _layer_norm_plain(r, w.ln2_w, w.ln2_b)
     g3 = F.gelu(F.linear(rn, w.w1).float() + w.b1).to(dt)
     return r + (F.linear(g3, w.w2).float() + w.b2).to(dt)
+
+
+def mixer_block_fwd_res_plain(x, w: MixerBlockWeights):
+    """`_block_res_kernel` in plain PyTorch: (out, MixerResiduals). Products in
+    float32 (exact for bf16 operands), rounded where the kernel rounds."""
+    dt = x.dtype
+    f = lambda t: t.float()  # noqa: E731
+    xn = _layer_norm_plain(x, w.ln1_w, w.ln1_b)
+    a1 = torch.matmul(f(w.t1), f(xn)) + w.t1b[:, None]
+    g1, dg1 = F.gelu(a1).to(dt), _gelu_grad(a1).to(dt)
+    r = x + (torch.matmul(f(w.t2), f(g1)) + w.t2b[:, None]).to(dt)
+    rhat, inv2 = _ln_rhat(r)
+    rn = (rhat * w.ln2_w + w.ln2_b).to(dt)
+    a3 = torch.matmul(f(rn), f(w.w1).T) + w.b1
+    g3, dg3 = F.gelu(a3).to(dt), _gelu_grad(a3).to(dt)
+    out = r + (torch.matmul(f(g3), f(w.w2).T) + w.b2).to(dt)
+    return out, MixerResiduals(g1, dg1, rhat.to(dt), inv2, g3, dg3)
+
+
+def mixer_channel_bwd_plain(dout, res: MixerResiduals, w: MixerBlockWeights):
+    """`_channel_bwd_kernel` in plain PyTorch: dout (B, T, D) float32 -> ChannelGrads."""
+    dt = res.g3.dtype
+    d, ec = dout.shape[-1], res.g3.shape[-1]
+    doutd = dout.to(dt).float()
+    da3f = torch.matmul(doutd, w.w2.float()) * res.dg3.float()   # dg3 * gelu'
+    da3 = da3f.to(dt).float()
+    rhat = res.rhat.float()
+    rn = (rhat * w.ln2_w + w.ln2_b).to(dt).float()
+    drn = torch.matmul(da3, w.w1.float())
+    dr = dout + _ln_bwd_plain(drn, rhat, res.inv2, w.ln2_w)
+    return ChannelGrads(
+        dr=dr,
+        ln2_w=(drn * rhat).sum((0, 1)), ln2_b=drn.sum((0, 1)),
+        w1=da3.reshape(-1, ec).T @ rn.reshape(-1, d), b1=da3f.sum((0, 1)),
+        w2=doutd.reshape(-1, d).T @ res.g3.float().reshape(-1, ec), b2=dout.sum((0, 1)),
+    )
+
+
+def mixer_token_bwd_plain(dr, x, g1, dg1, w: MixerBlockWeights):
+    """`_token_bwd_kernel` in plain PyTorch: dr (B, T, D) float32, x and the saved
+    g1, gelu'(a1) -> TokenGrads. LN1's statistics are recomputed from x."""
+    dt = g1.dtype
+    drd = dr.to(dt).float()
+    xhat, inv1 = _ln_stats(x)
+    xn = (xhat * w.ln1_w + w.ln1_b).to(dt).float()
+    da1f = torch.matmul(w.t2.float().T, drd) * dg1.float()     # dg1 * gelu'
+    da1 = da1f.to(dt).float()
+    dxn = torch.matmul(w.t1.float().T, da1)
+    dx = dr + _ln_bwd_plain(dxn, xhat, inv1, w.ln1_w)
+    return TokenGrads(
+        dx=dx,
+        ln1_w=(dxn * xhat).sum((0, 1)), ln1_b=dxn.sum((0, 1)),
+        t1=torch.einsum("bed,btd->et", da1, xn), t1b=da1f.sum((0, 2)),
+        t2=torch.einsum("btd,bed->te", drd, g1.float()), t2b=dr.sum((0, 2)),
+    )
+
+
+# ---------------------------------------------------------------- kernels
 
 
 def _check(x, w):
@@ -97,7 +248,7 @@ def _check(x, w):
     }
     for name, shape in shapes.items():
         v = getattr(w, name)
-        want = x.dtype if name in ("t1", "t2", "w1", "w2") else torch.float32
+        want = x.dtype if name in MATRICES else torch.float32
         if tuple(v.shape) != shape or v.dtype != want or v.device != x.device:
             raise ValueError(
                 f"weight {name}: {tuple(v.shape)} {v.dtype} on {v.device}, "
@@ -107,60 +258,276 @@ def _check(x, w):
             raise ValueError(f"weight {name} must be contiguous")
 
 
+def _check_like(name, v, shape, dtype, device):
+    if tuple(v.shape) != tuple(shape) or v.dtype != dtype or v.device != device:
+        raise ValueError(f"{name}: {tuple(v.shape)} {v.dtype} on {v.device}, "
+                         f"need {tuple(shape)} {dtype} on {device}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+class _Launcher:
+    """The C entry points of csrc/mixer_*.cu on one device, stream and working dtype."""
+
+    def __init__(self, device, dtype):
+        self.lib = build.load_library()
+        self.device, self.dtype = device, dtype
+        self.code = _DTYPE_CODE[dtype]
+        self.stream = build.stream_handle(device)
+        self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def empty(self, *shape, dtype=None):
+        return torch.empty(*shape, dtype=dtype or self.dtype, device=self.device)
+
+    def ln(self, src, scale, bias, out, rows, d, *, rhat=None, inv=None, centered=0):
+        """LayerNorm rows; rhat, inv or centered take the train kernel."""
+        if rhat is None and inv is None and not centered:
+            err = self.lib.ffvc_ln_rows(src.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                        out.data_ptr(), rows, d, self.code, self.stream)
+        else:
+            err = self.lib.ffvc_ln_rows_train(
+                src.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(rhat),
+                _ptr(inv), rows, d, centered, self.code, self.stream)
+        build.check(err, "ffvc_ln_rows")
+
+    def gemm(self, a, lda, sa, b, ldb, sb, c, ldc, sc, m, n, k, batch, *, a_mmajor=0,
+             b_kmajor=0, c_f32=0, res=None, ldr=0, sr=0, bias=None, bias_mode=0, gelu=0,
+             gelu_grad=None, mul=None, out_f32=None, batch_sum=0):
+        """One GEMM with its epilogue; any train option (an M-major A, gelu', mul,
+        an f32 copy or output, a batch sum) takes the train kernel."""
+        splits, k_per_split = split_k_plan(m, n, k, batch, self.dtype, self.sms)
+        work = None
+        if splits > 1 or batch_sum:
+            work = self.empty(batch * splits * m * n, dtype=torch.float32)
+        if not (a_mmajor or c_f32 or batch_sum or gelu_grad is not None or mul is not None
+                or out_f32 is not None):
+            err = self.lib.ffvc_gemm(
+                a.data_ptr(), lda, sa, b.data_ptr(), ldb, sb, b_kmajor, c.data_ptr(), ldc, sc,
+                _ptr(res), ldr, sr, _ptr(bias), bias_mode, gelu, m, n, k, batch, splits,
+                k_per_split, _ptr(work), self.code, self.stream,
+            )
+        else:
+            err = self.lib.ffvc_gemm_train(
+                a.data_ptr(), lda, sa, a_mmajor, b.data_ptr(), ldb, sb, b_kmajor, c.data_ptr(),
+                ldc, sc, c_f32, _ptr(res), ldr, sr, _ptr(bias), bias_mode, gelu,
+                _ptr(gelu_grad), _ptr(mul), _ptr(out_f32), m, n, k, batch, batch_sum, splits,
+                k_per_split, _ptr(work), self.code, self.stream,
+            )
+        build.check(err, "ffvc_gemm")
+
+    def affine(self, x, scale, bias, out, d):
+        err = self.lib.ffvc_affine_rows(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                        out.data_ptr(), x.numel(), d, self.code, self.stream)
+        build.check(err, "ffvc_affine_rows")
+
+    def ln_bwd(self, dy, xsrc, inv_saved, scale, res, out, prod, rows, d):
+        err = self.lib.ffvc_ln_bwd_rows(dy.data_ptr(), xsrc.data_ptr(), _ptr(inv_saved),
+                                        scale.data_ptr(), res.data_ptr(), out.data_ptr(),
+                                        prod.data_ptr(), rows, d, self.code, self.stream)
+        build.check(err, "ffvc_ln_bwd_rows")
+
+    def col_sum(self, a, rows, cols):
+        """(cols,) f32: the column sums of a (rows, cols) f32 matrix, fixed order."""
+        out = self.empty(cols, dtype=torch.float32)
+        chunk = _COL_SUM_ROWS_PER_CHUNK
+        partial = self.empty(-(-rows // chunk) * cols, dtype=torch.float32)
+        err = self.lib.ffvc_col_sum(a.data_ptr(), out.data_ptr(), partial.data_ptr(), rows,
+                                    cols, chunk, self.stream)
+        build.check(err, "ffvc_col_sum")
+        return out
+
+    def row_sum(self, a, rows, d):
+        out = self.empty(rows, dtype=torch.float32)
+        err = self.lib.ffvc_row_sum(a.data_ptr(), out.data_ptr(), rows, d, self.stream)
+        build.check(err, "ffvc_row_sum")
+        return out
+
+
+def _block_forward(x, w, save):
+    """The block's launches; with `save`, the train forward's residuals too."""
+    _check(x, w)
+    x = x.contiguous()
+    b, t, d = x.shape
+    et, ec = w.t1.shape[0], w.w1.shape[0]
+    k = _Launcher(x.device, x.dtype)
+    with torch.cuda.device(x.device):
+        xn = torch.empty_like(x)
+        k.ln(x, w.ln1_w, w.ln1_b, xn, b * t, d)
+        # token mixing, batched over B; weights shared (batch stride 0)
+        g1 = k.empty(b, et, d)
+        dg1 = k.empty(b, et, d) if save else None
+        k.gemm(w.t1, t, 0, xn, d, t * d, g1, d, et * d, et, d, t, b, bias=w.t1b, bias_mode=1,
+               gelu=1, gelu_grad=dg1)
+        r = torch.empty_like(x)
+        k.gemm(w.t2, et, 0, g1, d, et * d, r, d, t * d, t, d, et, b, res=x, ldr=d, sr=t * d,
+               bias=w.t2b, bias_mode=1)
+        # channel mixing, batch folded into M = B*T rows; xn's buffer is reused
+        rhat = torch.empty_like(x) if save else None
+        inv2 = k.empty(b, t, 1, dtype=torch.float32) if save else None
+        k.ln(r, w.ln2_w, w.ln2_b, xn, b * t, d, rhat=rhat, inv=inv2)
+        g3 = k.empty(b, t, ec)
+        dg3 = k.empty(b, t, ec) if save else None
+        k.gemm(xn, d, 0, w.w1, d, 0, g3, ec, 0, b * t, ec, d, 1, b_kmajor=1, bias=w.b1,
+               bias_mode=2, gelu=1, gelu_grad=dg3)
+        out = torch.empty_like(x)
+        k.gemm(g3, ec, 0, w.w2, ec, 0, out, d, 0, b * t, d, ec, 1, b_kmajor=1, res=r, ldr=d,
+               bias=w.b2, bias_mode=2)
+    return out, (MixerResiduals(g1, dg1, rhat, inv2, g3, dg3) if save else None)
+
+
 def mixer_block(x, w: MixerBlockWeights):
     """One Mixer block, x (B, T, D) -> (B, T, D) in x's dtype.
 
     A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
     if x.device.type == "cpu":
         return mixer_block_plain(x, w)
-    _check(x, w)
-    x = x.contiguous()
-    b, t, d = x.shape
-    et, ec = w.t1.shape[0], w.w1.shape[0]
-    code = _DTYPE_CODE[x.dtype]
-    lib = build.load_library()
-    stream = build.stream_handle(x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-
-    def ln(src, scale, bias, dst):
-        err = lib.ffvc_ln_rows(src.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                               dst.data_ptr(), b * t, d, code, stream)
-        build.check(err, "ffvc_ln_rows")
-
-    def gemm(a, lda, sa, bm, ldb, sb, b_kmajor, c, ldc, sc, res, ldr, sr, bias,
-             bias_mode, gelu, m, n, k, batch):
-        splits, k_per_split = split_k_plan(m, n, k, batch, x.dtype, sms)
-        work = None
-        if splits > 1:
-            work = torch.empty(batch * splits * m * n, dtype=torch.float32, device=x.device)
-        err = lib.ffvc_gemm(
-            a.data_ptr(), lda, sa, bm.data_ptr(), ldb, sb, b_kmajor, c.data_ptr(), ldc,
-            sc, res.data_ptr() if res is not None else None, ldr, sr, bias.data_ptr(),
-            bias_mode, gelu, m, n, k, batch, splits, k_per_split,
-            work.data_ptr() if work is not None else None, code, stream,
-        )
-        build.check(err, "ffvc_gemm")
-
-    with torch.cuda.device(x.device):
-        xn = torch.empty_like(x)
-        ln(x, w.ln1_w, w.ln1_b, xn)
-        # token mixing, batched over B; weights shared (batch stride 0)
-        g1 = torch.empty(b, et, d, dtype=x.dtype, device=x.device)
-        gemm(w.t1, t, 0, xn, d, t * d, 0, g1, d, et * d, None, 0, 0, w.t1b, 1, 1,
-             et, d, t, b)
-        r = torch.empty_like(x)
-        gemm(w.t2, et, 0, g1, d, et * d, 0, r, d, t * d, x, d, t * d, w.t2b, 1, 0,
-             t, d, et, b)
-        # channel mixing, batch folded into M = B*T rows; xn's buffer is reused
-        ln(r, w.ln2_w, w.ln2_b, xn)
-        g3 = torch.empty(b * t, ec, dtype=x.dtype, device=x.device)
-        gemm(xn, d, 0, w.w1, d, 0, 1, g3, ec, 0, None, 0, 0, w.b1, 2, 1,
-             b * t, ec, d, 1)
-        out = torch.empty_like(x)
-        gemm(g3, ec, 0, w.w2, ec, 0, 1, out, d, 0, r, d, 0, w.b2, 2, 0,
-             b * t, d, ec, 1)
+    out, _ = _block_forward(x, w, save=False)
     mixer_block.launches += 1
     return out
 
 
+def mixer_block_fwd_res(x, w: MixerBlockWeights):
+    """The train forward: (out, MixerResiduals). `out` is the same launches'
+    value as `mixer_block`'s, bit for bit.
+
+    A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
+    if x.device.type == "cpu":
+        return mixer_block_fwd_res_plain(x, w)
+    out, res = _block_forward(x, w, save=True)
+    mixer_block_fwd_res.launches += 1
+    return out, res
+
+
+def mixer_channel_bwd(dout, res: MixerResiduals, w: MixerBlockWeights):
+    """The channel half's backward: dout (B, T, D) float32 -> ChannelGrads.
+
+    A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
+    if dout.device.type == "cpu":
+        return mixer_channel_bwd_plain(dout, res, w)
+    b, t, d = dout.shape
+    dt, dev = res.g3.dtype, dout.device
+    ec = w.w1.shape[0]
+    _check(res.rhat, w)
+    _check_like("dout", dout, (b, t, d), torch.float32, dev)
+    for name, shape in (("rhat", (b, t, d)), ("g3", (b, t, ec)), ("dg3", (b, t, ec))):
+        _check_like(name, getattr(res, name), shape, dt, dev)
+    _check_like("inv2", res.inv2, (b, t, 1), torch.float32, dev)
+    bt = b * t
+    k = _Launcher(dev, dt)
+    with torch.cuda.device(dev):
+        doutd = dout.to(dt)
+        # da3 = (dout W2) * gelu'(a3), rounded; its f32 value feeds db1
+        da3, da3f = k.empty(bt, ec), k.empty(bt, ec, dtype=torch.float32)
+        k.gemm(doutd, d, 0, w.w2, ec, 0, da3, ec, 0, bt, ec, d, 1, mul=res.dg3,
+               out_f32=da3f)
+        # dW2 = dout^T g3 and dW1 = da3^T rn: the batch folded into K = B*T
+        dw2 = k.empty(d, ec, dtype=torch.float32)
+        k.gemm(doutd, d, 0, res.g3, ec, 0, dw2, ec, 0, d, ec, bt, 1, a_mmajor=1, c_f32=1)
+        rn = k.empty(bt, d)
+        k.affine(res.rhat, w.ln2_w, w.ln2_b, rn, d)
+        dw1 = k.empty(ec, d, dtype=torch.float32)
+        k.gemm(da3, ec, 0, rn, d, 0, dw1, d, 0, ec, d, bt, 1, a_mmajor=1, c_f32=1)
+        # drn = da3 W1, then LN2's backward from the saved rhat and inverse std
+        drn = k.empty(b, t, d, dtype=torch.float32)
+        k.gemm(da3, ec, 0, w.w1, d, 0, drn, d, 0, bt, d, ec, 1, c_f32=1)
+        dr, prod = torch.empty_like(drn), torch.empty_like(drn)
+        k.ln_bwd(drn, res.rhat, res.inv2, w.ln2_w, dout, dr, prod, bt, d)
+        grads = ChannelGrads(
+            dr=dr, ln2_w=k.col_sum(prod, bt, d), ln2_b=k.col_sum(drn, bt, d),
+            w1=dw1, b1=k.col_sum(da3f, bt, ec), w2=dw2, b2=k.col_sum(dout, bt, d),
+        )
+    mixer_channel_bwd.launches += 1
+    return grads
+
+
+def mixer_token_bwd(dr, x, g1, dg1, w: MixerBlockWeights):
+    """The token half's backward: dr (B, T, D) float32, the block input x and the
+    saved g1, gelu'(a1) -> TokenGrads.
+
+    A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
+    if dr.device.type == "cpu":
+        return mixer_token_bwd_plain(dr, x, g1, dg1, w)
+    _check(x, w)
+    b, t, d = x.shape
+    dt, dev = x.dtype, x.device
+    et = w.t1.shape[0]
+    _check_like("dr", dr, (b, t, d), torch.float32, dev)
+    _check_like("g1", g1, (b, et, d), dt, dev)
+    _check_like("dg1", dg1, (b, et, d), dt, dev)
+    x = x.contiguous()
+    k = _Launcher(dev, dt)
+    with torch.cuda.device(dev):
+        drd = dr.to(dt)
+        # da1 = (t2^T dr) * gelu'(a1), batched; its f32 value feeds dt1b
+        da1, da1f = k.empty(b, et, d), k.empty(b, et, d, dtype=torch.float32)
+        k.gemm(w.t2, et, 0, drd, d, t * d, da1, d, et * d, et, d, t, b, a_mmajor=1,
+               mul=dg1, out_f32=da1f)
+        # dt2 = sum_b dr g1^T, dt1 = sum_b da1 xn^T: batch products added in order
+        dt2 = k.empty(t, et, dtype=torch.float32)
+        k.gemm(drd, d, t * d, g1, d, et * d, dt2, et, 0, t, et, d, b, b_kmajor=1, c_f32=1,
+               batch_sum=1)
+        xn = torch.empty_like(x)
+        k.ln(x, w.ln1_w, w.ln1_b, xn, b * t, d, centered=1)
+        dt1 = k.empty(et, t, dtype=torch.float32)
+        k.gemm(da1, d, et * d, xn, d, t * d, dt1, t, 0, et, t, d, b, b_kmajor=1, c_f32=1,
+               batch_sum=1)
+        # dxn = t1^T da1, then LN1's backward with its statistics recomputed from x
+        dxn = k.empty(b, t, d, dtype=torch.float32)
+        k.gemm(w.t1, t, 0, da1, d, et * d, dxn, d, t * d, t, d, et, b, a_mmajor=1, c_f32=1)
+        dx, prod = torch.empty_like(dxn), torch.empty_like(dxn)
+        k.ln_bwd(dxn, x, None, w.ln1_w, dr, dx, prod, b * t, d)
+        grads = TokenGrads(
+            dx=dx, ln1_w=k.col_sum(prod, b * t, d), ln1_b=k.col_sum(dxn, b * t, d),
+            t1=dt1, t1b=k.col_sum(k.row_sum(da1f, b * et, d), b, et),
+            t2=dt2, t2b=k.col_sum(k.row_sum(dr, b * t, d), b, t),
+        )
+    mixer_token_bwd.launches += 1
+    return grads
+
+
 mixer_block.launches = 0
+mixer_block_fwd_res.launches = 0
+mixer_channel_bwd.launches = 0
+mixer_token_bwd.launches = 0
+
+
+class MixerBlockTrain(torch.autograd.Function):
+    """Differentiable Mixer block: forward `mixer_block_fwd_res`, backward
+    `mixer_channel_bwd` then `mixer_token_bwd` (the `fused_mixer_block_train`
+    custom_vjp). Takes the block's twelve float32 master parameters in
+    MixerBlockWeights order and layouts and casts the matrices to `dtype` inside
+    the forward, so the float32 grads reach the masters unrounded, as the JAX
+    vjp's `_like` casts do:
+
+        out = MixerBlockTrain.apply(x, dtype, *weights)
+    """
+
+    @staticmethod
+    def forward(ctx, x, dtype, *params):
+        w = MixerBlockWeights(*(
+            p.detach().to(dtype).contiguous() if name in MATRICES
+            else p.detach().float().contiguous()
+            for name, p in zip(MixerBlockWeights._fields, params)
+        ))
+        xc = x.detach().to(dtype).contiguous()
+        out, res = mixer_block_fwd_res(xc, w)
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(xc, *res, *w)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, g1, dg1, rhat, inv2, g3, dg3, *wl = ctx.saved_tensors
+        w = MixerBlockWeights(*wl)
+        ch = mixer_channel_bwd(dout.float().contiguous(),
+                               MixerResiduals(g1, dg1, rhat, inv2, g3, dg3), w)
+        tok = mixer_token_bwd(ch.dr, x, g1, dg1, w)
+        grads = MixerBlockWeights(
+            ln1_w=tok.ln1_w, ln1_b=tok.ln1_b, t1=tok.t1, t1b=tok.t1b, t2=tok.t2, t2b=tok.t2b,
+            ln2_w=ch.ln2_w, ln2_b=ch.ln2_b, w1=ch.w1, b1=ch.b1, w2=ch.w2, b2=ch.b2,
+        )
+        return (tok.dx.to(ctx.x_dtype), None, *grads)

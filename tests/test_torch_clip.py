@@ -65,11 +65,11 @@ def test_make_clip_names():
 
 
 def test_load_perceptor_random_init_is_seeded(caplog):
-    a = load_perceptor("tiny", dtype=torch.float32, seed=3)
-    b = load_perceptor("tiny", dtype=torch.float32, seed=3)
+    a = load_perceptor("tiny", dtype=torch.float32, device="cpu", seed=3)
+    b = load_perceptor("tiny", dtype=torch.float32, device="cpu", seed=3)
     assert "random init" in caplog.text
     assert (a.size, a.dim) == (32, 32)
     toks = torch.from_numpy(_tokens(np.random.default_rng(0), 2)).long()
     np.testing.assert_array_equal(a.encode_text(toks).numpy(), b.encode_text(toks).numpy())
     with pytest.raises(NotImplementedError):
-        load_perceptor("tiny", "weights.pt")
+        load_perceptor("tiny", "weights.pt", device="cpu")

@@ -8,8 +8,9 @@ JAX, so there run it without the conftest:
 
 Tolerances: VQ indices equal except at near-ties (plain top-2 score gap below
 the fp32 bound 4*C*eps*(|x| max|c| + max|c|^2)), at least 99.9% agreement;
-the Mixer block f32 (TF32 off) within 1e-3 and bf16 within 3e-2 of max |plain|;
-the tiny slice, f32, within 1e-3 of the CPU module path.
+the Mixer block and the Mixer train kernels (every output and parameter grad)
+f32 (TF32 off) within 1e-3 and bf16 within 3e-2 of max |plain|; the tiny
+slice, f32, within 1e-3 of the CPU module path.
 """
 
 import copy
@@ -22,8 +23,17 @@ from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+    ChannelGrads,
+    MixerResiduals,
+    TokenGrads,
     mixer_block,
+    mixer_block_fwd_res,
+    mixer_block_fwd_res_plain,
     mixer_block_plain,
+    mixer_channel_bwd,
+    mixer_channel_bwd_plain,
+    mixer_token_bwd,
+    mixer_token_bwd_plain,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
     nearest_codebook_indices_kernel,
@@ -90,11 +100,53 @@ def test_mixer_block_kernel_matches_plain(cuda, dtype, b, s, d):
     assert got.dtype == dtype and err <= tol * ref.float().abs().max().item()
 
 
+def _rel(got, ref):
+    return (got.float() - ref.float()).abs().max().item() / max(ref.float().abs().max().item(),
+                                                               1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d", [(3, 8, 96), (2, 7, 100), (2, 16, 128)])
+def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
+    """K6 (forward with residuals), K7 (channel backward) and K8 (token backward)
+    against their plain versions on the same inputs; K6's output equals K2's bit
+    for bit; two backward runs give bitwise-equal grads."""
+    rng = np.random.default_rng(1)
+    mapper = Mixer(8, s, 8, d, 1, dtype=dtype)
+    for p in mapper.parameters():
+        scale = np.sqrt(p[0].numel() if p.dim() > 1 else 10)
+        p.data = torch.from_numpy(rng.normal(size=p.shape).astype(np.float32) / scale)
+    w = mapper.to(cuda).blocks[0].kernel_weights(dtype)
+    x = torch.from_numpy(rng.normal(size=(b, s * s, d)).astype(np.float32)).to(cuda, dtype)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    counts = (mixer_block_fwd_res.launches, mixer_channel_bwd.launches, mixer_token_bwd.launches)
+    out, res = mixer_block_fwd_res(x, w)
+    assert torch.equal(out, mixer_block(x, w))
+    ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
+    assert _rel(out, ref_out) <= tol
+    for name in MixerResiduals._fields:
+        assert _rel(getattr(res, name), getattr(ref_res, name)) <= tol, name
+    dout = torch.from_numpy(rng.normal(size=(b, s * s, d)).astype(np.float32)).to(cuda)
+    ch = mixer_channel_bwd(dout, res, w)
+    ch_ref = mixer_channel_bwd_plain(dout, res, w)
+    for name in ChannelGrads._fields:
+        assert _rel(getattr(ch, name), getattr(ch_ref, name)) <= tol, name
+    tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
+    tok_ref = mixer_token_bwd_plain(ch.dr, x, res.g1, res.dg1, w)
+    for name in TokenGrads._fields:
+        assert _rel(getattr(tok, name), getattr(tok_ref, name)) <= tol, name
+    again = mixer_token_bwd(mixer_channel_bwd(dout, res, w).dr, x, res.g1, res.dg1, w)
+    for name in TokenGrads._fields:
+        assert torch.equal(getattr(tok, name), getattr(again, name)), name
+    assert (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
+            mixer_token_bwd.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+
+
 def test_slice_on_card_matches_cpu_module_path(cuda):
     vq = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
               num_res_blocks=1, attn_resolutions=(4,), resolution=8)
     cpu = build_generator(clip_model="tiny", vqgan_config=vq, dim=64, depth=2,
-                          vq_image_size=4, dtype=torch.float32, seed=0)
+                          vq_image_size=4, dtype=torch.float32, device="cpu", seed=0)
     card = Generator(cpu.perceptor._replace(module=copy.deepcopy(cpu.perceptor.module).to(cuda)),
                      copy.deepcopy(cpu.mapper).to(cuda), copy.deepcopy(cpu.vq).to(cuda))
     toks = example_tokens(3)

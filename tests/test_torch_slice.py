@@ -146,7 +146,7 @@ def test_port_imports_no_jax_flax_yaml_pil(tmp_path):
         vq = dict(n_embed=32, embed_dim=8, z_channels=8, ch=8, ch_mult=(1, 2),
                   num_res_blocks=1, attn_resolutions=(4,), resolution=8)
         gen = build_generator(clip_model="tiny", vqgan_config=vq, dim=16, depth=2,
-                              vq_image_size=4, dtype=torch.float32)
+                              vq_image_size=4, dtype=torch.float32, device="cpu")
         img = gen.render(gen.encode_tokens(example_tokens(2)))
         assert img.shape == (2, 8, 8, 3) and bool(torch.isfinite(img).all())
         save_grid(img.numpy(), {str(tmp_path / "grid.png")!r})
@@ -184,7 +184,8 @@ def test_wrappers_take_plain_path_on_cpu(rng):
 
 def test_generator_noise_and_repeats():
     gen = build_generator(clip_model="tiny", vqgan_config=TINY_VQ, dim=16, depth=1,
-                          vq_image_size=4, noise_dim=8, dtype=torch.float32, seed=1)
+                          vq_image_size=4, noise_dim=8, dtype=torch.float32, device="cpu",
+                          seed=1)
     assert gen.mapper.input_dim == 32 + 8
     h = gen.encode_tokens(example_tokens(2))
     a = gen.generate(h, nb_repeats=3, generator=torch.Generator().manual_seed(5))

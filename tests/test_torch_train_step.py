@@ -1,0 +1,196 @@
+"""The port's composed train step against the JAX package's `make_train_step`.
+
+Tiny geometry, float32: CLIP "tiny" (both towers), Mixer dim 16 depth 2 over 4x4
+tokens, a two-level VQGAN rendering 8x8 images pooled to 32-px cutouts, batch 3,
+repeat 2, cutn 2, normalize_input, input loss, L2 and TV terms. The JAX modules
+draw their weights from their own init; the port gets them through
+io/from_jax.py. The loss and every mapper gradient must agree, twice:
+
+  * augmentations neutralised: noise_fac 0, the JAX side's identity centre crop,
+    the port's aug list emptied;
+  * Ji and Er applied at numpy-pinned draws on both sides (`ji_apply` with the
+    `Ji` code's saturation and hue factors, `er_apply` with one box for the
+    batch, and the per-sample application masks).
+
+Tolerances: loss 1e-5 relative; each mapper grad within 1e-4 of its max |JAX
+grad| plus 1e-3 of the largest grad of all (f32 sums in other orders through
+the whole chain; the floor covers the token-FF output bias, whose grad is zero
+but for rounding because the next LayerNorms remove a per-token shift).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feed_forward_vqgan_clip_tpu.config import make_config as j_make_config
+from feed_forward_vqgan_clip_tpu.config import vqgan_arch_config as j_vqgan_arch
+from feed_forward_vqgan_clip_tpu.models.mappers import build_mapper as j_build_mapper
+from feed_forward_vqgan_clip_tpu.models.perceptor import load_perceptor as j_load_perceptor
+from feed_forward_vqgan_clip_tpu.models.vqgan import make_vqgan as j_make_vqgan
+from feed_forward_vqgan_clip_tpu.ops import augment as jaug
+from feed_forward_vqgan_clip_tpu.ops.cutouts import MakeCutouts as JMakeCutouts
+from feed_forward_vqgan_clip_tpu.train import loop as jloop
+from feed_forward_vqgan_clip_tpu_torch.config import make_config
+from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
+    clip_state_dict,
+    mixer_state_dict,
+    vqgan_state_dict,
+)
+from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor
+from feed_forward_vqgan_clip_tpu_torch.models.vqgan import make_vqgan
+from feed_forward_vqgan_clip_tpu_torch.ops import augment
+from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+from feed_forward_vqgan_clip_tpu_torch.train.loop import FrozenModels, make_train_step
+from feed_forward_vqgan_clip_tpu_torch.train.state import make_optimizer, make_train_state
+
+TINY_VQ = dict(n_embed=32, embed_dim=8, z_channels=8, ch=8, ch_mult=(1, 2),
+               num_res_blocks=1, attn_resolutions=(4,), resolution=8)
+BS, REPEAT, CUTN, SIZE = 3, 2, 2, 32
+KNOBS = dict(clip_model="tiny", vqgan_arch=TINY_VQ, model_type="mlp_mixer", dim=16, depth=2,
+             dropout=0, vq_image_size=4, batch_size=BS, repeat=REPEAT, cutn=CUTN,
+             cut_size=SIZE, pool_size=SIZE, noise_dim=0, lr=1e-3, compute_dtype="float32",
+             aug_dtype="float32", noise_fac=0.0, normalize_input=True, input_loss=True,
+             input_loss_coef=0.5, l2_coef=0.1, tv_coef=0.1)
+
+
+def _tokens():
+    g = np.random.default_rng(3)
+    toks = np.zeros((BS, 77), np.int32)
+    toks[:, 0] = 49406
+    for i in range(BS):
+        n = 3 + 2 * i
+        toks[i, 1:1 + n] = g.integers(2, 49000, size=n)
+        toks[i, 1 + n] = 49407
+    return toks
+
+
+def _pinned_draws(rng):
+    """Ji factors and masks, and one Er box with its masks, for the cutout batch."""
+    n = CUTN * REPEAT * BS
+    return dict(
+        sf=rng.uniform(0.9, 1.1, size=n).astype(np.float32),
+        hf=rng.uniform(-0.1, 0.1, size=n).astype(np.float32),
+        ji_on=rng.uniform(size=n) < 0.7,
+        box=tuple(np.float32([v]) for v in (5.3, 7.8, 12.0, 9.0)),  # x0, y0, ew, eh
+        er_on=rng.uniform(size=n) < 0.7,
+    )
+
+
+def _jax_augs(d):
+    ones = np.ones_like(d["sf"])
+
+    def ji(key, x):
+        out = jaug.ji_apply(x.astype(jnp.float32), ones, ones, d["sf"], d["hf"], None)
+        return jnp.where(d["ji_on"][:, None, None, None], out.astype(x.dtype), x)
+
+    def er(key, x):
+        return jnp.where(d["er_on"][:, None, None, None], jaug.er_apply(x, *d["box"]), x)
+
+    return [ji, er]
+
+
+def _port_augs(d):
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    ones = torch.ones(len(d["sf"]))
+
+    def ji(gen, x):
+        out = augment.ji_apply(x.float(), ones, ones, t(d["sf"]), t(d["hf"]), None)
+        return torch.where(t(d["ji_on"])[:, None, None, None], out.to(x.dtype), x)
+
+    def er(gen, x):
+        box = [t(v) for v in d["box"]]
+        return torch.where(t(d["er_on"])[:, None, None, None], augment.er_apply(x, *box), x)
+
+    return [ji, er]
+
+
+def _rigs():
+    """The JAX loss_fn with its params, and the port's train step on the same weights."""
+    cfg = j_make_config(augs=["Cc"], **KNOBS)
+    perceptor = j_load_perceptor("tiny", dtype=jnp.float32)
+    arch = j_vqgan_arch(cfg)
+    vq = j_make_vqgan(arch, dtype=jnp.float32)
+    vq_params = jax.jit(vq.init)(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 8)))
+    # a codebook of unit spread instead of the init's [0, 2/n_embed): with codes that
+    # close, the tiny decoder's per-channel GroupNorms see near-constant groups and
+    # E[x^2] - E[x]^2 cancels, so rounding alone would move the grads by ~1e-3
+    codebook = np.random.default_rng(5).normal(size=(32, 8)).astype(np.float32)
+    # and a gentler output layer, so no pixel saturates: at a clamped pixel the TV
+    # term's neighbour differences are exactly 0, where jnp.abs's gradient is 1 and
+    # torch's (the reference's) 0
+    dec = dict(vq_params["params"]["decoder"])
+    dec["conv_out"] = jax.tree.map(lambda a: 0.2 * a, dec["conv_out"])
+    vq_params = {"params": {**vq_params["params"], "codebook": jnp.asarray(codebook),
+                            "decoder": dec}}
+    frozen = jloop.FrozenModels(perceptor, vq, vq_params, None, None, None)
+    mapper = j_build_mapper(dict(cfg), vq_channels=8, dtype=jnp.float32)
+    params = jax.jit(mapper.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32)))
+    jmc = JMakeCutouts(cut_size=SIZE, cutn=CUTN, augs=["Cc"], pool_size=SIZE, noise_fac=0.0)
+    _, loss_fn = jloop.make_train_step(cfg, mapper, frozen, jmc, inp_is_tokens=True,
+                                       out_is_tokens=True)
+    fz = {"clip": perceptor.params, "vq": vq_params}
+
+    clip = make_clip("tiny", device="cpu", image=True)
+    clip.load_state_dict(clip_state_dict(perceptor.params))
+    tvq = make_vqgan(TINY_VQ, device="cpu")
+    tvq.load_state_dict(vqgan_state_dict(vq_params))
+    tfrozen = FrozenModels(Perceptor(clip.eval().requires_grad_(False), "tiny", 32, 32),
+                           tvq.eval().requires_grad_(False))
+    tmap = build_mapper(dict(KNOBS), vq_channels=8, device="cpu")
+    tmap.load_state_dict(mixer_state_dict(params))
+    mc = MakeCutouts(cut_size=SIZE, cutn=CUTN, pool_size=SIZE, augs=["Ji", "Er"],
+                     noise_fac=0.0)
+    step, tloss_fn = make_train_step(make_config(augs=["Ji", "Er"], **KNOBS), tmap, tfrozen,
+                                     mc, inp_is_tokens=True, out_is_tokens=True)
+    return (loss_fn, params, fz, jmc, frozen), (step, tloss_fn, tmap, mc, tfrozen)
+
+
+@pytest.mark.parametrize("augs", ["neutralised", "ji_er_pinned"])
+def test_train_step_loss_and_grads_match_jax(rng, augs):
+    (loss_fn, params, fz, jmc, _), (_, tloss_fn, tmap, mc, _) = _rigs()
+    if augs == "neutralised":
+        mc.augs = []
+    else:
+        draws = _pinned_draws(rng)
+        jmc.augs = _jax_augs(draws)
+        mc.augs = _port_augs(draws)
+    toks = _tokens()
+    (j_loss, j_metrics), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, fz, {"inp": jnp.asarray(toks), "out": jnp.asarray(toks)},
+        jax.random.PRNGKey(0))
+    tt = torch.from_numpy(toks).long()
+    loss, metrics = tloss_fn({"inp": tt, "out": tt}, torch.Generator().manual_seed(0))
+    loss.backward()
+    assert abs(loss.item() - float(j_loss)) <= 1e-5 * abs(float(j_loss))
+    for k in ("dists", "l2", "tv", "diversity"):
+        np.testing.assert_allclose(float(metrics[k]), float(j_metrics[k]), rtol=1e-5, atol=1e-7)
+    want = mixer_state_dict(jax.tree.map(np.asarray, j_grads))
+    got = {n: p.grad for n, p in tmap.named_parameters()}
+    assert sorted(want) == sorted(got)
+    top = max(float(g.abs().max()) for g in want.values())
+    for n, g in want.items():
+        err = float((got[n] - g).abs().max())
+        assert err <= 1e-4 * (float(g.abs().max()) + 1e-3 * top), n
+
+
+def test_train_step_updates_state_with_adam():
+    """train_step runs loss, backward and the cast-state Adam in place: the step
+    count, the loss EMA and the parameters move; the launch-free CPU path."""
+    _, (step, _, tmap, _, _) = _rigs()
+    state = make_train_state(tmap.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
+    before = [p.detach().clone() for p in state.params]
+    tt = torch.from_numpy(_tokens()).long()
+    gen = torch.Generator().manual_seed(0)
+    state, metrics = step(state, {"inp": tt, "out": tt}, gen)
+    state, metrics = step(state, {"inp": tt, "out": tt}, gen)
+    assert state.step == 2 and state.opt_state.count == 2
+    assert set(metrics) == {"loss", "dists", "diversity", "l2", "tv"}
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert abs(float(state.avg_loss) - 1.0) > 0
+    assert all(m.dtype == torch.bfloat16 for m in state.opt_state.mu)
+    moved = [not torch.equal(a, p.detach()) for a, p in zip(before, state.params)]
+    assert sum(moved) >= len(moved) - 2  # all but grads that are zero
