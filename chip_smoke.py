@@ -14,19 +14,24 @@ in phases.
    token backward) against their plain versions, float32 and bf16; the train
    forward's output equal to the inference block's; two backward runs bitwise
    equal.
-6. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
-   each kernel's bound.
-7. [reference] The tiny prompt->image slice, card against CPU module path.
-8. [train-reference] A tiny train step, f32, card (kernels) against CPU
-   (module path): loss and mapper grads.
-9. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
+6. [warp] The warp forward (K9) and its adjoint (K10) against their plain
+   versions at the train step's shape (64 crops of 224x224x3 with real Af and Pe
+   draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
+   at 64x64; two adjoint runs bitwise equal; <K9 x, g> = <x, K10 g> in float32.
+7. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
+   each kernel's bound; for the warps also grid_sample's forward and backward.
+8. [reference] The tiny prompt->image slice, card against CPU module path.
+9. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
+   card (kernels) against CPU (module path, plain warps): loss and mapper grads.
+10. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
    VQGAN f16-16384, bf16, random weights from a seed) answers requests of
    batch 1, 4 and 16; the kernels' launch counters must rise; one PNG grid.
-10. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
-   cutouts with Ji/Er, ViT-B/32 loss, Adam): a warm-up step, then 3 timed steps,
-   each with a finite loss, changed parameters and the train kernels' counters
-   up by 32 each and the VQ kernel's by 1; per-stage CUDA-event times.
-11. Prints the card's line, the kernels' JSON line, then
+11. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
+   cutouts with the default augs Af/Pe/Ji/Er, ViT-B/32 loss, Adam): a warm-up
+   step, then 3 timed steps, each with a finite loss, changed parameters, the
+   Mixer train kernels' counters up by 32 each, the VQ kernel's by 1 and the
+   warp kernels' by 2 each; per-stage CUDA-event times.
+12. Prints the card's line, the kernels' JSON line, then
    `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
@@ -43,6 +48,12 @@ import time
 # f32 tolerances are ceilings relative to the reference's largest magnitude
 MIXER_F32_TOL = 1e-3
 MIXER_BF16_TOL = 3e-2
+# the warps: the same taps and weights as the plain versions, sums in another order
+WARP_F32_TOL = 1e-4
+WARP_BF16_TOL = 3e-2
+WARP_SHAPE = (64, 224, 224, 3)  # the train step's cutouts: B=8 x cutn=8
+# a Pe-family draw at distortion 1.4 whose horizon crosses the 64-px frame
+HORIZON_END_DISP = [[20.89, 41.26], [-32.96, 4.26], [-40.97, -30.36], [0.75, -2.43]]
 VQ_MIN_AGREEMENT = 0.999
 REQUEST_BATCHES = (1, 4, 16)
 TRAIN_STEPS = 3
@@ -279,6 +290,79 @@ def phase_mixer_train(gen):
     return worst
 
 
+def warp_draws(gen, b, h, w):
+    """{name: (m (b, 3, 3) on the card, padding mode)}: the train step's Af
+    (border) and Pe (zeros) maps from their samplers."""
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
+    af = augment.af_matrices(*augment.af_sample(gen, b, h, w, "cuda"), h, w)
+    pe = augment.pe_matrices(*augment.pe_sample(gen, b, h, w, "cuda"), h, w)
+    return {"Af": (af, "border"), "Pe": (pe, "zeros")}
+
+
+def phase_warp(gen):
+    """K9 and K10 against their plain versions, each within its ceiling of max
+    |plain|; two K10 runs bitwise equal; the dot-product test in float32. ->
+    {kernel name: max abs err at the train step's shape in bf16}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
+        warp_adjoint,
+        warp_adjoint_plain,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
+        warp_forward,
+        warp_forward_plain,
+    )
+
+    b, h, w, c = WARP_SHAPE
+    cases = [(f"{name} {b}x{h}x{w}x{c}", m, mode, (b, h, w, c))
+             for name, (m, mode) in warp_draws(gen, b, h, w).items()]
+    start, _ = augment.pe_sample(gen, 1, 64, 64, "cuda")
+    horizon = augment.solve_homography(start + torch.tensor([HORIZON_END_DISP], device="cuda"),
+                                       start)
+    cases.append(("horizon 1x64x64x3", horizon, "zeros", (1, 64, 64, 3)))
+    far = augment._affine3(augment._affine_inverse_about_center(
+        torch.tensor([0.2], device="cuda"), torch.tensor([55.0], device="cuda"),
+        torch.tensor([-60.0], device="cuda"), torch.ones(1, device="cuda"), 64, 64))
+    cases.append(("far-overshoot border 1x64x64x3", far, "border", (1, 64, 64, 3)))
+    worst = {"warp_forward": 0.0, "warp_adjoint": 0.0}
+    for label, m, mode, shape in cases:
+        for dtype, tol in ((torch.float32, WARP_F32_TOL), (torch.bfloat16, WARP_BF16_TOL)):
+            x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            out = warp_forward(x, m, mode)
+            grad = warp_adjoint(g, m, mode)
+            again = warp_adjoint(g, m, mode)
+            torch.cuda.synchronize()
+            for name, got, ref in (("warp_forward", out, warp_forward_plain(x, m, mode)),
+                                   ("warp_adjoint", grad, warp_adjoint_plain(g, m, mode))):
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                log(f"[warp] {name} {label} {mode} {str(dtype)[6:]}: max abs err {err:.3e}, "
+                    f"max|plain| {scale:.3e}, ratio {err / max(scale, 1e-30):.3e} "
+                    f"(ceiling {tol:g})")
+                if not (torch.isfinite(got).all().item() and err <= tol * scale):
+                    raise AssertionError(f"{name} disagrees with its plain version at {label} "
+                                         f"{mode} {dtype}")
+                if dtype == torch.bfloat16 and shape == WARP_SHAPE:
+                    worst[name] = max(worst[name], err)
+            if not torch.equal(grad, again):
+                raise AssertionError(f"warp_adjoint differs between two runs at {label} {dtype}")
+            if dtype == torch.float32:
+                terms = out.double() * g.double()
+                lhs, rhs = terms.sum().item(), (x.double() * grad.double()).sum().item()
+                dot_err = abs(lhs - rhs) / terms.abs().sum().item()
+                log(f"[warp] <K9 x, g> = {lhs:.6e}, <x, K10 g> = {rhs:.6e}: difference / "
+                    f"sum |terms| {dot_err:.3e} (limit 1e-5) at {label}")
+                if not dot_err <= 1e-5:
+                    raise AssertionError(f"warp_adjoint is not the transpose of warp_forward at "
+                                         f"{label}")
+    log("[warp] two adjoint runs bitwise equal at every draw and dtype")
+    return worst
+
+
 def bound(inputs, outputs, flops, peak):
     """(bound_ms, bound_by): the larger of the bytes the function must move (each
     input read once, each output written once) over the memory rate and its
@@ -369,7 +453,66 @@ def phase_timing(gen, smi):
     for name, (kernel_fn, plain_fn, bnd, flops) in cases.items():
         k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
         times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops)
+    times.update(warp_timing(gen, smi, record))
     return times
+
+
+def warp_timing(gen, smi, record):
+    """K9 and K10 at the train step's shape in bf16, for its Af (border) and Pe
+    (zeros) draws, beside the plain versions and grid_sample's forward and
+    input-gradient calls on the same NHWC data; -> {kernel name: the mean over
+    the two draws, one launch each per step}."""
+    import torch
+    import torch.nn.functional as F
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
+        warp_adjoint,
+        warp_adjoint_plain,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
+        warp_forward,
+        warp_forward_plain,
+    )
+
+    b, h, w, c = WARP_SHAPE
+    x = torch.rand(WARP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(WARP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    # per pixel: s(q) (6 products, 6 sums, 2 divides, clamps) and 9 flops a channel
+    ops = b * h * w * (20 + 9 * c)
+    rows = {"warp_forward": [], "warp_adjoint": []}
+    for draw, (m, mode) in warp_draws(gen, b, h, w).items():
+        pad = {"zeros": 0, "border": 1}[mode]
+
+        def grid():  # pixel coords -> grid_sample's [-1, 1] with align_corners=True
+            sx, sy = augment.inverse_coords(m, h, w)
+            return torch.stack([sx * (2.0 / (w - 1)) - 1, sy * (2.0 / (h - 1)) - 1],
+                               -1).to(x.dtype)
+
+        def lib_fwd():
+            return F.grid_sample(x.permute(0, 3, 1, 2), grid(), "bilinear", mode,
+                                 align_corners=True).permute(0, 2, 3, 1).contiguous()
+
+        def lib_bwd():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), grid(), 0, pad, True,
+                [True, False])[0].permute(0, 2, 3, 1).contiguous()
+
+        out = warp_forward(x, m, mode)
+        for name, kernel_fn, plain_fn, lib_fn in (
+                ("warp_forward", lambda: warp_forward(x, m, mode),
+                 lambda: warp_forward_plain(x, m, mode), lib_fwd),
+                ("warp_adjoint", lambda: warp_adjoint(g, m, mode),
+                 lambda: warp_adjoint_plain(g, m, mode), lib_bwd)):
+            k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
+            lib_ms = (cuda_ms(lib_fn) + cuda_ms(lib_fn)) / 2
+            bnd = bound([g if name == "warp_adjoint" else x, m], [out], ops, "f32")
+            row = record(f"{name} {draw} {mode} {b}x{h}x{w}x{c} bf16", k_ms, p_ms, bnd)
+            log(f"[time] {name} {draw}: grid_sample {'backward' if 'adj' in name else 'forward'}"
+                f" {lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) ({smi})")
+            rows[name].append({**row, "library_ms": lib_ms})
+    return {name: {k: (v[0][k] + v[1][k]) / 2 if k != "bound_by" else v[0][k]
+                   for k in v[0]} for name, v in rows.items()}
 
 
 TINY_VQGAN = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
@@ -475,12 +618,14 @@ TINY_TRAIN = dict(clip_model="tiny", vqgan_arch=TINY_VQGAN, dim=64, depth=2, vq_
 
 def phase_train_reference():
     """A tiny train step, float32, with the same weights on the card (Mixer train
-    kernels) and on the CPU (module path); augmentations emptied and noise_fac 0,
-    so no random draw enters. Loss within 1e-4 relative; every mapper grad within
-    1e-3 of its max |CPU grad| plus 1e-3 of the largest grad of all (f32 sums in
-    other orders through 2 blocks, the decoder and the image tower; the floor
-    covers grads that are zero but for rounding, such as the token-FF output
-    bias, whose per-token shift the next LayerNorms remove)."""
+    and warp kernels) and on the CPU (module path, plain warps); Af and Pe at
+    draws pinned from a CPU generator, each with its application mask, and
+    noise_fac 0, so no other random draw enters. Loss within 1e-4 relative;
+    every mapper grad within 1e-3 of its max |CPU grad| plus 1e-3 of the largest
+    grad of all (f32 sums in other orders through 2 blocks, the decoder and the
+    image tower; the floor covers grads that are zero but for rounding, such as
+    the token-FF output bias, whose per-token shift the next LayerNorms
+    remove)."""
     import copy
 
     import torch
@@ -488,17 +633,37 @@ def phase_train_reference():
     from feed_forward_vqgan_clip_tpu_torch.config import make_config
     from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
     from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
     from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block_fwd_res,
         mixer_channel_bwd,
         mixer_token_bwd,
     )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
     from feed_forward_vqgan_clip_tpu_torch.train.loop import (
         FrozenModels,
         build_frozen,
         make_train_step,
     )
+
+    pin = torch.Generator().manual_seed(SEED + 2)
+    n = TINY_TRAIN["cutn"] * TINY_TRAIN["batch_size"]
+    af_draw = augment.af_sample(pin, n, 32, 32)
+    pe_draw = augment.pe_sample(pin, n, 32, 32)
+    af_on, pe_on = (torch.rand(n, generator=pin) < 0.7 for _ in range(2))
+
+    def pinned_augs(dev):
+        def af(gen, x):
+            out = augment.af_apply(x, *(v.to(dev) for v in af_draw))
+            return torch.where(af_on.to(dev)[:, None, None, None], out, x)
+
+        def pe(gen, x):
+            out = augment.pe_apply(x, *(v.to(dev) for v in pe_draw))
+            return torch.where(pe_on.to(dev)[:, None, None, None], out, x)
+
+        return [af, pe]
 
     cfg = make_config(**TINY_TRAIN)
     frozen = build_frozen(cfg, torch.float32, device="cpu", seed=SEED)
@@ -512,19 +677,18 @@ def phase_train_reference():
             frozen.perceptor._replace(module=copy.deepcopy(frozen.perceptor.module).cuda()),
             copy.deepcopy(frozen.vq).cuda())
         m = mapper if dev == "cpu" else copy.deepcopy(mapper).cuda()
-        cutouts = MakeCutouts(cut_size=32, cutn=2, pool_size=32, augs=["Ji", "Er"],
-                              noise_fac=0.0)
-        cutouts.augs = []  # neutralised: no draw
+        cutouts = MakeCutouts(cut_size=32, cutn=2, pool_size=32, noise_fac=0.0)
+        cutouts.augs = pinned_augs(dev)
         _, loss_fn = make_train_step(cfg, m, fz, cutouts, inp_is_tokens=True,
                                      out_is_tokens=True)
-        counts = (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
-                  mixer_token_bwd.launches)
+        kernels = (mixer_block_fwd_res, mixer_channel_bwd, mixer_token_bwd, warp_forward,
+                   warp_adjoint)
+        counts = [k.launches for k in kernels]
         loss, _ = loss_fn({"inp": tokens.to(dev), "out": tokens.to(dev)},
                           torch.Generator(device=dev).manual_seed(0))
         loss.backward()
-        launched = (mixer_block_fwd_res.launches - counts[0],
-                    mixer_channel_bwd.launches - counts[1], mixer_token_bwd.launches - counts[2])
-        if launched != ((2, 2, 2) if dev == "cuda" else (0, 0, 0)):
+        launched = tuple(k.launches - c for k, c in zip(kernels, counts))
+        if launched != ((2, 2, 2, 2, 2) if dev == "cuda" else (0, 0, 0, 0, 0)):
             raise AssertionError(f"train kernel launches on {dev}: {launched}")
         grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
         results[dev] = (loss.detach().item(), grads)
@@ -534,7 +698,8 @@ def phase_train_reference():
     grad_err, worst = max(
         ((g_card[n] - g).abs().max().item() / (g.abs().max().item() + 1e-3 * top), n)
         for n, g in g_cpu.items())
-    log(f"[train-reference] tiny step f32, card vs CPU module path: loss {l_card:.6f} vs "
+    log(f"[train-reference] tiny step f32 with Af and Pe at pinned draws ({int(af_on.sum())} and "
+        f"{int(pe_on.sum())} of {n} crops warped), card vs CPU module path: loss {l_card:.6f} vs "
         f"{l_cpu:.6f} (rel err {loss_err:.3e}, limit 1e-4), worst mapper grad err / "
         f"(max|grad| + 1e-3 max over all grads) {grad_err:.3e} at {worst} (max|grad| "
         f"{g_cpu[worst].abs().max().item():.3e}, largest grad {top:.3e}) over {len(g_cpu)} "
@@ -565,12 +730,16 @@ def phase_train(smi):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
     from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
 
     counters = {"vq_argmin": vq_kernel, "mixer_fwd_res": mixer_block_fwd_res,
-                "mixer_channel_bwd": mixer_channel_bwd, "mixer_token_bwd": mixer_token_bwd}
+                "mixer_channel_bwd": mixer_channel_bwd, "mixer_token_bwd": mixer_token_bwd,
+                "warp_forward": warp_forward, "warp_adjoint": warp_adjoint}
+    # the warps: Af and Pe, one forward and one adjoint each
     per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
-                "mixer_token_bwd": 32}
+                "mixer_token_bwd": 32, "warp_forward": 2, "warp_adjoint": 2}
     t0 = time.perf_counter()
     step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -636,6 +805,7 @@ def main():
     vq_err = phase_vq(gen)
     mixer_err = phase_mixer(gen)
     train_errs = phase_mixer_train(gen)
+    train_errs.update(phase_warp(gen))
     times = phase_timing(gen, smi)
     phase_reference()
     phase_train_reference()
@@ -653,10 +823,15 @@ def main():
          launches["mixer_channel_bwd"], train_errs["mixer_channel_bwd"]),
         ("mixer_token_bwd", "mixer_train.cu", "mixer_block.py:970",
          launches["mixer_token_bwd"], train_errs["mixer_token_bwd"]),
+        ("warp_forward", "warp.cu", "warp_forward.py:96", launches["warp_forward"],
+         train_errs["warp_forward"]),
+        ("warp_adjoint", "warp.cu", "warp_adjoint.py:172", launches["warp_adjoint"],
+         train_errs["warp_adjoint"]),
     ]
-    # no single PyTorch call computes any of these functions: library_ms is null
+    # library_ms: grid_sample's forward and backward for the warps; no single
+    # PyTorch call computes the other functions
     kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
-                "launches": n, "max_abs_err": err, **times[name], "library_ms": None}
+                "launches": n, "max_abs_err": err, "library_ms": None, **times[name]}
                for name, src, tpu, n, err in rows]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")

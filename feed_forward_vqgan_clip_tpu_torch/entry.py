@@ -39,10 +39,6 @@ def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0)
     return prompt_to_image, (example_tokens(batch, device),)
 
 
-# colour jitter and random erasing: the default set's codes that do not warp
-TRAIN_AUGS = ("Ji", "Er")
-
-
 def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0):
     """-> (step_fn, state, batch_dict): `step_fn(state, batch_dict, generator,
     mark=None)` runs one train step and returns (state, metrics).
@@ -51,19 +47,18 @@ def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0):
     Mixer dim 1024 depth 32 over 16x16 tokens, noise_dim 0, dropout 0, VQGAN
     f16-16384 (frozen), bf16 compute with float32 master weights, Adam lr 1e-3
     with bf16 moments, `cutn` 224-px pooled cutouts with additive noise, one
-    text encode per step (same_io), tokens `[SOT, 0, EOT, 0...]`. The
-    augmentations are TRAIN_AUGS, Ji and Er: the geometric codes Af/Pe of the
-    bench's default set are not ported yet (ROADMAP A8)."""
+    text encode per step (same_io), tokens `[SOT, 0, EOT, 0...]`, and the
+    default augmentations `Af`, `Pe`, `Ji`, `Er`."""
     dtype = torch.bfloat16
     cfg = make_config(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32,
                       dropout=0, vq_image_size=16, noise_dim=0, batch_size=batch, cutn=cutn,
-                      compute_dtype="bfloat16", augs=list(TRAIN_AUGS))
+                      compute_dtype="bfloat16")
     frozen = build_frozen(cfg, dtype, device=device, seed=seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     mapper = build_mapper(dict(cfg), vq_channels=256, dtype=dtype, device=device)
     mapper.init_random_(gen)
     state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
-    cutouts = MakeCutouts(cut_size=224, cutn=cutn, pool_size=224, augs=list(TRAIN_AUGS))
+    cutouts = MakeCutouts(cut_size=224, cutn=cutn, pool_size=224)
     step_fn, _ = make_train_step(cfg, mapper, frozen, cutouts, inp_is_tokens=True,
                                  out_is_tokens=True, same_io=True)
     tokens = torch.zeros(batch, 77, dtype=torch.long, device=device)

@@ -5,13 +5,13 @@ Port of feed_forward_vqgan_clip_tpu/ops/cutouts.py (the reference's MakeCutouts)
   * the pooled batch tiled `cutn` times, cutn-major (torch .repeat(cutn, 1, 1, 1));
     the loss tiles its targets the same way;
   * the augmentation pipeline from 2-character codes, default ('Af', 'Pe', 'Ji',
-    'Er'); the port has `Ji` and `Er` (ops/augment.py);
+    'Er'), the set the port has (ops/augment.py);
   * additive noise: per-sample factor ~ U(0, noise_fac) times N(0, 1) noise, in
     the batch's dtype.
 
 Images are NHWC; random draws come from the torch.Generator the call is given.
-The JAX package's `fuse_geometric` (Af+Pe composed into one warp) waits for the
-warps (ROADMAP A8); its unpooled and `interpolate` variants wait for a caller.
+The JAX package's `fuse_geometric` (Af+Pe composed into one warp) is ROADMAP
+A13; its unpooled and `interpolate` variants wait for a caller.
 """
 
 from typing import Optional, Sequence

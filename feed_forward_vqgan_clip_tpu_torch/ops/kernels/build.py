@@ -66,6 +66,10 @@ _SIGNATURES = {
     "ffvc_row_sum": [_P, _P, _I, _I, _P],
     # a, out, partial, rows, cols, rows_per_chunk, stream
     "ffvc_col_sum": [_P, _P, _P, _I, _I, _I, _P],
+    # img, mats, out, b, h, w, c, border, dtype, stream
+    "ffvc_warp_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # g, mats, grad, b, h, w, c, border, dtype, stream
+    "ffvc_warp_adjoint": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

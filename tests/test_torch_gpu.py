@@ -9,8 +9,10 @@ JAX, so there run it without the conftest:
 Tolerances: VQ indices equal except at near-ties (plain top-2 score gap below
 the fp32 bound 4*C*eps*(|x| max|c| + max|c|^2)), at least 99.9% agreement;
 the Mixer block and the Mixer train kernels (every output and parameter grad)
-f32 (TF32 off) within 1e-3 and bf16 within 3e-2 of max |plain|; the tiny
-slice, f32, within 1e-3 of the CPU module path.
+f32 (TF32 off) within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
+kernels f32 within 1e-4 and bf16 within 3e-2 of max |plain| (the same taps and
+weights, sums in another order, one bf16 rounding); the tiny slice, f32, within
+1e-3 of the CPU module path.
 """
 
 import copy
@@ -22,6 +24,7 @@ import torch
 from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
+from feed_forward_vqgan_clip_tpu_torch.ops import augment
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     ChannelGrads,
     MixerResiduals,
@@ -38,6 +41,14 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
     nearest_codebook_indices_kernel,
     nearest_codebook_indices_plain,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
+    warp_adjoint,
+    warp_adjoint_plain,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
+    warp_forward,
+    warp_forward_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -158,3 +169,68 @@ def test_slice_on_card_matches_cpu_module_path(cuda):
     ref = cpu.render(cpu.encode_tokens(toks))
     assert got.shape == (3, 8, 8, 3)
     assert float((got - ref).abs().max()) <= 1e-3
+
+
+# a Pe-family draw at distortion 1.4 whose horizon crosses the 64-px frame
+HORIZON_END_DISP = [[20.89, 41.26], [-32.96, 4.26], [-40.97, -30.36], [0.75, -2.43]]
+
+
+def _warp_mats(draw, b, h, w, gen):
+    if draw == "affine":
+        return augment.af_matrices(*augment.af_sample(gen, b, h, w, "cpu"), h, w)
+    if draw == "projective":
+        return augment.pe_matrices(*augment.pe_sample(gen, b, h, w, "cpu"), h, w)
+    if draw == "horizon":
+        start, _ = augment.pe_sample(gen, 1, h, w, "cpu")
+        return augment.solve_homography(start + torch.tensor([HORIZON_END_DISP]), start)
+    # far overshoot: most samples land far outside the frame
+    inv = augment._affine_inverse_about_center(torch.tensor([0.2]), torch.tensor([55.0]),
+                                               torch.tensor([-60.0]), torch.ones(1), h, w)
+    return augment._affine3(inv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("draw", ["affine", "projective", "horizon", "far_overshoot"])
+def test_warp_kernels_match_plain(cuda, draw, mode, dtype):
+    """K9 (forward) and K10 (adjoint) against their plain versions on the same
+    inputs; two K10 runs give bitwise-equal gradients."""
+    gen = torch.Generator().manual_seed(7)
+    b, h, w = (3, 64, 48) if draw in ("affine", "projective") else (1, 64, 64)
+    m = _warp_mats(draw, b, h, w, gen).to(cuda)
+    img = torch.rand(b, h, w, 3, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, h, w, 3, generator=gen).to(cuda, dtype)
+    counts = (warp_forward.launches, warp_adjoint.launches)
+    out = warp_forward(img, m, mode)
+    grad = warp_adjoint(g, m, mode)
+    again = warp_adjoint(g, m, mode)
+    assert (warp_forward.launches, warp_adjoint.launches) == (counts[0] + 1, counts[1] + 2)
+    assert out.dtype == grad.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert _rel(out, warp_forward_plain(img, m, mode)) <= tol
+    ref = warp_adjoint_plain(g, m, mode)
+    assert _rel(grad, ref) <= tol
+    assert torch.equal(grad, again)
+
+
+@pytest.mark.parametrize("c", [1, 5])
+def test_warp_kernels_take_any_channel_count(cuda, c):
+    """K10 sums channels in chunks of 4: one partial chunk, and a full one plus a
+    partial one."""
+    gen = torch.Generator().manual_seed(c)
+    m = _warp_mats("projective", 2, 40, 56, gen).to(cuda)
+    img = torch.rand(2, 40, 56, c, generator=gen).to(cuda)
+    g = torch.randn(2, 40, 56, c, generator=gen).to(cuda)
+    for mode in ("zeros", "border"):
+        assert _rel(warp_forward(img, m, mode), warp_forward_plain(img, m, mode)) <= 1e-4
+        assert _rel(warp_adjoint(g, m, mode), warp_adjoint_plain(g, m, mode)) <= 1e-4
+
+
+def test_warp_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    m = torch.eye(3, device=cuda)[None]
+    with pytest.raises(TypeError):
+        warp_forward(torch.zeros(1, 8, 8, 3, dtype=torch.float64, device=cuda), m, "zeros")
+    with pytest.raises(ValueError):
+        warp_adjoint(torch.zeros(1, 1, 8, 3, device=cuda), m, "zeros")
+    with pytest.raises(ValueError):
+        warp_forward(torch.zeros(1, 8, 8, 3, device=cuda), m, "reflection")

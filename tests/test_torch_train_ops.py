@@ -1,5 +1,6 @@
 """The port's train-path ops against the JAX package's: pooling, the Ji/Er
-augmentations and their samplers, cutouts, losses, and the cast-state Adam.
+augmentations and their samplers, cutouts, losses, and the cast-state Adam
+(the Af/Pe warps are in tests/test_torch_warp.py).
 
 Inputs and random draws are numpy (torch's and JAX's generators differ), so the
 augmentations compare at pinned draws and the samplers by their distributions.
@@ -166,10 +167,10 @@ def test_apply_probability():
 
 def test_pipeline_codes():
     assert len(augment.build_augment_pipeline(["Ji", "Er", "Ji"])) == 3
-    with pytest.raises(NotImplementedError, match="A8"):
-        augment.build_augment_pipeline(["Af"])
+    assert augment.build_augment_pipeline(["Af", "Pe"]) == [augment.random_affine,
+                                                            augment.random_perspective]
     with pytest.raises(NotImplementedError, match="A13"):
-        augment.build_augment_pipeline(["Ji", "Cc"])
+        augment.build_augment_pipeline(["Af", "Cc"])
 
 
 # ---------------------------------------------------------------- cutouts
@@ -192,13 +193,15 @@ def test_cutouts_match_jax_without_draws(rng):
 
 
 def test_cutouts_noise_and_default_codes():
-    mc = MakeCutouts(cut_size=8, cutn=2, augs=["Ji", "Er"], noise_fac=0.1)
-    x = torch.full((50, 8, 8, 3), 0.5, dtype=torch.bfloat16)
+    mc = MakeCutouts(cut_size=8, cutn=2, augs=[], noise_fac=0.1)  # empty: the default set
+    assert mc.codes == ["Af", "Pe", "Ji", "Er"]
+    x = torch.rand(50, 8, 8, 3, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    x.requires_grad_()
     out = mc(torch.Generator().manual_seed(0), x)
     assert out.shape == (100, 8, 8, 3) and out.dtype == torch.bfloat16
     assert bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError, match="A8"):
-        MakeCutouts(cut_size=8, cutn=2, augs=[])  # empty means the default Af/Pe/Ji/Er
+    out.float().sum().backward()
+    assert x.grad.dtype == torch.bfloat16 and bool(torch.isfinite(x.grad).all())
 
 
 # ---------------------------------------------------------------- losses

@@ -4,13 +4,16 @@ Tiny geometry, float32: CLIP "tiny" (both towers), Mixer dim 16 depth 2 over 4x4
 tokens, a two-level VQGAN rendering 8x8 images pooled to 32-px cutouts, batch 3,
 repeat 2, cutn 2, normalize_input, input loss, L2 and TV terms. The JAX modules
 draw their weights from their own init; the port gets them through
-io/from_jax.py. The loss and every mapper gradient must agree, twice:
+io/from_jax.py. The loss and every mapper gradient must agree, three times:
 
   * augmentations neutralised: noise_fac 0, the JAX side's identity centre crop,
     the port's aug list emptied;
   * Ji and Er applied at numpy-pinned draws on both sides (`ji_apply` with the
     `Ji` code's saturation and hue factors, `er_apply` with one box for the
-    batch, and the per-sample application masks).
+    batch, and the per-sample application masks);
+  * the default set Af, Pe, Ji, Er at numpy-pinned draws (`af_apply` angles and
+    shifts, `pe_apply` corner points, each with its masks): the warps' forward
+    and exact image gradient inside the whole chain.
 
 Tolerances: loss 1e-5 relative; each mapper grad within 1e-4 of its max |JAX
 grad| plus 1e-3 of the largest grad of all (f32 sums in other orders through
@@ -69,19 +72,38 @@ def _tokens():
 
 
 def _pinned_draws(rng):
-    """Ji factors and masks, and one Er box with its masks, for the cutout batch."""
+    """Ji factors and masks, one Er box with its masks, and Af angles and shifts and
+    Pe corner points (distortion 0.7) with their masks, for the cutout batch."""
     n = CUTN * REPEAT * BS
-    return dict(
+    d = dict(
         sf=rng.uniform(0.9, 1.1, size=n).astype(np.float32),
         hf=rng.uniform(-0.1, 0.1, size=n).astype(np.float32),
         ji_on=rng.uniform(size=n) < 0.7,
         box=tuple(np.float32([v]) for v in (5.3, 7.8, 12.0, 9.0)),  # x0, y0, ew, eh
         er_on=rng.uniform(size=n) < 0.7,
     )
+    base = np.float32([[0, 0], [SIZE - 1, 0], [SIZE - 1, SIZE - 1], [0, SIZE - 1]])
+    signs = np.float32([[1, 1], [-1, 1], [-1, -1], [1, -1]])
+    start = np.broadcast_to(base, (n, 4, 2)).astype(np.float32)
+    d.update(
+        af=tuple(rng.uniform(-lim, lim, size=n).astype(np.float32)
+                 for lim in (15.0, 0.1 * SIZE, 0.1 * SIZE)),  # angle (degrees), tx, ty
+        af_on=rng.uniform(size=n) < 0.7,
+        pe=(start, (start + rng.uniform(size=(n, 4, 2)) * SIZE * 0.35 * signs).astype(
+            np.float32)),
+        pe_on=rng.uniform(size=n) < 0.7,
+    )
+    return d
 
 
-def _jax_augs(d):
+def _jax_augs(d, geometric):
     ones = np.ones_like(d["sf"])
+
+    def af(key, x):
+        return jnp.where(d["af_on"][:, None, None, None], jaug.af_apply(x, *d["af"]), x)
+
+    def pe(key, x):
+        return jnp.where(d["pe_on"][:, None, None, None], jaug.pe_apply(x, *d["pe"]), x)
 
     def ji(key, x):
         out = jaug.ji_apply(x.astype(jnp.float32), ones, ones, d["sf"], d["hf"], None)
@@ -90,12 +112,20 @@ def _jax_augs(d):
     def er(key, x):
         return jnp.where(d["er_on"][:, None, None, None], jaug.er_apply(x, *d["box"]), x)
 
-    return [ji, er]
+    return ([af, pe] if geometric else []) + [ji, er]
 
 
-def _port_augs(d):
+def _port_augs(d, geometric):
     t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
     ones = torch.ones(len(d["sf"]))
+
+    def af(gen, x):
+        out = augment.af_apply(x, *map(t, d["af"]))
+        return torch.where(t(d["af_on"])[:, None, None, None], out, x)
+
+    def pe(gen, x):
+        out = augment.pe_apply(x, *map(t, d["pe"]))
+        return torch.where(t(d["pe_on"])[:, None, None, None], out, x)
 
     def ji(gen, x):
         out = augment.ji_apply(x.float(), ones, ones, t(d["sf"]), t(d["hf"]), None)
@@ -105,7 +135,7 @@ def _port_augs(d):
         box = [t(v) for v in d["box"]]
         return torch.where(t(d["er_on"])[:, None, None, None], augment.er_apply(x, *box), x)
 
-    return [ji, er]
+    return ([af, pe] if geometric else []) + [ji, er]
 
 
 def _rigs():
@@ -149,15 +179,16 @@ def _rigs():
     return (loss_fn, params, fz, jmc, frozen), (step, tloss_fn, tmap, mc, tfrozen)
 
 
-@pytest.mark.parametrize("augs", ["neutralised", "ji_er_pinned"])
+@pytest.mark.parametrize("augs", ["neutralised", "ji_er_pinned", "af_pe_ji_er_pinned"])
 def test_train_step_loss_and_grads_match_jax(rng, augs):
     (loss_fn, params, fz, jmc, _), (_, tloss_fn, tmap, mc, _) = _rigs()
     if augs == "neutralised":
         mc.augs = []
     else:
         draws = _pinned_draws(rng)
-        jmc.augs = _jax_augs(draws)
-        mc.augs = _port_augs(draws)
+        geometric = augs.startswith("af_pe")
+        jmc.augs = _jax_augs(draws, geometric)
+        mc.augs = _port_augs(draws, geometric)
     toks = _tokens()
     (j_loss, j_metrics), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         params, fz, {"inp": jnp.asarray(toks), "out": jnp.asarray(toks)},
