@@ -18,26 +18,41 @@ in phases.
    versions at the train step's shape (64 crops of 224x224x3 with real Af and Pe
    draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
    at 64x64; two adjoint runs bitwise equal; <K9 x, g> = <x, K10 g> in float32.
-7. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
-   each kernel's bound; for the warps also grid_sample's forward and backward.
-8. [reference] The tiny prompt->image slice, card against CPU module path.
-9. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
+7. [stream] The whole-stack Mixer kernel (K4, one launch for 32 blocks)
+   against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
+   at B=1 and 4, float32 and bf16; two K4 launches bitwise equal; the
+   stacked-layout block (K5) against its plain version at B=4, blocks 0 and 31.
+8. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
+   each kernel's bound; for the warps also grid_sample's forward and backward;
+   K4 beside 32 x K2 and 32 x K5 at the same batch.
+9. [reference] The tiny prompt->image slice, card against CPU module path;
+   the tiny serving Predictor, card (K4 at 2x2, K2 at 3x3) against CPU.
+10. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
    card (kernels) against CPU (module path, plain warps): loss and mapper grads.
-10. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
+11. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
    VQGAN f16-16384, bf16, random weights from a seed) answers requests of
    batch 1, 4 and 16; the kernels' launch counters must rise; one PNG grid.
-11. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
+   Then the same in stream mode (`entry(stream_mixer=True)`): K4 at batch 1 and
+   4, K5 x 32 at batch 16, on the same tokens.
+12. [serve] The serving Predictor: the flagship mapper saved as a reference
+   `.th` checkpoint, loaded with ViT-B/32 and VQGAN f16-16384 (random from the
+   seed) and a synthetic BPE table; grids 1x1, 2x2 and 4x4, a warm-up and 3
+   timed requests each; K4 once per request of n <= 8 images, K2 32 times at
+   n = 16; per-stage CUDA-event ms, request ms, peak memory.
+13. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
    cutouts with the default augs Af/Pe/Ji/Er, ViT-B/32 loss, Adam): a warm-up
    step, then 3 timed steps, each with a finite loss, changed parameters, the
    Mixer train kernels' counters up by 32 each, the VQ kernel's by 1 and the
    warp kernels' by 2 each; per-stage CUDA-event times.
-12. Prints the card's line, the kernels' JSON line, then
+14. Prints the card's line, the kernels' JSON line, then
    `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
 """
 
+import contextlib
+import gzip
 import json
 import os
 import subprocess
@@ -56,6 +71,14 @@ WARP_SHAPE = (64, 224, 224, 3)  # the train step's cutouts: B=8 x cutn=8
 HORIZON_END_DISP = [[20.89, 41.26], [-32.96, 4.26], [-40.97, -30.36], [0.75, -2.43]]
 VQ_MIN_AGREEMENT = 0.999
 REQUEST_BATCHES = (1, 4, 16)
+STREAM_DEPTH = 32  # the flagship Mixer's blocks
+STREAM_BATCHES = (1, 4)
+SERVE_GRIDS = ("1x1", "2x2", "4x4")
+SERVE_REQUESTS = 3
+PROMPT = "hello world"
+# a synthetic BPE merge table (the release vocabulary is not in the repository)
+BPE_MERGES = ["h e", "l l", "he ll", "o</w> !</w>", "hell o</w>", "w o", "r l", "wo rl",
+              "worl d</w>"]
 TRAIN_STEPS = 3
 SEED = 0
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
@@ -363,6 +386,84 @@ def phase_warp(gen):
     return worst
 
 
+def flagship_stack(gen, dtype):
+    """STREAM_DEPTH blocks of random flagship weights (random_block_weights, T=256,
+    D=1024) -> (the per-block MixerBlockWeights in `dtype`, their stacked,
+    LN2-folded layout in `dtype`)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        MATRICES,
+        stack_mixer_params,
+    )
+
+    blocks = [random_block_weights(256, 1024, torch.float32, gen) for _ in range(STREAM_DEPTH)]
+    per_block = [w._replace(**{n: getattr(w, n).to(dtype) for n in MATRICES}) for w in blocks]
+    return per_block, stack_mixer_params(blocks, dtype)
+
+
+def phase_stream(gen):
+    """K4 against its plain version (K5's plain version over the depth) at the
+    flagship shape, full depth, B=1 and 4, float32 and bf16, each within its
+    ceiling of max |plain|; two K4 launches bitwise equal; K5 against its plain
+    version at B=4 for the first and last block. -> {kernel name: max abs err at
+    B=4 in bf16}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        mixer_block_stacked,
+        mixer_block_stacked_plain,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+        barriers_per_launch,
+        gemm_plans,
+        mixer_stream,
+        mixer_stream_plain,
+        stream_grid,
+    )
+
+    def check(label, got, ref, tol):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        log(f"[stream] {label}: max abs err {err:.3e}, max|plain| {scale:.3e}, ratio "
+            f"{err / scale:.3e} (ceiling {tol:g})")
+        if not (torch.isfinite(got).all().item() and err <= tol * scale):
+            raise AssertionError(f"{label} disagrees with its plain version")
+        return err
+
+    worst = {"mixer_stream": 0.0, "mixer_block_stacked": 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
+        name = str(dtype)[6:]
+        _, sp = flagship_stack(gen, dtype)
+        for b in STREAM_BATCHES:
+            x = torch.randn(b, 256, 1024, generator=gen, device="cuda").to(dtype)
+            before = mixer_stream.launches
+            got = mixer_stream(x, sp)
+            again = mixer_stream(x, sp)
+            torch.cuda.synchronize()
+            if mixer_stream.launches - before != 2:
+                raise AssertionError("mixer_stream did not launch once per call")
+            plans = gemm_plans(b, 256, 1024, 1024, 4096, dtype, sms)
+            log(f"[stream] K4 B={b} {name}: one launch of {stream_grid(x.device, dtype)} blocks, "
+                f"{barriers_per_launch(STREAM_DEPTH, plans)} grid barriers, split-K plans "
+                f"{plans}")
+            err = check(f"K4 B={b} T=256 D=1024 L={STREAM_DEPTH} {name}", got,
+                        mixer_stream_plain(x, sp), tol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"two K4 launches differ at B={b} {name}")
+            if dtype == torch.bfloat16 and b == 4:
+                worst["mixer_stream"] = err
+        x = torch.randn(4, 256, 1024, generator=gen, device="cuda").to(dtype)
+        for idx in (0, STREAM_DEPTH - 1):
+            err = check(f"K5 B=4 block {idx} {name}", mixer_block_stacked(x, sp, idx),
+                        mixer_block_stacked_plain(x, sp, idx), tol)
+            if dtype == torch.bfloat16:
+                worst["mixer_block_stacked"] = max(worst["mixer_block_stacked"], err)
+    log("[stream] two K4 launches bitwise equal at every batch and dtype")
+    return worst
+
+
 def bound(inputs, outputs, flops, peak):
     """(bound_ms, bound_by): the larger of the bytes the function must move (each
     input read once, each output written once) over the memory rate and its
@@ -453,8 +554,62 @@ def phase_timing(gen, smi):
     for name, (kernel_fn, plain_fn, bnd, flops) in cases.items():
         k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
         times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops)
+    times.update(stream_timing(gen, smi, record))
     times.update(warp_timing(gen, smi, record))
     return times
+
+
+def stream_timing(gen, smi, record):
+    """K4 at B=1 and 4 (beside 32 x K2 and 32 x K5 on the same weights) and K5 at
+    B=4, bf16, full depth; -> {kernel name: row} at B=4."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        StackedMixerWeights,
+        mixer_block,
+        mixer_block_stacked,
+        mixer_block_stacked_plain,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+        mixer_stream,
+        mixer_stream_plain,
+    )
+
+    t, d, et, ec = 256, 1024, 1024, 4096
+    per_block, sp = flagship_stack(gen, torch.bfloat16)
+    rows = {}
+    for b in STREAM_BATCHES:
+        x = torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def k2_stack():
+            h = x
+            for w in per_block:
+                h = mixer_block(h, w)
+            return h
+
+        def k5_stack():
+            h = x
+            for i in range(STREAM_DEPTH):
+                h = mixer_block_stacked(h, sp, i)
+            return h
+
+        k_ms, p_ms = paired_ms(lambda: mixer_stream(x, sp), lambda: mixer_stream_plain(x, sp))
+        k5_ms, k2_ms = paired_ms(k5_stack, k2_stack)
+        flops = b * 2 * t * d * (2 * et + 2 * ec) * STREAM_DEPTH
+        row = record(f"mixer_stream (K4) B={b} T={t} D={d} L={STREAM_DEPTH} bf16", k_ms, p_ms,
+                     bound([x, *sp], [x], flops, "bf16"), flops)
+        log(f"[time] mixer stack B={b} bf16: K4 (one launch) {k_ms:.4f} ms, 32 x K2 {k2_ms:.4f} "
+            f"ms, 32 x K5 {k5_ms:.4f} ms ({smi})")
+        if b == 4:
+            rows["mixer_stream"] = row
+    x = torch.randn(4, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    flops = 4 * 2 * t * d * (2 * et + 2 * ec)
+    k_ms, p_ms = paired_ms(lambda: mixer_block_stacked(x, sp, 0),
+                           lambda: mixer_block_stacked_plain(x, sp, 0))
+    views = [getattr(sp, name)[0] for name in StackedMixerWeights._fields]
+    rows["mixer_block_stacked"] = record(f"mixer_block_stacked (K5) B=4 T={t} D={d} bf16", k_ms,
+                                         p_ms, bound([x, *views], [x], flops, "bf16"), flops)
+    return rows
 
 
 def warp_timing(gen, smi, record):
@@ -554,8 +709,84 @@ def phase_reference():
         raise AssertionError("the card's slice disagrees with the CPU module path")
 
 
+@contextlib.contextmanager
+def bpe_table(folder):
+    """BPE_MERGES written to `folder` as a .txt.gz and read through FFVC_BPE_PATH
+    while the block runs."""
+    from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+
+    path = os.path.join(folder, "bpe_merges.txt.gz")
+    with gzip.open(path, "wt", encoding="utf-8") as fd:
+        fd.write("#version: 0.2\n" + "\n".join(BPE_MERGES) + "\n")
+    old = os.environ.get("FFVC_BPE_PATH")
+    os.environ["FFVC_BPE_PATH"] = path
+    bpe.get_tokenizer.cache_clear()
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("FFVC_BPE_PATH")
+        else:
+            os.environ["FFVC_BPE_PATH"] = old
+        bpe.get_tokenizer.cache_clear()
+
+
+def read_png(path):
+    from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png
+
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def phase_serve_reference():
+    """The tiny Predictor, float32, the same weights on the card and on the CPU:
+    a 2x2 grid (K4 on the card) and a 3x3 grid (n = 9: K2 per block), PNGs
+    within 2/255 of the CPU's (plain versions and the module path)."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
+    from feed_forward_vqgan_clip_tpu_torch.serve.predictor import Predictor
+
+    cfg = dict(clip_model="tiny", vqgan_arch=TINY_VQGAN, model_type="mlp_mixer", dim=64, depth=2,
+               dropout=0, vq_image_size=4, compute_dtype="float32", noise_dim=0,
+               normalize_input=True)
+    mapper = build_mapper(make_config(**cfg), vq_channels=8)
+    mapper.init_random_(torch.Generator().manual_seed(SEED + 3))
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+        path = save_model(os.path.join(tmp, "tiny.th"), mapper, cfg)
+        cpu, card = Predictor([path], device="cpu"), Predictor([path], device="cuda")
+        cpu.setup()
+        card.setup()
+        for key, perc in cpu.perceptors.items():
+            card.perceptors[key].module.load_state_dict(perc.module.state_dict())
+        for key, (vq, _) in cpu.vqgans.items():
+            card_vq = card.vqgans[key][0]
+            card_vq.load_state_dict(vq.state_dict())
+            card.vqgans[key] = (card_vq, latent_bounds(card_vq))
+        for grid, k4, k2 in (("2x2", 1, 0), ("3x3", 0, 2)):
+            counts = (mixer_stream.launches, mixer_block.launches)
+            got = read_png(card.predict(PROMPT, "tiny.th", grid_size=grid, seed=SEED,
+                                        out_path=os.path.join(tmp, "card.png")))
+            launched = (mixer_stream.launches - counts[0], mixer_block.launches - counts[1])
+            want = read_png(cpu.predict(PROMPT, "tiny.th", grid_size=grid, seed=SEED,
+                                        out_path=os.path.join(tmp, "cpu.png")))
+            diff = int(np.abs(got.astype(np.int32) - want).max())
+            log(f"[reference] tiny Predictor f32 grid {grid}, card vs CPU: PNG {got.shape}, max "
+                f"pixel difference {diff}/255 (limit 2), launches K4 {launched[0]}, K2 "
+                f"{launched[1]}")
+            if got.shape != want.shape or diff > 2 or launched != (k4, k2):
+                raise AssertionError(f"the card's Predictor disagrees with the CPU at {grid}")
+
+
 def phase_slice(smi):
-    """The flagship slice answers requests of batch 1, 4 and 16 through the kernels."""
+    """The flagship slice answers requests of batch 1, 4 and 16 through the kernels,
+    per block (K2) and then in stream mode (K4 at batch <= 8, K5 per block above)."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.entry import entry, example_tokens
@@ -577,6 +808,7 @@ def phase_slice(smi):
     torch.cuda.reset_peak_memory_stats()
     vq_kernel.launches = 0
     mixer_block.launches = 0
+    block_ms, block_images = {}, {}
     for b in REQUEST_BATCHES:
         tokens = example_tokens(b, "cuda")
         latencies = []
@@ -596,11 +828,13 @@ def phase_slice(smi):
                 and images.max().item() <= 1.0):
             raise AssertionError(f"batch {b}: images not finite or outside [0, 1]")
         lat = sorted(latencies)[1]
+        block_ms[b], block_images[b] = lat * 1e3, images
         log(f"[slice] batch {b}: median latency {lat * 1e3:.2f} ms of 3, {b / lat:.2f} img/s, "
             f"image mean {images.mean().item():.4f} ({smi})")
     launches = {"vq": vq_kernel.launches, "mixer_block": mixer_block.launches}
     log(f"[slice] launches in the run: {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches["mixer_block_stacked"] = slice_stream_mode(smi, block_ms, block_images)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "chip_smoke_grid.png")
         save_grid(images.cpu().numpy(), path, nrow=8)
@@ -608,6 +842,144 @@ def phase_slice(smi):
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError("PNG grid was not written")
         log(f"[slice] wrote {path} ({os.path.getsize(path)} bytes)")
+    return launches
+
+
+def slice_stream_mode(smi, block_ms, block_images):
+    """`entry(stream_mixer=True)` on the tokens of the per-block run: K4 once per
+    request at batch <= 8, K5 32 times at batch 16, VQ once. The images are held
+    to nothing here (the folded LN2 rounds otherwise in bf16; [stream] holds K4
+    and K5 to their plain versions), only their mean difference is printed. ->
+    K5's launches in the run."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import entry, example_tokens
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block_stacked
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
+        nearest_codebook_indices_kernel as vq_kernel,
+    )
+
+    prompt_to_image, _ = entry("cuda", batch=4, seed=SEED, stream_mixer=True)
+    for b in REQUEST_BATCHES:
+        prompt_to_image(example_tokens(b, "cuda"))
+    torch.cuda.synchronize()
+    counters = (vq_kernel, mixer_stream, mixer_block_stacked)
+    for fn in counters:
+        fn.launches = 0
+    for b in REQUEST_BATCHES:
+        tokens = example_tokens(b, "cuda")
+        want = (1, 1, 0) if b <= STREAM_MAX_BATCH else (1, 0, STREAM_DEPTH)
+        latencies = []
+        for _ in range(3):
+            before = [fn.launches for fn in counters]
+            t = time.perf_counter()
+            images = prompt_to_image(tokens)
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t)
+            launched = tuple(fn.launches - c for fn, c in zip(counters, before))
+            if launched != want:
+                raise AssertionError(f"stream mode batch {b}: launches (vq, K4, K5) {launched}, "
+                                     f"need {want}")
+        if not (tuple(images.shape) == (b, 256, 256, 3) and torch.isfinite(images).all().item()
+                and images.min().item() >= 0.0 and images.max().item() <= 1.0):
+            raise AssertionError(f"stream mode batch {b}: images not finite in [0, 1]")
+        lat = sorted(latencies)[1] * 1e3
+        diff = (images - block_images[b]).abs().mean().item()
+        log(f"[slice] stream mode batch {b}: median latency {lat:.2f} ms of 3 (per-block path "
+            f"{block_ms[b]:.2f} ms), mean |image - per-block image| {diff:.4f} ({smi})")
+    log(f"[slice] stream-mode launches in the run: vq {vq_kernel.launches}, K4 "
+        f"{mixer_stream.launches}, K5 {mixer_block_stacked.launches}")
+    return mixer_block_stacked.launches
+
+
+def phase_serve(smi):
+    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's
+    launches in the timed requests."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
+        nearest_codebook_indices_kernel as vq_kernel,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.serve.predictor import STAGES, Predictor
+
+    # the flagship of __graft_entry__.entry, as a released checkpoint's config holds it
+    cfg = dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32, dropout=0,
+               vq_image_size=16, noise_dim=0, vqgan_model="vqgan_imagenet_f16_16384",
+               compute_dtype="bfloat16")
+    counters = {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block}
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+        t0 = time.perf_counter()
+        mapper = build_mapper(make_config(**cfg), vq_channels=256, device="cuda")
+        mapper.init_random_(torch.Generator(device="cuda").manual_seed(SEED))
+        path = save_model(os.path.join(tmp, "flagship_mixer.th"), mapper, cfg)
+        del mapper
+        t1 = time.perf_counter()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        pred = Predictor([path], device="cuda")
+        pred.setup()
+        name = "flagship_mixer.th"
+        for grid in SERVE_GRIDS:  # warm-up, outside the counted run
+            pred.predict(PROMPT, name, grid_size=grid, seed=SEED,
+                         out_path=os.path.join(tmp, "warm.png"))
+        torch.cuda.synchronize()
+        log(f"[serve] checkpoint written ({os.path.getsize(path) / 2**30:.2f} GiB) in "
+            f"{t1 - t0:.1f} s; Predictor set up and warmed in {time.perf_counter() - t1:.1f} s; "
+            f"resident {(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        for grid in SERVE_GRIDS:
+            gh, gw = (int(v) for v in grid.split("x"))
+            n = gh * gw
+            want = {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
+                    "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
+            request_ms, stage_ms = [], {st: [] for st in STAGES}
+            for i in range(SERVE_REQUESTS):
+                before = {k: fn.launches for k, fn in counters.items()}
+                events = [torch.cuda.Event(enable_timing=True)]
+
+                def mark(stage):
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    events.append(ev)
+
+                t = time.perf_counter()
+                events[0].record()
+                out = pred.predict(PROMPT, name, grid_size=grid, seed=SEED + i,
+                                   out_path=os.path.join(tmp, f"serve_{grid}.png"), mark=mark)
+                request_ms.append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+                for j, st in enumerate(STAGES):
+                    stage_ms[st].append(events[j].elapsed_time(events[j + 1]))
+                launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+                if launched != want:
+                    raise AssertionError(f"[serve] {grid}: launches {launched}, need {want}")
+                img = read_png(out)
+                side = (256 + 2) * gh + 2
+                if img.shape != (side, side, 3) or float(np.std(img)) == 0.0:
+                    raise AssertionError(f"[serve] {grid}: PNG {img.shape}, need ({side}, {side}, "
+                                         "3) and not flat")
+            stages = ", ".join(f"{st} {sorted(v)[1]:.2f}" for st, v in stage_ms.items())
+            med = sorted(request_ms)[1]
+            log(f"[serve] grid {grid} (n={n}, {'K4' if n <= STREAM_MAX_BATCH else '32 x K2'}): "
+                f"median request {med:.2f} ms of {SERVE_REQUESTS} "
+                f"({', '.join(f'{v:.2f}' for v in request_ms)}), {n / med * 1e3:.2f} img/s; "
+                f"median stage ms (CUDA events): {stages}; PNG {side}x{side} ({smi})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[serve] peak device memory in the requests {peak:.2f} GiB; launches in the timed "
+            f"requests {dict((k, fn.launches) for k, fn in counters.items())}")
+        launches = mixer_stream.launches
+        del pred
     return launches
 
 
@@ -804,12 +1176,15 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     vq_err = phase_vq(gen)
     mixer_err = phase_mixer(gen)
-    train_errs = phase_mixer_train(gen)
-    train_errs.update(phase_warp(gen))
+    errs = phase_mixer_train(gen)
+    errs.update(phase_warp(gen))
+    errs.update(phase_stream(gen))
     times = phase_timing(gen, smi)
     phase_reference()
+    phase_serve_reference()
     phase_train_reference()
     launches = phase_slice(smi)
+    launches["mixer_stream"] = phase_serve(smi)
     launches.update(phase_train(smi))
     pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
     csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
@@ -817,16 +1192,20 @@ def main():
         ("vq_argmin", "vq_lookup.cu", "vq_lookup.py:33", launches["vq"], vq_err),
         ("mixer_block", "mixer_block.cu", "mixer_block.py:225", launches["mixer_block"],
          mixer_err),
+        ("mixer_stream", "mixer_stream.cu", "mixer_block.py:530", launches["mixer_stream"],
+         errs["mixer_stream"]),
+        ("mixer_block_stacked", "mixer_block.cu", "mixer_block.py:614",
+         launches["mixer_block_stacked"], errs["mixer_block_stacked"]),
         ("mixer_fwd_res", "mixer_block.cu", "mixer_block.py:726", launches["mixer_fwd_res"],
-         train_errs["mixer_fwd_res"]),
+         errs["mixer_fwd_res"]),
         ("mixer_channel_bwd", "mixer_train.cu", "mixer_block.py:853",
-         launches["mixer_channel_bwd"], train_errs["mixer_channel_bwd"]),
+         launches["mixer_channel_bwd"], errs["mixer_channel_bwd"]),
         ("mixer_token_bwd", "mixer_train.cu", "mixer_block.py:970",
-         launches["mixer_token_bwd"], train_errs["mixer_token_bwd"]),
+         launches["mixer_token_bwd"], errs["mixer_token_bwd"]),
         ("warp_forward", "warp.cu", "warp_forward.py:96", launches["warp_forward"],
-         train_errs["warp_forward"]),
+         errs["warp_forward"]),
         ("warp_adjoint", "warp.cu", "warp_adjoint.py:172", launches["warp_adjoint"],
-         train_errs["warp_adjoint"]),
+         errs["warp_adjoint"]),
     ]
     # library_ms: grid_sample's forward and backward for the warps; no single
     # PyTorch call computes the other functions

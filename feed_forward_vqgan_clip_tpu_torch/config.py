@@ -1,5 +1,5 @@
-"""Train-step configuration: the knobs `train.loop.make_train_step` and its
-builders read, under the reference's names.
+"""Configuration: the knobs the train step, the checkpoint loader and the
+serving path read, under the reference's names.
 
 The port's own copy of the matching entries of feed_forward_vqgan_clip_tpu/
 config.py (`DEFAULTS`, `TrainConfig`, `make_config`, `vqgan_arch_config` for
@@ -8,6 +8,8 @@ Reading YAML configs and taming's VQGAN YAML come with the trainer (ROADMAP A10)
 """
 
 from typing import Any, Dict
+
+import torch
 
 from feed_forward_vqgan_clip_tpu_torch.registry import VQGAN_CONFIGS
 
@@ -24,7 +26,10 @@ DEFAULTS: Dict[str, Any] = {
     "vq_image_size": 16,
     "vqgan_model": "vqgan_imagenet_f16_16384",
     "vqgan_arch": None,  # inline ddconfig-style dict (smoke configs)
+    "vqgan_config": None,  # taming YAML (read by the JAX package; ROADMAP A10 here)
+    "vqgan_checkpoint": None,  # taming .ckpt / state dict; None: random init
     "clip_model": "ViT-B/32",
+    "clip_model_path": None,  # OpenAI-named CLIP state dict; None: random init
     "clip_dim": None,
     "diversity_coef": 0.0,
     "input_loss": False,
@@ -53,6 +58,14 @@ class TrainConfig(dict):
         if default is not None:
             return default
         return DEFAULTS.get(key, default)
+
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg: TrainConfig):
+    """The torch dtype of the config's `compute_dtype`."""
+    return COMPUTE_DTYPES[str(cfg.get("compute_dtype", "bfloat16"))]
 
 
 def make_config(**overrides) -> TrainConfig:

@@ -28,10 +28,14 @@ def example_tokens(batch: int, device=None):
     return tokens
 
 
-def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0):
+def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0,
+          stream_mixer: bool = False):
     """-> (prompt_to_image, (tokens,)): prompt_to_image(tokens) gives images
-    (B, 256, 256, 3) float32 in [0, 1]."""
-    gen = build_generator(dtype=dtype, device=device, seed=seed)
+    (B, 256, 256, 3) float32 in [0, 1]. `stream_mixer` (`__graft_entry__`'s
+    FFVC_STREAM_MIXER=1) runs the mapper over weights stacked once here: the
+    whole block stack in one kernel launch at batch <= 8, one launch per block
+    above; else each block is one `mixer_block` call."""
+    gen = build_generator(dtype=dtype, device=device, seed=seed, stream_mixer=stream_mixer)
 
     def prompt_to_image(tokens):
         return gen.render(gen.encode_tokens(tokens))

@@ -18,6 +18,8 @@ import re
 import numpy as np
 import torch
 
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import StackedMixerWeights
+
 
 def _params(tree):
     return tree["params"] if "params" in tree else tree
@@ -62,6 +64,27 @@ def mixer_state_dict(tree):
     _norm(sd, f"mixer.{2 + depth}", p["final_norm"])
     _linear(sd, "final_proj", p["final_proj"])
     return sd
+
+
+def stacked_mixer_weights(sp, dtype=torch.float32):
+    """The JAX package's `stack_mixer_params` dict -> the port's
+    StackedMixerWeights: matrices moved to torch's (out, in) layouts in `dtype`
+    (the values as they are: bf16 arrays arrive exactly), norms and biases
+    float32 with their singleton axes dropped."""
+    def a(name):
+        return np.asarray(sp[name], dtype=np.float32)
+
+    def mat(name):  # (L, in, out) -> (L, out, in)
+        return _t(np.swapaxes(a(name), 1, 2)).to(dtype).contiguous()
+
+    def vec(name):
+        v = a(name)
+        return _t(v.reshape(v.shape[0], -1))
+
+    return StackedMixerWeights(
+        ln1_w=vec("ln1s"), ln1_b=vec("ln1b"), t1=mat("t1"), t1b=vec("t1b"), t2=mat("t2"),
+        t2b=vec("t2b"), w1f=mat("w1f"), b1f=vec("b1f"), w2=mat("w2"), b2=vec("b2"),
+    )
 
 
 def _resnet_block(sd, prefix, p):

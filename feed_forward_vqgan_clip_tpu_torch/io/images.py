@@ -1,7 +1,8 @@
 """Image grids and PNG files with numpy and the standard library only.
 
 Port of feed_forward_vqgan_clip_tpu/io/images.py without Pillow: the PNG is
-written with zlib and struct (8-bit RGB or grey, no interlace).
+written with zlib and struct (8-bit RGB or grey, no interlace), and read back by
+`decode_png`.
 """
 
 import struct
@@ -44,6 +45,31 @@ def encode_png(img: np.ndarray) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes as `encode_png` writes them (8-bit grey or RGB, no row filter,
+    not interlaced) -> uint8 (H, W, C); any other PNG raises ValueError."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + length
+    w, h, depth, color_type, _, _, interlace = header
+    channels = {0: 1, 2: 3}.get(color_type)
+    if depth != 8 or channels is None or interlace:
+        raise ValueError(f"unsupported PNG: depth {depth}, color type {color_type}, "
+                         f"interlace {interlace}")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * channels)
+    if raw[:, 0].any():
+        raise ValueError("unsupported PNG: rows with a filter")
+    return raw[:, 1:].reshape(h, w, channels).copy()
 
 
 def save_image(img: np.ndarray, path: str) -> None:

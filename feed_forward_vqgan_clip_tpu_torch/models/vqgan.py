@@ -11,15 +11,22 @@ inside; its public layouts are the JAX package's NHWC.
 The JAX decoder has no Pallas kernel, so everything here is plain PyTorch
 (F.conv2d, matmul + softmax attention). Upsample is the reference graph (NN-2x
 then a 3x3 conv, the JAX package's mode 0); mode 2 is an XLA rewrite (ROADMAP
-A17).
+A17). `load_vqgan` builds the config's VQGAN and loads a taming checkpoint with
+`load_state_dict`, or draws random weights from a seed.
 """
+
+import logging
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from feed_forward_vqgan_clip_tpu_torch.config import TrainConfig, vqgan_arch_config
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.quantize import vector_quantize
+
+log = logging.getLogger(__name__)
 
 
 class GroupNorm32(nn.Module):
@@ -255,3 +262,35 @@ def latent_bounds(vqgan: VQGAN):
     """Scalar codebook min and max, the latent clamp bounds (0-d tensors)."""
     cb = vqgan.codebook()
     return cb.min(), cb.max()
+
+
+def load_vqgan(cfg: TrainConfig, dtype=torch.bfloat16, *, device="cuda", seed: int = 0) -> VQGAN:
+    """The config's VQGAN (`vqgan_arch_config`), frozen, in eval mode: the
+    weights of the taming checkpoint at `vqgan_checkpoint` (a `.ckpt` or state
+    dict; Lightning's {"state_dict": ...} wrapper, a Net2NetTransformer's
+    `first_stage_model.` prefix and GumbelVQ's `quantize.embed` name are taken
+    as the JAX package takes them), else random from `seed`. Port of JAX
+    train/loop.py `load_vqgan`; native msgpack directories are not read
+    (ROADMAP A6)."""
+    vq = make_vqgan(vqgan_arch_config(cfg), dtype=dtype, device=device)
+    path = cfg.get("vqgan_checkpoint")
+    if path and os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a native (flax msgpack) VQGAN directory; the port reads torch "
+            "files only (ROADMAP A6)"
+        )
+    if path:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
+            obj = obj["state_dict"]
+        if any(k.startswith("first_stage_model.") for k in obj):
+            obj = {k[len("first_stage_model."):]: v for k, v in obj.items()
+                   if k.startswith("first_stage_model.")}
+        if "quantize.embed.weight" in obj and "quantize.embedding.weight" not in obj:
+            obj = {**obj, "quantize.embedding.weight": obj["quantize.embed.weight"]}
+        keys = set(vq.state_dict())  # the decode path: no encoder, no loss
+        vq.load_state_dict({k: v.float() for k, v in obj.items() if k in keys})
+    else:
+        log.warning("No VQGAN weights — random init (smoke/bench only).")
+        vq.init_random_(torch.Generator(device=vq.codebook().device).manual_seed(seed))
+    return vq.eval().requires_grad_(False)

@@ -66,6 +66,12 @@ _SIGNATURES = {
     "ffvc_row_sum": [_P, _P, _I, _I, _P],
     # a, out, partial, rows, cols, rows_per_chunk, stream
     "ffvc_col_sum": [_P, _P, _P, _I, _I, _I, _P],
+    # dtype, out (int*)
+    "ffvc_mixer_stream_blocks_per_sm": [_I, _P],
+    # x, out, buf, r, xn, g1, g3, partial, barrier, ln1_w, ln1_b, t1, t1b, t2, t2b,
+    # w1f, b1f, w2, b2, batch, layers, t, d, et, ec, (splits, k_per_split) x 4,
+    # grid, dtype, stream
+    "ffvc_mixer_stream": [_P] * 19 + [_I] * 6 + [_I] * 8 + [_I, _I, _P],
     # img, mats, out, b, h, w, c, border, dtype, stream
     "ffvc_warp_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, mats, grad, b, h, w, c, border, dtype, stream

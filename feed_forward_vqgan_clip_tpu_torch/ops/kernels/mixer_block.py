@@ -10,15 +10,22 @@ Replaces, in feed_forward_vqgan_clip_tpu/ops/pallas/mixer_block.py:
     (`_fwd_res` / `_fwd_res_pipe`), the forward that also saves the residuals;
   * `mixer_channel_bwd`: `_channel_bwd_kernel` and `_channel_bwd_pipe_kernel`;
   * `mixer_token_bwd`: `_token_bwd_kernel`;
+  * `mixer_block_stacked`: `_block_kernel_stacked` (`fused_mixer_block_stacked`),
+    one block read through views into the stacked layout of `stack_mixer_params`
+    (the whole-depth kernel over that layout is ops/kernels/mixer_stream.py);
 
 and `MixerBlockTrain` is the counterpart of the `fused_mixer_block_train`
-custom_vjp that joins the last three. Per batch element x (T, D), following
+custom_vjp that joins the train kernels. Per batch element x (T, D), following
 `_block_math`:
 
     xn = LN(x)                                  f32 statistics, eps 1e-5
     g1 = gelu(t1 xn + t1b)                      (Et, D), per-hidden-token bias
     r  = x + (t2 g1 + t2b)                      (T, D), per-token bias
     y  = r + (gelu(LN(r) W1^T + b1) W2^T + b2)  channel FF over D -> Ec -> D
+
+In the stacked layout LN2's affine is folded into the first channel matmul
+(W1f = W1 diag(s2), b1f = b1 + W1 b2ln, as the JAX package folds it), so the
+channel LayerNorm there is LN-hat, (r - mean) * inv without an affine.
 
 The block launches LayerNorm-rows kernels and GEMMs with fused bias /
 exact-GELU (and gelu') / multiply / residual epilogues: the token GEMMs batched
@@ -85,6 +92,60 @@ class MixerBlockWeights(NamedTuple):
 
 
 MATRICES = ("t1", "t2", "w1", "w2")
+
+
+class StackedMixerWeights(NamedTuple):
+    """All L blocks' parameters stacked along a leading depth axis, with LN2's
+    affine folded into the first channel matmul: the port of
+    `stack_mixer_params`' output, in MixerBlockWeights' layouts. Matrices in the
+    working dtype; norms and biases float32."""
+
+    ln1_w: torch.Tensor  # (L, D)
+    ln1_b: torch.Tensor  # (L, D)
+    t1: torch.Tensor     # (L, Et, T)
+    t1b: torch.Tensor    # (L, Et)
+    t2: torch.Tensor     # (L, T, Et)
+    t2b: torch.Tensor    # (L, T)
+    w1f: torch.Tensor    # (L, Ec, D)  W1 * s2 (per input feature), rounded once
+    b1f: torch.Tensor    # (L, Ec)     b1 + W1 b2ln, float32
+    w2: torch.Tensor     # (L, D, Ec)
+    b2: torch.Tensor     # (L, D)
+
+
+STACKED_MATRICES = ("t1", "t2", "w1f", "w2")
+
+
+@torch.no_grad()
+def stack_mixer_params(blocks, dtype):
+    """One MixerBlockWeights per block (read in float32) -> StackedMixerWeights,
+    the port of `stack_mixer_params`: the channel LayerNorm's affine folded as
+    the JAX package folds it, w1f = (W1_f32 * s2).to(dtype) and b1f = b1 + W1 b2ln
+    in float32. Built once per loaded model."""
+    cols = {name: [] for name in StackedMixerWeights._fields}
+    for w in blocks:
+        w1 = w.w1.float()
+        cols["ln1_w"].append(w.ln1_w.float())
+        cols["ln1_b"].append(w.ln1_b.float())
+        cols["t1"].append(w.t1.to(dtype))
+        cols["t1b"].append(w.t1b.float())
+        cols["t2"].append(w.t2.to(dtype))
+        cols["t2b"].append(w.t2b.float())
+        cols["w1f"].append((w1 * w.ln2_w.float()).to(dtype))
+        cols["b1f"].append(w.b1.float() + w1 @ w.ln2_b.float())
+        cols["w2"].append(w.w2.to(dtype))
+        cols["b2"].append(w.b2.float())
+    return StackedMixerWeights(*(torch.stack(cols[n]) for n in StackedMixerWeights._fields))
+
+
+def stacked_block_weights(sp: StackedMixerWeights, block_idx: int) -> MixerBlockWeights:
+    """Block `block_idx` of the stacked layout as views (no copy), in
+    MixerBlockWeights' fields: w1/b1 hold the folded w1f/b1f and ln2_w/ln2_b are
+    None (LN-hat)."""
+    v = {name: getattr(sp, name)[block_idx] for name in StackedMixerWeights._fields}
+    return MixerBlockWeights(
+        ln1_w=v["ln1_w"], ln1_b=v["ln1_b"], t1=v["t1"], t1b=v["t1b"], t2=v["t2"],
+        t2b=v["t2b"], ln2_w=None, ln2_b=None, w1=v["w1f"], b1=v["b1f"], w2=v["w2"], b2=v["b2"],
+    )
 
 
 class MixerResiduals(NamedTuple):
@@ -229,6 +290,23 @@ def mixer_token_bwd_plain(dr, x, g1, dg1, w: MixerBlockWeights):
     )
 
 
+def mixer_block_stacked_plain(x, sp: StackedMixerWeights, block_idx: int):
+    """`_block_math` for block `block_idx` of the stacked layout in plain PyTorch:
+    LN1 with its affine, the token FF, LN-hat in the backward's order (x - mean)
+    * inv (`_kernel_ln_hat`), the folded channel FF. Products in float32 (exact
+    for bf16 operands), each kept through bias and GELU and rounded once, where
+    the kernel rounds."""
+    w = stacked_block_weights(sp, block_idx)
+    dt = x.dtype
+    f = lambda t: t.float()  # noqa: E731
+    xn = _layer_norm_plain(x, w.ln1_w, w.ln1_b)
+    g1 = F.gelu(torch.matmul(f(w.t1), f(xn)) + w.t1b[:, None]).to(dt)
+    r = x + (torch.matmul(f(w.t2), f(g1)) + w.t2b[:, None]).to(dt)
+    rhat = _ln_stats(r)[0].to(dt)
+    g3 = F.gelu(torch.matmul(f(rhat), f(w.w1).T) + w.b1).to(dt)
+    return r + (torch.matmul(f(g3), f(w.w2).T) + w.b2).to(dt)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -248,6 +326,8 @@ def _check(x, w):
     }
     for name, shape in shapes.items():
         v = getattr(w, name)
+        if v is None and name in ("ln2_w", "ln2_b"):  # LN-hat: the stacked layout
+            continue
         want = x.dtype if name in MATRICES else torch.float32
         if tuple(v.shape) != shape or v.dtype != want or v.device != x.device:
             raise ValueError(
@@ -284,13 +364,14 @@ class _Launcher:
         return torch.empty(*shape, dtype=dtype or self.dtype, device=self.device)
 
     def ln(self, src, scale, bias, out, rows, d, *, rhat=None, inv=None, centered=0):
-        """LayerNorm rows; rhat, inv or centered take the train kernel."""
-        if rhat is None and inv is None and not centered:
+        """LayerNorm rows; rhat, inv, centered or no affine (scale None: LN-hat)
+        take the train kernel."""
+        if rhat is None and inv is None and not centered and scale is not None:
             err = self.lib.ffvc_ln_rows(src.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                         out.data_ptr(), rows, d, self.code, self.stream)
         else:
             err = self.lib.ffvc_ln_rows_train(
-                src.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(rhat),
+                src.data_ptr(), _ptr(scale), _ptr(bias), out.data_ptr(), _ptr(rhat),
                 _ptr(inv), rows, d, centered, self.code, self.stream)
         build.check(err, "ffvc_ln_rows")
 
@@ -365,10 +446,12 @@ def _block_forward(x, w, save):
         r = torch.empty_like(x)
         k.gemm(w.t2, et, 0, g1, d, et * d, r, d, t * d, t, d, et, b, res=x, ldr=d, sr=t * d,
                bias=w.t2b, bias_mode=1)
-        # channel mixing, batch folded into M = B*T rows; xn's buffer is reused
+        # channel mixing, batch folded into M = B*T rows; xn's buffer is reused.
+        # The stacked layout's LN-hat (no affine) takes the centered order.
         rhat = torch.empty_like(x) if save else None
         inv2 = k.empty(b, t, 1, dtype=torch.float32) if save else None
-        k.ln(r, w.ln2_w, w.ln2_b, xn, b * t, d, rhat=rhat, inv=inv2)
+        k.ln(r, w.ln2_w, w.ln2_b, xn, b * t, d, rhat=rhat, inv=inv2,
+             centered=int(w.ln2_w is None))
         g3 = k.empty(b, t, ec)
         dg3 = k.empty(b, t, ec) if save else None
         k.gemm(xn, d, 0, w.w1, d, 0, g3, ec, 0, b * t, ec, d, 1, b_kmajor=1, bias=w.b1,
@@ -387,6 +470,21 @@ def mixer_block(x, w: MixerBlockWeights):
         return mixer_block_plain(x, w)
     out, _ = _block_forward(x, w, save=False)
     mixer_block.launches += 1
+    return out
+
+
+def mixer_block_stacked(x, sp: StackedMixerWeights, block_idx: int):
+    """Block `block_idx` of the stacked layout (K5), x (B, T, D) -> (B, T, D) in
+    x's dtype: K2's launches on views into the stacked tensors (no copy, no
+    per-call fold), LN2 as LN-hat.
+
+    A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
+    if x.device.type == "cpu":
+        return mixer_block_stacked_plain(x, sp, block_idx)
+    if not 0 <= block_idx < sp.t1.shape[0]:
+        raise IndexError(f"block_idx {block_idx} outside the stack's {sp.t1.shape[0]} blocks")
+    out, _ = _block_forward(x, stacked_block_weights(sp, block_idx), save=False)
+    mixer_block_stacked.launches += 1
     return out
 
 
@@ -490,6 +588,7 @@ def mixer_token_bwd(dr, x, g1, dg1, w: MixerBlockWeights):
 
 
 mixer_block.launches = 0
+mixer_block_stacked.launches = 0
 mixer_block_fwd_res.launches = 0
 mixer_channel_bwd.launches = 0
 mixer_token_bwd.launches = 0

@@ -78,3 +78,18 @@ VQGAN_CONFIGS = {
         num_res_blocks=2, attn_resolutions=(16,), dropout=0.0,
     ),
 }
+
+# The released mapper checkpoints' file names (the JAX registry's MODEL_URLS keys
+# without the priors): the serving path's default model list, where present.
+RELEASED_MODELS = (
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.1.th",
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.2.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.2.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.3.th",
+    "cc12m_32x1024_mlp_mixer_cloob_rn50_256x256_v0.3.th",
+    "cc12m_256x16_xtransformer_clip_ViTB32_512x512_v0.3.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_pixelrecons_256x256_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_ViTB32_256x256_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th",
+    "cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th",
+)

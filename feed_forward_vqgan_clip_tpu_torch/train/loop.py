@@ -19,10 +19,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from feed_forward_vqgan_clip_tpu_torch.config import TrainConfig, vqgan_arch_config
+from feed_forward_vqgan_clip_tpu_torch.config import COMPUTE_DTYPES, TrainConfig
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_mapper_train_apply
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor, load_perceptor
-from feed_forward_vqgan_clip_tpu_torch.models.vqgan import VQGAN, latent_bounds, make_vqgan, synth
+from feed_forward_vqgan_clip_tpu_torch.models.vqgan import VQGAN, latent_bounds, load_vqgan, synth
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import (
@@ -34,7 +34,6 @@ from feed_forward_vqgan_clip_tpu_torch.ops.losses import (
 from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_MEAN, CLIP_STD
 from feed_forward_vqgan_clip_tpu_torch.train.state import TrainState
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the stages a step reports to its `mark` callback, in order
 STAGES = ("text", "mapper", "decode", "cutouts", "image_tower", "loss", "backward", "adam")
 
@@ -48,12 +47,12 @@ class FrozenModels(NamedTuple):
 
 
 def build_frozen(cfg: TrainConfig, dtype, *, device="cuda", seed: int = 0) -> FrozenModels:
-    """The frozen models with random weights from `seed` (released weights are not
-    in the repository yet); their parameters do not require grad."""
-    perceptor = load_perceptor(cfg.get("clip_model"), dtype=dtype, device=device, seed=seed)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    vq = make_vqgan(vqgan_arch_config(cfg), dtype=dtype, device=device).init_random_(gen)
-    return FrozenModels(perceptor, vq.eval().requires_grad_(False))
+    """The frozen models: the weights at the config's `clip_model_path` and
+    `vqgan_checkpoint`, else random from `seed`; their parameters do not require
+    grad."""
+    perceptor = load_perceptor(cfg.get("clip_model"), cfg.get("clip_model_path"), dtype=dtype,
+                               device=device, seed=seed)
+    return FrozenModels(perceptor, load_vqgan(cfg, dtype, device=device, seed=seed))
 
 
 def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts: MakeCutouts,
@@ -81,7 +80,7 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
     if float(cfg.get("dropout") or 0.0) > 0:
         raise NotImplementedError("dropout > 0 trains through the module path with dropout "
                                   "draws; it comes with the trainer loop (ROADMAP A10)")
-    aug_dtype = DTYPES[str(cfg.get("aug_dtype") or cfg.get("compute_dtype"))]
+    aug_dtype = COMPUTE_DTYPES[str(cfg.get("aug_dtype") or cfg.get("compute_dtype"))]
     perceptor, vq = frozen.perceptor, frozen.vq
     mapper_train_apply = make_mapper_train_apply(mapper)
 

@@ -64,12 +64,32 @@ def test_make_clip_names():
         make_clip("ViT-H/14")
 
 
-def test_load_perceptor_random_init_is_seeded(caplog):
+def test_load_perceptor_random_init_is_seeded(caplog, tmp_path):
     a = load_perceptor("tiny", dtype=torch.float32, device="cpu", seed=3)
     b = load_perceptor("tiny", dtype=torch.float32, device="cpu", seed=3)
     assert "random init" in caplog.text
     assert (a.size, a.dim) == (32, 32)
     toks = torch.from_numpy(_tokens(np.random.default_rng(0), 2)).long()
     np.testing.assert_array_equal(a.encode_text(toks).numpy(), b.encode_text(toks).numpy())
+    # a native (msgpack) CLIP directory is not read
     with pytest.raises(NotImplementedError):
-        load_perceptor("tiny", "weights.pt", device="cpu")
+        load_perceptor("tiny", str(tmp_path), device="cpu")
+
+
+def test_load_perceptor_reads_an_openai_state_dict(tmp_path):
+    """A full CLIP state dict in OpenAI's key names (with the image tower and
+    OpenAI's shape entries) loads into the text tower alone; a
+    {"state_dict": ...} wrapper loads the same."""
+    src = load_perceptor("tiny", dtype=torch.float32, device="cpu", seed=5)
+    full = make_clip_from_config(CLIP_VIT_CONFIGS["tiny"], image=True).state_dict()
+    full.update(src.module.state_dict())
+    full["input_resolution"] = torch.tensor(32)
+    torch.save(full, tmp_path / "clip.pt")
+    torch.save({"state_dict": full}, tmp_path / "wrapped.pt")
+    toks = torch.from_numpy(_tokens(np.random.default_rng(1), 3)).long()
+    want = src.encode_text(toks).numpy()
+    for name in ("clip.pt", "wrapped.pt"):
+        got = load_perceptor("tiny", str(tmp_path / name), dtype=torch.float32, device="cpu",
+                             seed=9, image=False)
+        assert not any(p.requires_grad for p in got.module.parameters())
+        np.testing.assert_array_equal(got.encode_text(toks).numpy(), want)

@@ -8,8 +8,9 @@ JAX, so there run it without the conftest:
 
 Tolerances: VQ indices equal except at near-ties (plain top-2 score gap below
 the fp32 bound 4*C*eps*(|x| max|c| + max|c|^2)), at least 99.9% agreement;
-the Mixer block and the Mixer train kernels (every output and parameter grad)
-f32 (TF32 off) within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
+the Mixer block, the Mixer train kernels (every output and parameter grad),
+the whole-stack kernel (K4) and the stacked-layout block (K5) f32 (TF32 off)
+within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
 kernels f32 within 1e-4 and bf16 within 3e-2 of max |plain| (the same taps and
 weights, sums in another order, one bf16 rounding); the tiny slice, f32, within
 1e-3 of the CPU module path.
@@ -23,6 +24,7 @@ import torch
 
 from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed_mixer_apply
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.ops import augment
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
@@ -33,10 +35,17 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     mixer_block_fwd_res,
     mixer_block_fwd_res_plain,
     mixer_block_plain,
+    mixer_block_stacked,
+    mixer_block_stacked_plain,
     mixer_channel_bwd,
     mixer_channel_bwd_plain,
     mixer_token_bwd,
     mixer_token_bwd_plain,
+    stack_mixer_params,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+    mixer_stream,
+    mixer_stream_plain,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
     nearest_codebook_indices_kernel,
@@ -151,6 +160,68 @@ def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
         assert torch.equal(getattr(tok, name), getattr(again, name)), name
     assert (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
             mixer_token_bwd.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+
+
+def _random_mapper(s, d, depth, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mapper = Mixer(8, s, 8, d, depth, dtype=dtype)
+    for p in mapper.parameters():
+        scale = np.sqrt(p[0].numel() if p.dim() > 1 else 10)
+        p.data = torch.from_numpy(rng.normal(size=p.shape).astype(np.float32) / scale)
+    return mapper
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,d,depth", [(2, 8, 96, 3), (3, 7, 100, 2), (1, 16, 128, 4)])
+def test_mixer_stream_kernel_matches_plain(cuda, dtype, b, s, d, depth):
+    """K4: one launch for the stack, against the plain version (K5's plain
+    version over the depth); two launches give the same bits."""
+    mapper = _random_mapper(s, d, depth, dtype, 2).to(cuda)
+    sp = stack_mixer_params([blk.kernel_weights(torch.float32) for blk in mapper.blocks], dtype)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(b, s * s, d)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    before = mixer_stream.launches
+    got = mixer_stream(x, sp)
+    again = mixer_stream(x, sp)
+    assert mixer_stream.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    assert _rel(got, mixer_stream_plain(x, sp)) <= tol
+    with pytest.raises(TypeError):
+        mixer_stream(x.double(), sp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_block_stacked_kernel_matches_plain(cuda, dtype):
+    """K5 at every block of a 3-block stack."""
+    mapper = _random_mapper(8, 96, 3, dtype, 4).to(cuda)
+    sp = stack_mixer_params([blk.kernel_weights(torch.float32) for blk in mapper.blocks], dtype)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 64, 96)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    for i in range(3):
+        before = mixer_block_stacked.launches
+        got = mixer_block_stacked(x, sp, i)
+        assert mixer_block_stacked.launches == before + 1
+        assert _rel(got, mixer_block_stacked_plain(x, sp, i)) <= tol, i
+    with pytest.raises(IndexError):
+        mixer_block_stacked(x, sp, 3)
+
+
+def test_streamed_apply_on_card_matches_cpu(cuda):
+    """The stacked-weight mapper forward, float32: 2 rows through K4 (one
+    launch), 9 rows through K5 (one launch per block), each within 1e-4 of the
+    CPU plain versions."""
+    mapper = _random_mapper(8, 64, 3, torch.float32, 6)
+    cpu_apply = make_streamed_mixer_apply(mapper)
+    card_apply = make_streamed_mixer_apply(copy.deepcopy(mapper).to(cuda))
+    for rows, k4, k5 in ((2, 1, 0), (9, 0, 3)):
+        x = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows, 8)).astype(np.float32))
+        counts = (mixer_stream.launches, mixer_block_stacked.launches)
+        got = card_apply(x.to(cuda))
+        assert (mixer_stream.launches, mixer_block_stacked.launches) == (
+            counts[0] + k4, counts[1] + k5)
+        assert _rel(got.cpu(), cpu_apply(x)) <= 1e-4
 
 
 def test_slice_on_card_matches_cpu_module_path(cuda):

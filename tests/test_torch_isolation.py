@@ -43,3 +43,9 @@ def test_isolation_check_sees_the_imports():
                                   "CLIP_VIT_CONFIGS", "VQGAN_CONFIGS"])
 def test_registry_copy_equals_jax_registry(name):
     assert getattr(registry, name) == getattr(jax_registry, name)
+
+
+def test_released_models_equal_jax_model_urls():
+    """The serving path's default model list: the JAX registry's mapper files."""
+    assert registry.RELEASED_MODELS == tuple(
+        name for name in jax_registry.MODEL_URLS if not name.startswith("prior_"))

@@ -1,0 +1,206 @@
+"""The port's stacked Mixer layout, its per-block kernel (K5) and its whole-stack
+kernel (K4) against the JAX package's, on the same weights.
+
+Weights are numpy draws for the port's Mixer, carried to the JAX side by
+io/torch_import.convert_mixer; JAX's stacked arrays reach the port through
+io/from_jax.stacked_mixer_weights. The JAX Pallas kernels run in interpret mode.
+Sizes: dim 128, T=256 (16x16 tokens), depth 2-3, B=2. Tolerances, as
+max |port - JAX| / max |JAX|: float32 2e-5 (the same math in another summation
+order; JAX's GELU is a polynomial within 1.5e-6 of erf), bfloat16 3e-2 (8
+mantissa bits, JAX's bf16 GELU polynomial within 3.3e-4), as in
+tests/test_fused_mixer.py. The stacked matrices are bit-equal to JAX's; b1f, a
+float32 matrix-vector product summed in another order, within 1e-6 relative.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feed_forward_vqgan_clip_tpu.io.torch_import import convert_mixer
+from feed_forward_vqgan_clip_tpu.models.mappers import fused as jfused
+from feed_forward_vqgan_clip_tpu.models.mappers.mixer import Mixer as JMixer
+from feed_forward_vqgan_clip_tpu.ops.pallas.mixer_block import (
+    fused_mixer_block_stacked,
+    fused_mixer_stream,
+)
+from feed_forward_vqgan_clip_tpu.ops.pallas.mixer_block import (
+    stack_mixer_params as j_stack_mixer_params,
+)
+from feed_forward_vqgan_clip_tpu_torch.io.from_jax import stacked_mixer_weights
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import fused
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
+    STREAM_MAX_BATCH,
+    make_streamed_mixer_apply,
+    prepare_streamed_params,
+    streamed_mixer_forward,
+    streamed_supported,
+)
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+    STACKED_MATRICES,
+    StackedMixerWeights,
+    mixer_block_stacked,
+    mixer_block_stacked_plain,
+    stack_mixer_params,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+    barriers_per_launch,
+    gemm_plans,
+    mixer_stream,
+    mixer_stream_plain,
+)
+
+DIM, S, B, IN, CH = 128, 16, 2, 32, 8
+TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _pair(depth, dtype, seed=0):
+    """(port Mixer, JAX Mixer, JAX params) on the same numpy draws: matrices
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.1), biases and shifts N(0, 0.1), so the
+    LN2 fold is not the identity."""
+    rng = np.random.default_rng(seed)
+    mapper = Mixer(input_dim=IN, image_size=S, channels=CH, dim=DIM, depth=depth, dtype=dtype)
+    sd = {}
+    for k, v in mapper.state_dict().items():
+        if v.dim() >= 2:
+            a = rng.normal(size=v.shape) / np.sqrt(np.prod(v.shape[1:]))
+        else:
+            a = 0.1 * rng.normal(size=v.shape) + (k.endswith("weight") and "norm" in k)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    mapper.load_state_dict(sd)
+    jmapper = JMixer(input_dim=IN, image_size=S, channels=CH, dim=DIM, depth=depth,
+                     dtype=JDT[dtype])
+    params = convert_mixer({k: v.numpy() for k, v in sd.items()}, depth)
+    return mapper.eval(), jmapper, params
+
+
+def _activations(seed, dtype):
+    x = np.random.default_rng(seed).normal(size=(B, S * S, DIM)).astype(np.float32)
+    return torch.from_numpy(x).to(dtype), jnp.asarray(x).astype(JDT[dtype])
+
+
+def _j_stack(params, depth, dtype):
+    p = params["params"]
+    return j_stack_mixer_params([p[f"block_{i}"] for i in range(depth)], dtype=JDT[dtype])
+
+
+@DTYPES
+def test_stack_mixer_params_matches_jax(dtype):
+    mapper, _, params = _pair(3, dtype)
+    got = stack_mixer_params([b.kernel_weights(torch.float32) for b in mapper.blocks], dtype)
+    want = stacked_mixer_weights(_j_stack(params, 3, dtype), dtype)
+    for name in StackedMixerWeights._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert g.dtype == (dtype if name in STACKED_MATRICES else torch.float32), name
+        if name == "b1f":
+            assert float((g - w).abs().max() / w.abs().max()) <= 1e-6
+        else:
+            assert torch.equal(g, w), name
+
+
+@DTYPES
+def test_mixer_stream_matches_jax_stream(dtype):
+    """The whole stack (the plain version on a CPU tensor) against
+    `fused_mixer_stream`, on JAX's stacked arrays."""
+    depth = 3 if dtype == torch.float32 else 2
+    _, _, params = _pair(depth, dtype, seed=1)
+    jsp = _j_stack(params, depth, dtype)
+    x, jx = _activations(2, dtype)
+    ref = fused_mixer_stream(jx, jsp, dtype=JDT[dtype], interpret=True)
+    before = mixer_stream.launches
+    got = mixer_stream(x, stacked_mixer_weights(jsp, dtype))
+    assert mixer_stream.launches == before  # a CPU tensor launches nothing
+    assert got.dtype == dtype
+    assert _rel(got.float(), ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("block_idx", [0, 1, 2])
+def test_mixer_block_stacked_matches_jax(block_idx):
+    _, _, params = _pair(3, torch.float32, seed=3)
+    jsp = _j_stack(params, 3, torch.float32)
+    x, jx = _activations(4, torch.float32)
+    ref = fused_mixer_block_stacked(jx, jsp, block_idx=block_idx, dtype=jnp.float32,
+                                    interpret=True)
+    before = mixer_block_stacked.launches
+    got = mixer_block_stacked(x, stacked_mixer_weights(jsp), block_idx)
+    assert mixer_block_stacked.launches == before
+    assert _rel(got, ref) <= TOL[torch.float32]
+
+
+@DTYPES
+def test_streamed_mixer_forward_matches_jax(dtype):
+    mapper, jmapper, params = _pair(2, dtype, seed=5)
+    x = np.random.default_rng(6).normal(size=(3, IN)).astype(np.float32)
+    jspp = jfused.prepare_streamed_params(jmapper, params)
+    ref = jfused.streamed_mixer_forward(jmapper, jspp, jnp.asarray(x), interpret=True)
+    got = streamed_mixer_forward(mapper, prepare_streamed_params(mapper), torch.from_numpy(x))
+    assert got.shape == (3, S, S, CH) and got.dtype == dtype
+    assert _rel(got.float(), ref) <= TOL[dtype]
+
+
+def test_streamed_apply_matches_module_path():
+    """The streamed forward computes the module's function: float32, folded LN2
+    against the affine LN2, within 2e-5."""
+    mapper, _, _ = _pair(2, torch.float32, seed=7)
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, IN)).astype(np.float32))
+    with torch.no_grad():
+        ref = mapper(x)
+    assert _rel(make_streamed_mixer_apply(mapper)(x), ref) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("batch,route", [(STREAM_MAX_BATCH, "stream"),
+                                         (STREAM_MAX_BATCH + 1, "stacked")])
+def test_streamed_apply_routes_by_batch(monkeypatch, batch, route):
+    """At most STREAM_MAX_BATCH rows run the stack in one call, more run it
+    block by block over the same stacked weights; both compute the module's
+    function (float32, within 2e-5)."""
+    mapper, _, _ = _pair(2, torch.float32, seed=11)
+    calls = []
+    stream, block = fused.mixer_stream, fused.mixer_block_stacked
+    monkeypatch.setattr(fused, "mixer_stream", lambda *a: calls.append("stream") or stream(*a))
+    monkeypatch.setattr(fused, "mixer_block_stacked",
+                        lambda *a: calls.append("stacked") or block(*a))
+    x = torch.from_numpy(np.random.default_rng(12).normal(size=(batch, IN)).astype(np.float32))
+    got = make_streamed_mixer_apply(mapper)(x)
+    assert calls == ([route] if route == "stream" else [route] * 2)
+    with torch.no_grad():
+        assert _rel(got, mapper(x)) <= TOL[torch.float32]
+
+
+def test_mixer_stream_plain_loops_the_stacked_block():
+    _, _, params = _pair(2, torch.float32, seed=9)
+    sp = stacked_mixer_weights(_j_stack(params, 2, torch.float32))
+    x, _ = _activations(10, torch.float32)
+    want = mixer_block_stacked_plain(mixer_block_stacked_plain(x, sp, 0), sp, 1)
+    assert torch.equal(mixer_stream_plain(x, sp), want)
+    assert torch.equal(mixer_stream(x, sp), want)
+
+
+def test_streamed_supported():
+    mapper, _, _ = _pair(1, torch.float32)
+    assert streamed_supported(mapper)
+    assert not streamed_supported(Mixer(input_dim=IN, image_size=4, channels=CH, dim=16,
+                                        depth=1, dropout=0.1))
+    assert not streamed_supported(torch.nn.Linear(2, 2))
+
+
+@pytest.mark.parametrize("batch,plans,barriers", [
+    (1, [(2, 128), (8, 128), (4, 256), (16, 256)], 32 * 10),
+    (4, [(1, 256), (4, 256), (1, 1024), (4, 1024)], 32 * 8),
+])
+def test_flagship_split_k_plans_and_barriers(batch, plans, barriers):
+    """The K2 split-K plan at the flagship (T=256, D=1024, Et=1024, Ec=4096, bf16,
+    132 SMs) and the kernel's grid-wide barriers per launch."""
+    got = gemm_plans(batch, 256, 1024, 1024, 4096, torch.bfloat16, 132)
+    assert got == plans
+    assert barriers_per_launch(32, got) == barriers
