@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prompt->image and train paths once on one NVIDIA GPU,
-in phases.
+"""Drive the PyTorch port's prompt->image, train-step and trainer paths once on
+one NVIDIA GPU, in phases.
 
     python3 chip_smoke.py
 
@@ -22,30 +22,43 @@ in phases.
    against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
    at B=1 and 4, float32 and bf16; two K4 launches bitwise equal; the
    stacked-layout block (K5) against its plain version at B=4, blocks 0 and 31.
-8. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
+8. [mlp-ln] The CLIP MLP sublayer (K11) forward, and its backward with dx
+   alone and with the six parameter grads, against their plain versions at the
+   train loss's shape (3200 x 768 x 3072, quick_gelu) and a small gelu shape,
+   float32 and bf16; two backward runs bitwise equal.
+9. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
    each kernel's bound; for the warps also grid_sample's forward and backward;
-   K4 beside 32 x K2 and 32 x K5 at the same batch.
-9. [reference] The tiny prompt->image slice, card against CPU module path;
+   K4 beside 32 x K2 and 32 x K5 at the same batch; K11 beside the eager
+   module sublayer (ln_2 -> mlp) forward and backward.
+10. [reference] The tiny prompt->image slice, card against CPU module path;
    the tiny serving Predictor, card (K4 at 2x2, K2 at 3x3) against CPU.
-10. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
+11. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
    card (kernels) against CPU (module path, plain warps): loss and mapper grads.
-11. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
+12. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
    VQGAN f16-16384, bf16, random weights from a seed) answers requests of
    batch 1, 4 and 16; the kernels' launch counters must rise; one PNG grid.
    Then the same in stream mode (`entry(stream_mixer=True)`): K4 at batch 1 and
    4, K5 x 32 at batch 16, on the same tokens.
-12. [serve] The serving Predictor: the flagship mapper saved as a reference
+13. [serve] The serving Predictor: the flagship mapper saved as a reference
    `.th` checkpoint, loaded with ViT-B/32 and VQGAN f16-16384 (random from the
    seed) and a synthetic BPE table; grids 1x1, 2x2 and 4x4, a warm-up and 3
    timed requests each; K4 once per request of n <= 8 images, K2 32 times at
    n = 16; per-stage CUDA-event ms, request ms, peak memory.
-13. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
-   cutouts with the default augs Af/Pe/Ji/Er, ViT-B/32 loss, Adam): a warm-up
-   step, then 3 timed steps, each with a finite loss, changed parameters, the
-   Mixer train kernels' counters up by 32 each, the VQ kernel's by 1 and the
-   warp kernels' by 2 each; per-stage CUDA-event times.
-14. Prints the card's line, the kernels' JSON line, then
-   `{"ok": true, "device": {...}}` last.
+14. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
+   cutouts with the default augs Af/Pe/Ji/Er, ViT-B/32 loss, Adam), built twice:
+   the image tower as modules, and through K11 (FFVC_FUSED_CLIP=1). A warm-up
+   step each, then 3 timed steps each, in turns, each with a finite loss,
+   changed parameters, the Mixer train kernels' counters up by 32 each, the VQ
+   kernel's by 1, the warp kernels' by 2 each and, fused, K11's forward and
+   backward by 12 each; per-stage CUDA-event times.
+15. [trainer] `train(cfg, device="cuda")` at the same geometry on a token file,
+   FFVC_FUSED_CLIP=1, EMA, cosine schedule, clipping: 5 steps with two log
+   steps (previews, checkpoints), a resume to step 7, the run folder checked;
+   step, log-step, save and write times and checkpoint bytes. Then, at mapper
+   depth 2, 4 steps against 2 + 2 resumed, within a stated ceiling, beside a
+   second uninterrupted run.
+16. Prints the card's line, the kernels' JSON line (K11's launches from the
+   [trainer] runs), then `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -55,6 +68,7 @@ import contextlib
 import gzip
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -81,6 +95,13 @@ BPE_MERGES = ["h e", "l l", "he ll", "o</w> !</w>", "hell o</w>", "w o", "r l", 
               "worl d</w>"]
 TRAIN_STEPS = 3
 SEED = 0
+CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
+MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
+TRAINER_LR = 1e-3
+# Adam's bias-corrected step is at most 1.007 lr per element over its first 4
+# updates (Cauchy-Schwarz over the moments' weights), so two runs whose grads
+# differ move apart by at most 2 x that per step; the EMA averages the parameters
+RESUME_CEILING = 2 * 4 * 1.007 * TRAINER_LR
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -464,6 +485,73 @@ def phase_stream(gen):
     return worst
 
 
+def random_mlp_weights(d, e, dtype, gen):
+    """One CLIP MLP sublayer's kernel weights (ln_2, c_fc, c_proj), random at
+    lecun scales, on the card."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import MlpLnWeights
+
+    def n(*shape, std):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    return MlpLnWeights(ln_w=1 + n(d, std=0.1), ln_b=n(d, std=0.1),
+                        w1=n(e, d, std=d ** -0.5).to(dtype), b1=n(e, std=0.1),
+                        w2=n(d, e, std=e ** -0.5).to(dtype), b2=n(d, std=0.1))
+
+
+def phase_mlp_ln(gen):
+    """K11 forward and backward (dx alone, and with the six parameter grads)
+    against their plain versions at the train loss's shape (MLP_SHAPE,
+    quick_gelu) and at a small gelu shape, float32 (TF32 off) and bf16, every
+    output within its ceiling of max |plain|; two backward runs bitwise equal.
+    -> {kernel name: max abs err at the train shape in bf16}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
+        mlp_ln,
+        mlp_ln_bwd,
+        mlp_ln_bwd_plain,
+        mlp_ln_plain,
+    )
+
+    worst = {"mlp_ln": 0.0, "mlp_ln_bwd": 0.0}
+    for (n, d, e), act in ((MLP_SHAPE, "quick_gelu"), ((300, 96, 384), "gelu")):
+        for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
+            w = random_mlp_weights(d, e, dtype, gen)
+            x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(n, d, generator=gen, device="cuda")
+            out, g, dg = mlp_ln(x, w, act)
+            ref_out, ref_g, ref_dg = mlp_ln_plain(x, w, act)
+            full = mlp_ln_bwd(dy, x, g, dg, w, params=True)
+            only = mlp_ln_bwd(dy, x, g, dg, w, params=False)
+            again = mlp_ln_bwd(dy, x, g, dg, w, params=True)
+            torch.cuda.synchronize()
+            ref = mlp_ln_bwd_plain(dy, x, g, dg, w, params=True)
+            pairs = {
+                "mlp_ln": [(out, ref_out), (g, ref_g), (dg, ref_dg)],
+                "mlp_ln_bwd": list(zip(full, ref)) + [(only.dx, ref.dx)],
+            }
+            label = f"N={n} D={d} E={e} {act} {str(dtype)[6:]}"
+            for name, outs in pairs.items():
+                abs_err = max((a.float() - b.float()).abs().max().item() for a, b in outs)
+                ratio = max((a.float() - b.float()).abs().max().item()
+                            / max(b.float().abs().max().item(), 1e-30) for a, b in outs)
+                finite = all(torch.isfinite(a).all().item() for a, _ in outs)
+                log(f"[mlp-ln] {name} {label}: max abs err {abs_err:.3e}, worst err / "
+                    f"max|plain| over {len(outs)} outputs {ratio:.3e} (ceiling {tol:g})")
+                if not (finite and ratio <= tol):
+                    raise AssertionError(f"{name} disagrees with its plain version at {label}")
+                if dtype == torch.bfloat16 and (n, d, e) == MLP_SHAPE:
+                    worst[name] = abs_err
+            if not (all(torch.equal(a, b) for a, b in zip(full, again))
+                    and torch.equal(only.dx, full.dx) and all(v is None for v in only[1:])):
+                raise AssertionError(f"mlp_ln_bwd differs between runs or modes at {label}")
+    log("[mlp-ln] two backward runs bitwise equal, and dx alone equal to dx with the "
+        "parameter grads, at every shape and dtype")
+    return worst
+
+
 def bound(inputs, outputs, flops, peak):
     """(bound_ms, bound_by): the larger of the bytes the function must move (each
     input read once, each output written once) over the memory rate and its
@@ -556,6 +644,7 @@ def phase_timing(gen, smi):
         times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops)
     times.update(stream_timing(gen, smi, record))
     times.update(warp_timing(gen, smi, record))
+    times.update(mlp_ln_timing(gen, smi, record))
     return times
 
 
@@ -668,6 +757,68 @@ def warp_timing(gen, smi, record):
             rows[name].append({**row, "library_ms": lib_ms})
     return {name: {k: (v[0][k] + v[1][k]) / 2 if k != "bound_by" else v[0][k]
                    for k in v[0]} for name, v in rows.items()}
+
+
+def mlp_ln_timing(gen, smi, record):
+    """K11 at the train loss's shape (MLP_SHAPE, quick_gelu, bf16): the forward,
+    and the backward in the frozen tower's dx-only mode (what the train step
+    launches) and with the parameter grads, each beside its plain version and
+    the eager module sublayer (`ln_2` -> `mlp` of clip_vit.py with its residual,
+    and its autograd backward to x) as the yardstick; -> {kernel name: row}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import ResidualAttentionBlock
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
+        MlpLnWeights,
+        mlp_ln,
+        mlp_ln_bwd,
+        mlp_ln_bwd_plain,
+        mlp_ln_plain,
+    )
+
+    n, d, e = MLP_SHAPE
+    dt = torch.bfloat16
+    blk = ResidualAttentionBlock(d, 12, dtype=dt, device="cuda").requires_grad_(False)
+    w32 = random_mlp_weights(d, e, torch.float32, gen)
+    with torch.no_grad():
+        for p, v in zip((blk.ln_2.weight, blk.ln_2.bias, blk.mlp.c_fc.weight, blk.mlp.c_fc.bias,
+                         blk.mlp.c_proj.weight, blk.mlp.c_proj.bias), w32):
+            p.copy_(v)
+    w = MlpLnWeights(*(v.to(dt) if name in ("w1", "w2") else v
+                       for name, v in zip(MlpLnWeights._fields, w32)))
+    x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+    dy = torch.randn(n, d, generator=gen, device="cuda")
+    out, g, dg = mlp_ln(x, w, "quick_gelu")
+    eager_fwd = lambda: x + blk.mlp(blk.ln_2(x))  # noqa: E731
+    xr = x.detach().requires_grad_()
+    y = xr + blk.mlp(blk.ln_2(xr))
+    dyd = dy.to(dt)
+    eager_bwd = lambda: torch.autograd.grad(y, xr, dyd, retain_graph=True)  # noqa: E731
+    only = mlp_ln_bwd(dy, x, g, dg, w, params=False)
+    w_bytes = list(w)
+    flops = 2 * 2 * n * d * e  # two products of (n, d) x (d, e)
+    rows = {}
+    for name, kernel_fn, plain_fn, eager_fn, ins, outs, ops in (
+            ("mlp_ln", lambda: mlp_ln(x, w, "quick_gelu"),
+             lambda: mlp_ln_plain(x, w, "quick_gelu"), eager_fwd, [x, *w_bytes],
+             [out, g, dg], flops),
+            ("mlp_ln_bwd", lambda: mlp_ln_bwd(dy, x, g, dg, w, params=False),
+             lambda: mlp_ln_bwd_plain(dy, x, g, dg, w, params=False), eager_bwd,
+             [dy, x, g, dg, w.ln_w, w.w1, w.w2], [only.dx], flops)):
+        k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
+        eager_ms = (cuda_ms(eager_fn) + cuda_ms(eager_fn)) / 2
+        row = record(f"{name} (K11) N={n} D={d} E={e} quick_gelu bf16"
+                     f"{' dx only' if name == 'mlp_ln_bwd' else ''}", k_ms, p_ms,
+                     bound(ins, outs, ops, "bf16"), ops)
+        log(f"[time] {name}: eager module sublayer {'backward to x' if 'bwd' in name else ''}"
+            f" {eager_ms:.4f} ms (cuBLAS bf16 with the LayerNorm and activation passes) ({smi})")
+        rows[name] = {**row, "eager_ms": eager_ms}
+    full = mlp_ln_bwd(dy, x, g, dg, w, params=True)
+    k_ms, p_ms = paired_ms(lambda: mlp_ln_bwd(dy, x, g, dg, w, params=True),
+                           lambda: mlp_ln_bwd_plain(dy, x, g, dg, w, params=True))
+    record(f"mlp_ln_bwd (K11) N={n} D={d} E={e} bf16 with the parameter grads", k_ms, p_ms,
+           bound([dy, x, g, dg, *w_bytes], list(full), 2 * flops, "bf16"), 2 * flops)
+    return rows
 
 
 TINY_VQGAN = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
@@ -1087,46 +1238,81 @@ def phase_train_reference():
         raise AssertionError("the card's train step disagrees with the CPU module path")
 
 
-def phase_train(smi):
-    """The flagship train step through entry.train_entry: a warm-up step, then
-    TRAIN_STEPS timed steps (host clock around each, ending in a synchronize),
-    with per-stage CUDA events. -> the kernels' launches in the timed steps."""
-    import torch
+@contextlib.contextmanager
+def fused_clip(on):
+    """FFVC_FUSED_CLIP set to "1" (the image tower through K11) or "0" while the
+    block runs, restored after it."""
+    old = os.environ.get("FFVC_FUSED_CLIP")
+    os.environ["FFVC_FUSED_CLIP"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("FFVC_FUSED_CLIP")
+        else:
+            os.environ["FFVC_FUSED_CLIP"] = old
 
-    from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
+
+def train_counters():
+    """{kernel name: wrapper} of every kernel the train step can launch."""
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block_fwd_res,
         mixer_channel_bwd,
         mixer_token_bwd,
     )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import mlp_ln, mlp_ln_bwd
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
+
+    return {"vq_argmin": vq_kernel, "mixer_fwd_res": mixer_block_fwd_res,
+            "mixer_channel_bwd": mixer_channel_bwd, "mixer_token_bwd": mixer_token_bwd,
+            "warp_forward": warp_forward, "warp_adjoint": warp_adjoint, "mlp_ln": mlp_ln,
+            "mlp_ln_bwd": mlp_ln_bwd}
+
+
+def phase_train(smi):
+    """The flagship train step through entry.train_entry, built twice side by
+    side: the image tower as modules, and through the K11 sublayers
+    (FFVC_FUSED_CLIP=1). A warm-up step each, then TRAIN_STEPS timed steps each,
+    taken in turns (module, fused, fused, module, ...) so that both meet the same
+    host: host clock around each step, ending in a synchronize, per-stage CUDA
+    events. -> (the kernels' launches in the module tower's timed steps,
+    {"module" / "fused": {"step", "image_tower", "backward"}: median ms})."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
     from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
 
-    counters = {"vq_argmin": vq_kernel, "mixer_fwd_res": mixer_block_fwd_res,
-                "mixer_channel_bwd": mixer_channel_bwd, "mixer_token_bwd": mixer_token_bwd,
-                "warp_forward": warp_forward, "warp_adjoint": warp_adjoint}
-    # the warps: Af and Pe, one forward and one adjoint each
-    per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
-                "mixer_token_bwd": 32, "warp_forward": 2, "warp_adjoint": 2}
-    t0 = time.perf_counter()
-    step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=SEED)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    step_fn(state, batch, gen)  # warm-up, outside the counted run
-    torch.cuda.synchronize()
-    log(f"[train] flagship train step built and warmed in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in state.params) / 1e6:.1f} M mapper parameters)")
-    watch = [state.params[0], state.params[len(state.params) // 2], state.params[-1]]
+    counters = train_counters()
+    runs = {}
+    for name, fused in (("module", False), ("fused", True)):
+        t0 = time.perf_counter()
+        with fused_clip(fused):
+            step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=SEED)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        step_fn(state, batch, gen)  # warm-up, outside the counted run
+        torch.cuda.synchronize()
+        log(f"[train] flagship train step, {name} tower, built and warmed in "
+            f"{time.perf_counter() - t0:.1f} s ({sum(p.numel() for p in state.params) / 1e6:.1f} "
+            "M mapper parameters)")
+        # the warps: Af and Pe, one forward and one adjoint each; K11 once per ViT block
+        per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
+                    "mixer_token_bwd": 32, "warp_forward": 2, "warp_adjoint": 2,
+                    "mlp_ln": CLIP_BLOCKS * fused, "mlp_ln_bwd": CLIP_BLOCKS * fused}
+        runs[name] = dict(step_fn=step_fn, state=state, batch=batch, gen=gen, per_step=per_step,
+                          watch=[state.params[0], state.params[len(state.params) // 2],
+                                 state.params[-1]],
+                          step_ms=[], stage_ms={s: [] for s in STAGES}, losses=[],
+                          launches={k: 0 for k in counters})
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    step_ms, stage_ms, losses = [], {s: [] for s in STAGES}, []
-    for _ in range(TRAIN_STEPS):
+    for i in range(2 * TRAIN_STEPS):
+        name = "fused" if i % 4 in (1, 2) else "module"
+        r = runs[name]
         before = {k: fn.launches for k, fn in counters.items()}
-        snapshot = [p.detach().clone() for p in watch]
+        snapshot = [p.detach().clone() for p in r["watch"]]
         events = [torch.cuda.Event(enable_timing=True)]
         marks = []
 
@@ -1138,30 +1324,222 @@ def phase_train(smi):
 
         t = time.perf_counter()
         events[0].record()
-        state, metrics = step_fn(state, batch, gen, mark)
+        r["state"], metrics = r["step_fn"](r["state"], r["batch"], r["gen"], mark)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        for i, stage in enumerate(marks):
-            stage_ms[stage].append(events[i].elapsed_time(events[i + 1]))
+        r["step_ms"].append((time.perf_counter() - t) * 1e3)
+        for j, stage in enumerate(marks):
+            r["stage_ms"][stage].append(events[j].elapsed_time(events[j + 1]))
         loss = metrics["loss"].item()
-        losses.append(loss)
+        r["losses"].append(loss)
         launched = {k: fn.launches - before[k] for k, fn in counters.items()}
-        if launched != per_step:
-            raise AssertionError(f"train step launches {launched}, need {per_step}")
+        for k, v in launched.items():
+            r["launches"][k] += v
+        if launched != r["per_step"]:
+            raise AssertionError(f"train step ({name} tower) launches {launched}, need "
+                                 f"{r['per_step']}")
         if not torch.isfinite(torch.tensor(loss)).item():
             raise AssertionError(f"train step loss {loss} is not finite")
-        if all(torch.equal(a, p.detach()) for a, p in zip(snapshot, watch)):
+        if all(torch.equal(a, p.detach()) for a, p in zip(snapshot, r["watch"])):
             raise AssertionError("train step left the watched parameters unchanged")
-    med = sorted(step_ms)[len(step_ms) // 2]
-    stages = ", ".join(f"{s} {sorted(v)[len(v) // 2]:.2f}" for s, v in stage_ms.items())
-    log(f"[train] losses {', '.join(f'{x:.6f}' for x in losses)}; avg_loss "
-        f"{state.avg_loss.item():.6f}; step {state.step}")
-    log(f"[train] B=8 cutn=8: median step {med:.2f} ms of {TRAIN_STEPS} "
-        f"({', '.join(f'{x:.2f}' for x in step_ms)}), {8 / med * 1e3:.2f} img/s ({smi})")
-    log(f"[train] median stage ms (CUDA events): {stages} ({smi})")
-    log(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-        f"launches in the timed steps {dict((k, fn.launches) for k, fn in counters.items())}")
-    return {k: fn.launches for k, fn in counters.items()}
+    summary = {}
+    for name, r in runs.items():
+        med = sorted(r["step_ms"])[len(r["step_ms"]) // 2]
+        stage_med = {s: sorted(v)[len(v) // 2] for s, v in r["stage_ms"].items()}
+        stages = ", ".join(f"{s} {v:.2f}" for s, v in stage_med.items())
+        log(f"[train] {name} tower: losses {', '.join(f'{x:.6f}' for x in r['losses'])}; "
+            f"avg_loss {r['state'].avg_loss.item():.6f}; step {r['state'].step}")
+        log(f"[train] {name} tower, B=8 cutn=8: median step {med:.2f} ms of {TRAIN_STEPS} "
+            f"({', '.join(f'{x:.2f}' for x in r['step_ms'])}), {8 / med * 1e3:.2f} img/s ({smi})")
+        log(f"[train] {name} tower: median stage ms (CUDA events): {stages} ({smi})")
+        log(f"[train] {name} tower: launches in the timed steps {r['launches']}")
+        summary[name] = {"step": med, "image_tower": stage_med["image_tower"],
+                         "backward": stage_med["backward"]}
+    log(f"[train] peak device memory in the timed steps, both towers' models resident: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = runs["module"]["launches"]
+    del runs
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def trainer_config(folder, path, **kw):
+    """The flagship geometry of entry.train_entry as a trainer config: CLIP
+    ViT-B/32, Mixer 32x1024, VQGAN f16-16384, B=8, cutn=8, 224-px cutouts with the
+    default augs, bf16, Adam with bf16 moments, EMA, clipping."""
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+
+    cfg = dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32, dropout=0,
+               vq_image_size=16, vqgan_model="vqgan_imagenet_f16_16384", noise_dim=0,
+               batch_size=8, cutn=8, compute_dtype="bfloat16", opt_dtype="bfloat16",
+               lr=TRAINER_LR, use_ema=True, clip_grad_norm=1.0, epochs=1000, seed=SEED,
+               path=path, folder=folder)
+    cfg.update(kw)
+    return make_config(**cfg)
+
+
+def phase_trainer(smi):
+    """`train(cfg, device="cuda")` at the flagship geometry on a 32-prompt token
+    file, the image tower through K11 (FFVC_FUSED_CLIP=1), with EMA, the cosine
+    schedule and clipping: 5 steps with log steps 0 and 4, then a resume to 7.
+    Checks the run folder and the step count, and times each step (host clock,
+    synchronized after it), the log steps' previews and checkpoints, and the
+    checkpoint writes. Then, at depth 2 (smaller files), 4 uninterrupted steps
+    against 2 + 2 resumed. -> the kernels' launches in the flagship runs."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT
+    from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    counters = train_counters()
+    per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
+                "mixer_token_bwd": 32, "warp_forward": 2, "warp_adjoint": 2,
+                "mlp_ln": CLIP_BLOCKS, "mlp_ln_bwd": CLIP_BLOCKS}
+    real = (loop.make_train_step, loop._log_step_artifacts, loop._save_all,
+            ckpt_io._atomic_save)
+    times = {"step": {}, "log": {}, "save": [], "write": [], "bytes": {}}
+
+    def make_train_step(*a, **k):
+        step_fn, loss_fn = real[0](*a, **k)
+
+        def timed(state, batch, gen, mark=None):
+            before = {name: fn.launches for name, fn in counters.items()}
+            step, t = state.step, time.perf_counter()
+            out = step_fn(state, batch, gen, mark)
+            torch.cuda.synchronize()
+            times["step"][step] = (time.perf_counter() - t) * 1e3
+            launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+            if launched != per_step:
+                raise AssertionError(f"[trainer] step {step} launches {launched}, need "
+                                     f"{per_step}")
+            return out
+
+        return timed, loss_fn
+
+    def log_step_artifacts(*a, **k):
+        t = time.perf_counter()
+        real[1](*a, **k)
+        times["log"][a[8]] = (time.perf_counter() - t) * 1e3  # a[8]: the step
+
+    def save_all(*a, **k):
+        t = time.perf_counter()
+        real[2](*a, **k)
+        times["save"].append((time.perf_counter() - t) * 1e3)
+
+    def atomic_save(obj, path):
+        t = time.perf_counter()
+        real[3](obj, path)
+        times["write"].append((time.perf_counter() - t) * 1e3)
+        times["bytes"][os.path.basename(path)] = os.path.getsize(path)
+        return path
+
+    toks = np.zeros((32, 77), np.int32)
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + np.arange(32), EOT
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), fused_clip(True):
+        path = os.path.join(tmp, "tokens.npz")
+        np.savez(path, tokens=toks)
+        run = os.path.join(tmp, "run")
+        loop.make_train_step, loop._log_step_artifacts, loop._save_all = (
+            make_train_step, log_step_artifacts, save_all)
+        ckpt_io._atomic_save = atomic_save
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = loop.train(trainer_config(run, path, scheduler="cosine", max_steps=5,
+                                              log_interval=4), device="cuda")
+            t1 = time.perf_counter()
+            files = sorted(os.listdir(run))
+            need = ["checkpoint.th", "checkpoint_ema.th", "opt.th", "progress.png",
+                    "fixed_batch_progress.png", "progress.txt", "fixed_batch.txt",
+                    "progress_0000000004.png"]
+            if state.step != 5 or any(f not in files for f in need):
+                raise AssertionError(f"[trainer] step {state.step}, folder {files}")
+            for name in ("progress.png", "fixed_batch_progress.png"):
+                img = read_png(os.path.join(run, name))
+                if img.shape != (260, 2066, 3) or float(np.std(img)) == 0.0:
+                    raise AssertionError(f"[trainer] {name}: {img.shape}, need (260, 2066, 3)")
+            del state
+            state = loop.train(trainer_config(run, path, scheduler="cosine", max_steps=7,
+                                              log_interval=4), device="cuda")
+            t2 = time.perf_counter()
+            stored = torch.load(os.path.join(run, "checkpoint.th"), map_location="cpu",
+                                weights_only=False, mmap=True)["step"]
+            if state.step != 7 or stored != 7:
+                raise AssertionError(f"[trainer] resume reached step {state.step} (stored "
+                                     f"{stored}), need 7")
+            launches = {name: fn.launches for name, fn in counters.items()}
+            if launches["mlp_ln"] != 7 * CLIP_BLOCKS or launches["mlp_ln_bwd"] != 7 * CLIP_BLOCKS:
+                raise AssertionError(f"[trainer] K11 launches {launches}, need "
+                                     f"{7 * CLIP_BLOCKS} each")
+            steps = times["step"]
+            plain_steps = sorted(v for s, v in steps.items() if s not in times["log"] and s > 0)
+            med = plain_steps[len(plain_steps) // 2]
+            log(f"[trainer] flagship train(), FFVC_FUSED_CLIP=1, EMA, cosine, clipping: 5 steps "
+                f"in {t1 - t0:.1f} s, resumed to 7 in {t2 - t1:.1f} s (model builds included); "
+                f"folder {files}")
+            log(f"[trainer] step ms (host clock, synchronized after each): "
+                f"{', '.join(f'{s}: {v:.2f}' for s, v in sorted(steps.items()))}; median "
+                f"non-log step {med:.2f} ms of {len(plain_steps)} ({smi})")
+            log(f"[trainer] log step 4: step {steps[4]:.2f} ms + previews and checkpoint "
+                f"hand-off {times['log'][4]:.2f} ms (step 0: {times['log'][0]:.2f}); "
+                f"_save_all (device->host copies, and the wait for the previous write) "
+                f"{', '.join(f'{v:.1f}' for v in times['save'])} ms; file writes "
+                f"{', '.join(f'{v:.1f}' for v in times['write'])} ms ({smi})")
+            log(f"[trainer] checkpoint bytes {times['bytes']} (total "
+                f"{sum(times['bytes'].values()) / 2**30:.2f} GiB per save); launches in the "
+                f"runs {launches}; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del state
+        finally:
+            (loop.make_train_step, loop._log_step_artifacts, loop._save_all,
+             ckpt_io._atomic_save) = real
+        shutil.rmtree(run)
+        trainer_resume_check(tmp, path)
+    return launches
+
+
+def trainer_resume_check(tmp, path):
+    """At the flagship widths with mapper depth 2, no schedule: 4 uninterrupted
+    steps against 2 + 2 resumed, and against a second uninterrupted run. On the
+    card the cutouts' adaptive-pooling backward adds with atomics, so two runs'
+    grads differ in their last bits, and the straight-through VQ turns a tiny
+    change of the latent into another code: the check is a ceiling, printed with
+    the two uninterrupted runs' own difference and whether the runs came out
+    bitwise equal."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    kw = dict(depth=2, log_interval=100)
+
+    def run(name, steps):
+        return loop.train(trainer_config(os.path.join(tmp, name), path, max_steps=steps, **kw),
+                          device="cuda")
+
+    a, again = run("a", 4), run("a2", 4)
+    run("b", 2)
+    b = run("b", 4)
+
+    def apart(x, y):
+        diffs = torch.cat([(p - q).abs().flatten() for p, q in zip(x.params, y.params)])
+        de = max((p - q).abs().max().item() for p, q in zip(x.ema_params, y.ema_params))
+        equal = all(torch.equal(p, q) for p, q in zip(x.params + x.ema_params,
+                                                       y.params + y.ema_params))
+        return (diffs.max().item(), de, diffs.mean().item(),
+                int((diffs > 0.1 * TRAINER_LR).sum()), diffs.numel(), equal)
+
+    for label, (dp, de, mean, far, n, equal) in (
+            ("4 steps against 2 + 2 resumed", apart(a, b)),
+            ("two uninterrupted 4-step runs", apart(a, again))):
+        log(f"[trainer] depth 2, {label}: max |dparams| {dp:.3e}, max |dEMA| {de:.3e} "
+            f"(ceiling {RESUME_CEILING:.3e}); mean |dparams| {mean:.3e}, {far} of {n} elements "
+            f"apart by more than lr/10; bitwise equal on the card: {equal}")
+    dp, de = apart(a, b)[:2]
+    if not (a.step == b.step == 4 and dp <= RESUME_CEILING and de <= RESUME_CEILING):
+        raise AssertionError("[trainer] the resumed run left the uninterrupted one")
 
 
 def main():
@@ -1179,13 +1557,22 @@ def main():
     errs = phase_mixer_train(gen)
     errs.update(phase_warp(gen))
     errs.update(phase_stream(gen))
+    errs.update(phase_mlp_ln(gen))
     times = phase_timing(gen, smi)
     phase_reference()
     phase_serve_reference()
     phase_train_reference()
     launches = phase_slice(smi)
     launches["mixer_stream"] = phase_serve(smi)
-    launches.update(phase_train(smi))
+    train_launches, steps = phase_train(smi)
+    module, fused = steps["module"], steps["fused"]
+    log(f"[train] module tower against fused tower (K11), median ms: step {module['step']:.2f} / "
+        f"{fused['step']:.2f}, image_tower {module['image_tower']:.2f} / "
+        f"{fused['image_tower']:.2f}, backward {module['backward']:.2f} / "
+        f"{fused['backward']:.2f} ({smi})")
+    launches.update({k: v for k, v in train_launches.items() if not k.startswith("mlp_ln")})
+    trainer = phase_trainer(smi)
+    launches.update(mlp_ln=trainer["mlp_ln"], mlp_ln_bwd=trainer["mlp_ln_bwd"])
     pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
     csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
     rows = [  # name, source, TPU kernel replaced, launches (the path's run), max abs err
@@ -1206,9 +1593,13 @@ def main():
          errs["warp_forward"]),
         ("warp_adjoint", "warp.cu", "warp_adjoint.py:172", launches["warp_adjoint"],
          errs["warp_adjoint"]),
+        ("mlp_ln", "mlp_ln.cu", "mlp_ln.py:59", launches["mlp_ln"], errs["mlp_ln"]),
+        ("mlp_ln_bwd", "mixer_train.cu", "mlp_ln.py:81", launches["mlp_ln_bwd"],
+         errs["mlp_ln_bwd"]),
     ]
     # library_ms: grid_sample's forward and backward for the warps; no single
-    # PyTorch call computes the other functions
+    # PyTorch call computes the other functions (K11's rows carry the eager
+    # module sublayer's time as eager_ms instead)
     kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
                 "launches": n, "max_abs_err": err, "library_ms": None, **times[name]}
                for name, src, tpu, n, err in rows]

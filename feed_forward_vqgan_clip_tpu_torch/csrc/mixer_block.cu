@@ -69,51 +69,6 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     ln_row<T>(x + o, scale, bias, out + o, nullptr, nullptr, d, false, lane);
 }
 
-// The split-K partial tiles of a launch, added in order (splitk_reduce).
-template <typename T, typename Args>
-__global__ void __launch_bounds__(256) splitk_epilogue_kernel(Args p, int batch) {
-  splitk_reduce<T>(p, batch, blockIdx.x * 256LL + threadIdx.x, gridDim.x * 256LL);
-}
-
-// One output tile per block: tile (blockIdx.x, blockIdx.y) of batch/split
-// blockIdx.z. The bf16 GEMM is held to two blocks per SM (2 x 41 KB of shared
-// memory; 2 x 256 threads x 128 registers fill the register file): at 129
-// registers or more only one fits, and the GEMM loses 7-9% (ptxas chose 134 and
-// 140 for two instantiations of this kernel before the bound).
-template <typename Args, bool kAMMajor, bool kBKMajor>
-__global__ void __launch_bounds__(256) gemm_f32_kernel(Args p) {
-  __shared__ __align__(16) unsigned char smem[GemmTile<float, kAMMajor, kBKMajor>::kSmemBytes];
-  gemm_f32_tile<Args, kAMMajor, kBKMajor>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
-}
-
-template <typename Args, bool kAMMajor, bool kBKMajor>
-__global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(Args p) {
-  __shared__ __align__(128) unsigned char smem[GemmTile<bf16, kAMMajor, kBKMajor>::kSmemBytes];
-  gemm_bf16_tile<Args, kAMMajor, kBKMajor>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
-}
-
-template <typename T, typename Args, bool kAMMajor, bool kBKMajor>
-int launch_gemm(const Args& p, int batch, cudaStream_t s) {
-  constexpr int kTile = std::is_same<T, bf16>::value ? 128 : 64;
-  const dim3 grid((p.n + kTile - 1) / kTile, (p.m + kTile - 1) / kTile, batch * p.splits);
-  if constexpr (std::is_same<T, bf16>::value)
-    gemm_bf16_kernel<Args, kAMMajor, kBKMajor><<<grid, 256, 0, s>>>(p);
-  else
-    gemm_f32_kernel<Args, kAMMajor, kBKMajor><<<grid, 256, 0, s>>>(p);
-  bool partials = p.splits > 1;
-  if constexpr (kIsTrain<Args>) partials = partials || p.batch_sum;
-  if (partials) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    int outs = batch;
-    if constexpr (kIsTrain<Args>) outs = p.batch_sum ? 1 : batch;
-    const long long total = (long long)outs * p.m * p.n;
-    const int blocks = static_cast<int>(std::min<long long>((total + 255) / 256, 4096));
-    splitk_epilogue_kernel<T, Args><<<blocks, 256, 0, s>>>(p, batch);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The train GEMMs' layouts: row-major A with a K- or N-major B, or an M-major A
 // with an N-major B (no caller reads both operands transposed).
 template <typename T>

@@ -1,8 +1,9 @@
 // The Mixer kernels' device code: one LayerNorm row, one GEMM output tile with its
 // fused epilogue, and the in-order sum of split-K partial tiles. csrc/mixer_block.cu
-// launches each as its own kernel (one tile per block, K2 and the train kernels);
+// launches each as its own kernel (one tile per block, K2 and the train kernels), as
+// does csrc/mlp_ln.cu for the CLIP MLP sublayer (K11, with its own activation);
 // csrc/mixer_stream.cu runs the same functions inside one persistent kernel over the
-// whole depth (K4). Both therefore compute every tile with the same code.
+// whole depth (K4). They therefore compute every tile with the same code.
 //
 // Numerics follow `_block_math`: f32 LN statistics with var = E[x^2] - E[x]^2
 // clamped at 0 and eps 1e-5, f32 accumulation kept through bias and exact GELU
@@ -14,6 +15,7 @@
 // blocks, so they must not go through the read-only (non-coherent) cache.
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -86,10 +88,12 @@ __device__ __forceinline__ void ln_row(const T* xr, const float* scale, const fl
 // whole batch's products into one C (a parameter gradient summed over the batch,
 // in a fixed order: no atomics, so the sum is the same on every run).
 //
-// The inference GEMM takes GemmArgs and the train GEMMs GemmTrainArgs; each kernel
-// is compiled once per argument struct, so the train branches cost the inference
-// kernels nothing (compiled into one kernel, they cost the bf16 GEMM registers
-// and spills: about 20% of the Mixer block at B=16 on an H100).
+// The inference GEMM takes GemmArgs, the train GEMMs GemmTrainArgs and the MLP
+// sublayer's activation GEMM GemmMlpArgs; each kernel is compiled once per argument
+// struct, so the train branches cost the inference kernels nothing (compiled into
+// one kernel, they cost the bf16 GEMM registers and spills: about 20% of the Mixer
+// block at B=16 on an H100), and the activation choice costs the Mixer's kernels
+// nothing.
 struct GemmArgs {
   const void* a;
   long long lda, sa;
@@ -116,8 +120,20 @@ struct GemmTrainArgs : GemmArgs {
   int batch_sum;    // one C: the sum over the batch of the products
 };
 
+// The activations of the CLIP MLP sublayer (csrc/mlp_ln.cu): exact GELU, or CLIP's
+// quick_gelu(v) = v * sigmoid(1.702 v).
+enum Activation : int { kActGelu = 0, kActQuickGelu = 1 };
+
+// The train epilogue with a choice of activation (the MLP sublayer's first GEMM).
+// A type of its own, so the Mixer kernels' instantiations do not carry the choice.
+struct GemmMlpArgs : GemmTrainArgs {
+  int act;  // Activation, where gelu is set
+};
+
 template <typename Args>
-constexpr bool kIsTrain = std::is_same<Args, GemmTrainArgs>::value;
+constexpr bool kIsTrain = std::is_base_of<GemmTrainArgs, Args>::value;
+template <typename Args>
+constexpr bool kIsMlp = std::is_same<Args, GemmMlpArgs>::value;
 
 // Where a tile's K range starts and ends, and which batch element it serves:
 // z = batch element * splits + split.
@@ -152,11 +168,18 @@ __device__ __forceinline__ void epilogue_store(const Args& p, long long bz, T* C
   else if (p.bias_mode == 2)
     v += p.bias[gn];
   if (p.gelu) {
+    // quick_gelu: s = sigmoid(1.702 v), value v s, derivative s + 1.702 (v s) (1 - s)
+    // (`_quick_gelu_val_grad`); a constant false outside GemmMlpArgs
+    bool quick = false;
+    if constexpr (kIsMlp<Args>) quick = p.act == kActQuickGelu;
+    float s = 0.f;
+    if (quick) s = 1.f / (1.f + expf(-1.702f * v));
     if constexpr (kIsTrain<Args>) {
       if (p.gelu_grad)
-        static_cast<T*>(p.gelu_grad)[bz * p.sc + gm * p.ldc + gn] = from_f<T>(gelu_grad_f(v));
+        static_cast<T*>(p.gelu_grad)[bz * p.sc + gm * p.ldc + gn] =
+            from_f<T>(quick ? s + 1.702f * (v * s) * (1.f - s) : gelu_grad_f(v));
     }
-    v = gelu_f(v);
+    v = quick ? v * s : gelu_f(v);
   }
   if constexpr (kIsTrain<Args>) {
     const long long o = bz * p.sc + gm * p.ldc + gn;
@@ -506,6 +529,58 @@ __host__ __device__ inline void fill_common(GemmArgs& p, const void* a, long lon
   p.splits = splits;
   p.k_per_split = k_per_split;
   p.partial = workspace;
+}
+
+// ---------------------------------------------------------------- one tile per block
+
+// The kernels that run one output tile per block, launched by csrc/mixer_block.cu and
+// csrc/mlp_ln.cu; each file compiles the instantiations it launches. (Templates of
+// namespace ffvc, not of an anonymous namespace: nvcc's registration stubs fail to
+// compile for a file that includes kernels from two anonymous namespaces.)
+
+// The split-K partial tiles of a launch, added in order (splitk_reduce).
+template <typename T, typename Args>
+__global__ void __launch_bounds__(256) splitk_epilogue_kernel(Args p, int batch) {
+  splitk_reduce<T>(p, batch, blockIdx.x * 256LL + threadIdx.x, gridDim.x * 256LL);
+}
+
+// One output tile per block: tile (blockIdx.x, blockIdx.y) of batch/split
+// blockIdx.z. The bf16 GEMM is held to two blocks per SM (2 x 41 KB of shared
+// memory; 2 x 256 threads x 128 registers fill the register file): at 129
+// registers or more only one fits, and the GEMM loses 7-9% (ptxas chose 134 and
+// 140 for two instantiations of this kernel before the bound).
+template <typename Args, bool kAMMajor, bool kBKMajor>
+__global__ void __launch_bounds__(256) gemm_f32_kernel(Args p) {
+  __shared__ __align__(16) unsigned char smem[GemmTile<float, kAMMajor, kBKMajor>::kSmemBytes];
+  gemm_f32_tile<Args, kAMMajor, kBKMajor>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+}
+
+template <typename Args, bool kAMMajor, bool kBKMajor>
+__global__ void __launch_bounds__(256, 2) gemm_bf16_kernel(Args p) {
+  __shared__ __align__(128) unsigned char smem[GemmTile<bf16, kAMMajor, kBKMajor>::kSmemBytes];
+  gemm_bf16_tile<Args, kAMMajor, kBKMajor>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+}
+
+template <typename T, typename Args, bool kAMMajor, bool kBKMajor>
+int launch_gemm(const Args& p, int batch, cudaStream_t s) {
+  constexpr int kTile = std::is_same<T, bf16>::value ? 128 : 64;
+  const dim3 grid((p.n + kTile - 1) / kTile, (p.m + kTile - 1) / kTile, batch * p.splits);
+  if constexpr (std::is_same<T, bf16>::value)
+    gemm_bf16_kernel<Args, kAMMajor, kBKMajor><<<grid, 256, 0, s>>>(p);
+  else
+    gemm_f32_kernel<Args, kAMMajor, kBKMajor><<<grid, 256, 0, s>>>(p);
+  bool partials = p.splits > 1;
+  if constexpr (kIsTrain<Args>) partials = partials || p.batch_sum;
+  if (partials) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int outs = batch;
+    if constexpr (kIsTrain<Args>) outs = p.batch_sum ? 1 : batch;
+    const long long total = (long long)outs * p.m * p.n;
+    const int blocks = static_cast<int>(std::min<long long>((total + 255) / 256, 4096));
+    splitk_epilogue_kernel<T, Args><<<blocks, 256, 0, s>>>(p, batch);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ffvc

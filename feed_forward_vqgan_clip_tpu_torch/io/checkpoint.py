@@ -1,4 +1,4 @@
-"""Mapper checkpoints in the reference's `.th` format.
+"""Mapper and trainer checkpoints in the reference's `.th` format and layout.
 
 Port of the `.th` branch of feed_forward_vqgan_clip_tpu/io/checkpoint.py
 `load_model`: a torch file holding the dict {state_dict, config, step, epoch},
@@ -7,31 +7,101 @@ reference's mlp_mixer_pytorch key names, so the state dict loads as it is, with
 no converter. `save_model` writes the same format, which the JAX package's
 `load_model` reads too.
 
+A trainer's run folder holds, as the reference's does:
+
+    <folder>/checkpoint.th       the mapper ({state_dict, config, step, epoch})
+    <folder>/checkpoint_ema.th   the EMA of its parameters, same format (use_ema)
+    <folder>/opt.th              Adam: {step, count, mu, nu}, the moments by
+                                 parameter name in their stored dtype
+
+Every file is written atomically (tmp + rename), and the trainer writes
+checkpoint.th last: its rename is the commit point `checkpoint_exists` keys off.
+
 Not ported: the JAX package's native checkpoint directories (flax msgpack +
-meta.json) and the legacy whole-module pickles (which need the reference's own
-classes); `load_model` raises NotImplementedError on both (ROADMAP A6).
+meta.json, ROADMAP A16) and the legacy whole-module pickles (which need the
+reference's own classes); `load_model` raises NotImplementedError on both.
 """
 
 import os
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from feed_forward_vqgan_clip_tpu_torch.config import dtype_of, make_config, vqgan_arch_config
+from feed_forward_vqgan_clip_tpu_torch.config import (
+    TrainConfig,
+    dtype_of,
+    make_config,
+    vqgan_arch_config,
+)
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+
+
+def _atomic_save(obj, path: str) -> str:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor], config: dict, noise=None,
+                    *, step: int = 0, epoch: int = 0) -> str:
+    """Write a mapper state dict (stored float32 on the CPU), `config` (a plain
+    dict) and the noise bank (N, noise_dim), if any, as a reference `.th` file."""
+    sd = {k: v.detach().float().cpu() for k, v in state_dict.items()}
+    if noise is not None:
+        sd["NOISE"] = torch.as_tensor(noise, dtype=torch.float32).cpu()
+    return _atomic_save({"state_dict": sd, "config": dict(config), "step": int(step),
+                         "epoch": int(epoch)}, path)
 
 
 def save_model(path: str, mapper, config: dict, noise=None, *, step: int = 0,
                epoch: int = 0) -> str:
-    """Write `mapper`'s state dict, `config` (a plain dict) and the noise bank
-    (N, noise_dim), if any, as a reference `.th` file; atomic (tmp + rename)."""
-    sd = {k: v.detach().float().cpu() for k, v in mapper.state_dict().items()}
-    if noise is not None:
-        sd["NOISE"] = torch.as_tensor(noise, dtype=torch.float32).cpu()
-    tmp = path + ".tmp"
-    torch.save({"state_dict": sd, "config": dict(config), "step": int(step),
-                "epoch": int(epoch)}, tmp)
-    os.replace(tmp, path)
-    return path
+    """`mapper`'s state dict as a reference `.th` file (`save_state_dict`)."""
+    return save_state_dict(path, mapper.state_dict(), config, noise, step=step, epoch=epoch)
+
+
+def checkpoint_path(folder: str, name: str = "checkpoint") -> str:
+    return os.path.join(folder, name + ".th")
+
+
+def checkpoint_exists(folder: str, name: str = "checkpoint") -> bool:
+    return os.path.exists(checkpoint_path(folder, name))
+
+
+def save_checkpoint(folder: str, name: str, state_dict, config: dict, step: int, epoch: int,
+                    noise=None) -> str:
+    """`<folder>/<name>.th` in the reference's format."""
+    return save_state_dict(checkpoint_path(folder, name), state_dict, config, noise,
+                           step=step, epoch=epoch)
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], TrainConfig, int, int,
+                                        Optional[torch.Tensor]]:
+    """A reference `.th` checkpoint -> (state_dict, config, step, epoch, noise),
+    tensors float32 on the CPU."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = dict(obj["state_dict"])
+    noise = sd.pop("NOISE", None)
+    return (sd, make_config(**obj["config"]), int(obj.get("step", 0)),
+            int(obj.get("epoch", 0)), noise)
+
+
+def save_optimizer(folder: str, names, opt_state, step: int) -> str:
+    """`<folder>/opt.th`: the Adam count and moments (by parameter name, in their
+    stored dtype, on the CPU) after `step` updates."""
+    return _atomic_save({
+        "step": int(step), "count": int(opt_state.count),
+        "mu": {n: m.detach().cpu() for n, m in zip(names, opt_state.mu)},
+        "nu": {n: v.detach().cpu() for n, v in zip(names, opt_state.nu)},
+    }, os.path.join(folder, "opt.th"))
+
+
+def load_optimizer(folder: str) -> Optional[dict]:
+    """`<folder>/opt.th` as `save_optimizer` wrote it, or None."""
+    path = os.path.join(folder, "opt.th")
+    if not os.path.exists(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=False)
 
 
 def load_model(path: str, *, device="cuda"):
@@ -41,7 +111,7 @@ def load_model(path: str, *, device="cuda"):
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a native checkpoint directory (flax msgpack); the port reads "
-            "reference .th files only (ROADMAP A6)"
+            "reference .th files only (ROADMAP A16)"
         )
     try:
         obj = torch.load(path, map_location="cpu", weights_only=False)

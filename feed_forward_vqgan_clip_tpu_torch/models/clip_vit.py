@@ -182,15 +182,21 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width, dtype=dtype, device=device)
         self.proj = nn.Parameter(torch.empty(width, embed_dim, device=device))
 
-    def forward(self, x):
+    def embed(self, x):
+        """Patchify, class token, positions, ln_pre: (B, H, W, 3) -> (B, T, width)."""
         dt = self.dtype
         h = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.conv1.weight.to(dt),
                      stride=self.patch_size)
         h = h.flatten(2).transpose(1, 2)  # (B, grid*grid, width), patches row-major
         cls = self.class_embedding.to(dt).expand(h.shape[0], 1, self.width)
-        h = torch.cat([cls, h], dim=1) + self.positional_embedding.to(dt)
-        h = self.transformer(self.ln_pre(h))
-        return (self.ln_post(h[:, 0, :]) @ self.proj.to(dt)).float()
+        return self.ln_pre(torch.cat([cls, h], dim=1) + self.positional_embedding.to(dt))
+
+    def head(self, h):
+        """ln_post of the class token, projection: (B, T, width) -> (B, embed_dim) f32."""
+        return (self.ln_post(h[:, 0, :]) @ self.proj.to(self.dtype)).float()
+
+    def forward(self, x):
+        return self.head(self.transformer(self.embed(x)))
 
     @torch.no_grad()
     def init_random_(self, generator):

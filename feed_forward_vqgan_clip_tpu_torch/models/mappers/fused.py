@@ -16,9 +16,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer, lean_layer_norm
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Dropout, Mixer, lean_layer_norm
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     MixerBlockTrain,
     StackedMixerWeights,
@@ -76,7 +75,7 @@ def streamed_supported(mapper) -> bool:
     """The streamed forward serves a Mixer mapper whose forwards are
     deterministic (dropout 0). The TPU's VMEM gate has no counterpart."""
     return isinstance(mapper, Mixer) and all(
-        m.p == 0 for m in mapper.modules() if isinstance(m, nn.Dropout))
+        m.p == 0 for m in mapper.modules() if isinstance(m, Dropout))
 
 
 @torch.no_grad()

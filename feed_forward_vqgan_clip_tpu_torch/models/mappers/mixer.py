@@ -45,6 +45,25 @@ class LeanLayerNorm(nn.Module):
         return lean_layer_norm(x, self.weight, self.bias, self.dtype)
 
 
+class Dropout(nn.Module):
+    """flax's nn.Dropout with its mask drawn from the torch.Generator the forward
+    is given: each element kept with probability 1 - p and scaled by 1 / (1 - p).
+    With no generator (inference, and the kernel paths) it is the identity, as a
+    flax forward with deterministic=True. No parameters, so the state-dict keys
+    stay those of the reference's nn.Dropout."""
+
+    def __init__(self, p=0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if generator is None or self.p == 0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+
+
 class PreNormResidual(nn.Module):
     """Parameter container with the reference's `norm` / `fn` names; MixerBlock runs it."""
 
@@ -59,19 +78,20 @@ class MixerBlock(nn.Sequential):
 
     x (B, T, D): the token FF contracts the token axis (t1 (Et, T) then t2 (T, Et),
     biases per hidden token / per token, broadcast over D), the channel FF the
-    feature axis (D -> Ec -> D). Exact GELU. Dropout layers are kept for the key
-    names; they are identity in eval mode."""
+    feature axis (D -> Ec -> D). Exact GELU. Dropout after each GELU and each
+    second matmul, where the forward is given a generator (the JAX module's
+    deterministic=False)."""
 
     def __init__(self, tokens, dim, expansion=4, dropout=0.0, *, dtype=torch.float32,
                  device=None):
         et, ec = tokens * expansion, dim * expansion
         token_fn = nn.Sequential(
-            nn.Conv1d(tokens, et, 1, device=device), nn.GELU(), nn.Dropout(dropout),
-            nn.Conv1d(et, tokens, 1, device=device), nn.Dropout(dropout),
+            nn.Conv1d(tokens, et, 1, device=device), nn.GELU(), Dropout(dropout),
+            nn.Conv1d(et, tokens, 1, device=device), Dropout(dropout),
         )
         channel_fn = nn.Sequential(
-            nn.Linear(dim, ec, device=device), nn.GELU(), nn.Dropout(dropout),
-            nn.Linear(ec, dim, device=device), nn.Dropout(dropout),
+            nn.Linear(dim, ec, device=device), nn.GELU(), Dropout(dropout),
+            nn.Linear(ec, dim, device=device), Dropout(dropout),
         )
         super().__init__(
             PreNormResidual(dim, token_fn, dtype=dtype, device=device),
@@ -79,23 +99,23 @@ class MixerBlock(nn.Sequential):
         )
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         dt = self.dtype
         tok, ch = self[0], self[1]
         t1, t2 = tok.fn[0], tok.fn[3]
         h = tok.norm(x)
         # h[b, e, d] = sum_t t1[e, t] h[b, t, d]   (JAX: einsum 'btd,te->bed')
         h = torch.matmul(t1.weight[:, :, 0].to(dt), h) + t1.bias.to(dt)[:, None]
-        h = tok.fn[2](F.gelu(h))
+        h = tok.fn[2](F.gelu(h), generator)
         h = torch.matmul(t2.weight[:, :, 0].to(dt), h) + t2.bias.to(dt)[:, None]
-        x = x + tok.fn[4](h)
+        x = x + tok.fn[4](h, generator)
 
         c1, c2 = ch.fn[0], ch.fn[3]
         h = ch.norm(x)
         h = F.linear(h, c1.weight.to(dt), c1.bias.to(dt))
-        h = ch.fn[2](F.gelu(h))
+        h = ch.fn[2](F.gelu(h), generator)
         h = F.linear(h, c2.weight.to(dt), c2.bias.to(dt))
-        return x + ch.fn[4](h)
+        return x + ch.fn[4](h, generator)
 
     def train_weights(self):
         """This block's float32 parameters in the kernels' layout as differentiable
@@ -182,10 +202,13 @@ class Mixer(nn.Module):
         s = self.image_size
         return h.reshape(h.shape[0], s, s, self.channels)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """`generator` draws the dropout masks (the JAX module's
+        deterministic=False with a dropout rng); without it the forward is
+        deterministic."""
         h = self.embed(x)
         for block in self.blocks:
-            h = block(h)
+            h = block(h, generator)
         return self.head(h)
 
     @torch.no_grad()

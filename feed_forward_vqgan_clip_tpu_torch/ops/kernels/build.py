@@ -72,6 +72,9 @@ _SIGNATURES = {
     # w1f, b1f, w2, b2, batch, layers, t, d, et, ec, (splits, k_per_split) x 4,
     # grid, dtype, stream
     "ffvc_mixer_stream": [_P] * 19 + [_I] * 6 + [_I] * 8 + [_I, _I, _P],
+    # a, lda, b, ldb, c, ldc, bias, act, gelu_grad, m, n, k, splits, k_per_split,
+    # workspace, dtype, stream
+    "ffvc_mlp_gemm": [_P, _L, _P, _L, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     # img, mats, out, b, h, w, c, border, dtype, stream
     "ffvc_warp_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, mats, grad, b, h, w, c, border, dtype, stream

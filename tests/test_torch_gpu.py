@@ -24,6 +24,8 @@ import torch
 
 from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
+from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fused
+from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed_mixer_apply
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.ops import augment
@@ -46,6 +48,14 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
     mixer_stream,
     mixer_stream_plain,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
+    MlpLnGrads,
+    MlpLnWeights,
+    mlp_ln,
+    mlp_ln_bwd,
+    mlp_ln_bwd_plain,
+    mlp_ln_plain,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
     nearest_codebook_indices_kernel,
@@ -305,3 +315,75 @@ def test_warp_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         warp_adjoint(torch.zeros(1, 1, 8, 3, device=cuda), m, "zeros")
     with pytest.raises(ValueError):
         warp_forward(torch.zeros(1, 8, 8, 3, device=cuda), m, "reflection")
+
+
+def _mlp_weights(d, e, dtype, rng, cuda):
+    t = lambda *shape, std: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * std).astype(np.float32)).to(cuda)
+    return MlpLnWeights(ln_w=1 + t(d, std=0.1), ln_b=t(d, std=0.1),
+                        w1=t(e, d, std=d ** -0.5).to(dtype), b1=t(e, std=0.1),
+                        w2=t(d, e, std=e ** -0.5).to(dtype), b2=t(d, std=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,d,e,act", [(272, 128, 512, "quick_gelu"), (100, 96, 384, "gelu"),
+                                       (3200, 768, 3072, "quick_gelu")])
+def test_mlp_ln_kernels_match_plain(cuda, dtype, n, d, e, act):
+    """K11's forward and its backward, dx alone and with the parameter grads,
+    against the plain versions; two backward runs give the same bits."""
+    rng = np.random.default_rng(n + d)
+    w = _mlp_weights(d, e, dtype, rng, cuda)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda, dtype)
+    dy = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    tol = 1e-3 if dtype == torch.float32 else 3e-2
+    counts = (mlp_ln.launches, mlp_ln_bwd.launches)
+    out, g, dg = mlp_ln(x, w, act)
+    for got, ref in zip((out, g, dg), mlp_ln_plain(x, w, act)):
+        assert got.dtype == dtype and _rel(got, ref) <= tol
+    full = mlp_ln_bwd(dy, x, g, dg, w)
+    ref = mlp_ln_bwd_plain(dy, x, g, dg, w)
+    for name in MlpLnGrads._fields:
+        assert _rel(getattr(full, name), getattr(ref, name)) <= tol, name
+    only = mlp_ln_bwd(dy, x, g, dg, w, params=False)
+    again = mlp_ln_bwd(dy, x, g, dg, w)
+    assert torch.equal(only.dx, full.dx) and all(v is None for v in only[1:])
+    assert all(torch.equal(a, b) for a, b in zip(full, again))
+    assert (mlp_ln.launches, mlp_ln_bwd.launches) == (counts[0] + 1, counts[1] + 3)
+
+
+def test_mlp_ln_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    w = _mlp_weights(128, 512, torch.float32, rng, cuda)
+    with pytest.raises(TypeError):
+        mlp_ln(torch.zeros(16, 128, dtype=torch.float64, device=cuda), w)
+    with pytest.raises(ValueError):
+        mlp_ln(torch.zeros(16, 96, device=cuda), w)
+    with pytest.raises(ValueError):
+        mlp_ln(torch.zeros(16, 128, device=cuda), w, "relu")
+    with pytest.raises(ValueError):
+        mlp_ln(torch.zeros(16, 128, device=cuda), w._replace(w1=w.w1.to(torch.bfloat16)))
+
+
+def test_fused_clip_tower_on_card_matches_cpu(cuda):
+    """The image tower with K11 sublayers on the card against the CPU (plain
+    K11), float32, with the input gradient: one forward and one dx-only backward
+    launch per block."""
+    cfg = dict(image_size=32, patch_size=8, vision_width=128, vision_layers=2, vision_heads=4,
+               embed_dim=32, text_width=32, text_layers=1, text_heads=2, vocab_size=64,
+               context_length=8)
+    cpu = make_clip_from_config(cfg, image=True, device="cpu")
+    cpu.init_random_(torch.Generator().manual_seed(0))
+    cpu.requires_grad_(False)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(16, 32, 32, 3)).astype(
+        np.float32))
+    xc = x.to(cuda).requires_grad_()
+    counts = (mlp_ln.launches, mlp_ln_bwd.launches)
+    got = encode_image_fused(card, xc)
+    got.square().sum().backward()
+    assert (mlp_ln.launches, mlp_ln_bwd.launches) == (counts[0] + 2, counts[1] + 2)
+    xr = x.clone().requires_grad_()
+    ref = encode_image_fused(cpu, xr)
+    ref.square().sum().backward()
+    assert _rel(got.detach().cpu(), ref.detach()) <= 1e-3
+    assert _rel(xc.grad.cpu(), xr.grad) <= 1e-3

@@ -15,6 +15,11 @@ io/from_jax.py. The loss and every mapper gradient must agree, three times:
     shifts, `pe_apply` corner points, each with its masks): the warps' forward
     and exact image gradient inside the whole chain.
 
+And once with the fused image tower (FFVC_FUSED_CLIP's path, K11's plain
+version on the CPU) against JAX's fused tower in interpret mode: augmentations
+neutralised, a CLIP of vision width 128 (the kernel gate's widths) and batch 4
+(16 crops of 17 tokens, 272 rows, which the gate's row tiles divide).
+
 Tolerances: loss 1e-5 relative; each mapper grad within 1e-4 of its max |JAX
 grad| plus 1e-3 of the largest grad of all (f32 sums in other orders through
 the whole chain; the floor covers the token-FF output bias, whose grad is zero
@@ -33,7 +38,11 @@ from feed_forward_vqgan_clip_tpu.models.mappers import build_mapper as j_build_m
 from feed_forward_vqgan_clip_tpu.models.perceptor import load_perceptor as j_load_perceptor
 from feed_forward_vqgan_clip_tpu.models.vqgan import make_vqgan as j_make_vqgan
 from feed_forward_vqgan_clip_tpu.ops import augment as jaug
+from feed_forward_vqgan_clip_tpu.models import clip_fused as jclip_fused
+from feed_forward_vqgan_clip_tpu.models import clip_vit as jclip
+from feed_forward_vqgan_clip_tpu.models import perceptor as jperceptor
 from feed_forward_vqgan_clip_tpu.ops.cutouts import MakeCutouts as JMakeCutouts
+from feed_forward_vqgan_clip_tpu.registry import CLIP_VIT_CONFIGS
 from feed_forward_vqgan_clip_tpu.train import loop as jloop
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
@@ -41,12 +50,14 @@ from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
     mixer_state_dict,
     vqgan_state_dict,
 )
-from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip
+from feed_forward_vqgan_clip_tpu_torch.models import clip_fused
+from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip, make_clip_from_config
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import make_vqgan
 from feed_forward_vqgan_clip_tpu_torch.ops import augment
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+from feed_forward_vqgan_clip_tpu_torch.train import loop
 from feed_forward_vqgan_clip_tpu_torch.train.loop import FrozenModels, make_train_step
 from feed_forward_vqgan_clip_tpu_torch.train.state import make_optimizer, make_train_state
 
@@ -60,11 +71,11 @@ KNOBS = dict(clip_model="tiny", vqgan_arch=TINY_VQ, model_type="mlp_mixer", dim=
              input_loss_coef=0.5, l2_coef=0.1, tv_coef=0.1)
 
 
-def _tokens():
+def _tokens(bs=BS):
     g = np.random.default_rng(3)
-    toks = np.zeros((BS, 77), np.int32)
+    toks = np.zeros((bs, 77), np.int32)
     toks[:, 0] = 49406
-    for i in range(BS):
+    for i in range(bs):
         n = 3 + 2 * i
         toks[i, 1:1 + n] = g.integers(2, 49000, size=n)
         toks[i, 1 + n] = 49407
@@ -138,10 +149,17 @@ def _port_augs(d, geometric):
     return ([af, pe] if geometric else []) + [ji, er]
 
 
-def _rigs():
-    """The JAX loss_fn with its params, and the port's train step on the same weights."""
+def _rigs(clip_cfg=None):
+    """The JAX loss_fn with its params, and the port's train step on the same
+    weights; the "tiny" CLIP, or one built from `clip_cfg`."""
     cfg = j_make_config(augs=["Cc"], **KNOBS)
-    perceptor = j_load_perceptor("tiny", dtype=jnp.float32)
+    if clip_cfg is None:
+        perceptor = j_load_perceptor("tiny", dtype=jnp.float32)
+    else:
+        jm = jclip.make_clip_from_config(clip_cfg, dtype=jnp.float32)
+        jp = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 77), jnp.int32),
+                     jnp.zeros((1, SIZE, SIZE, 3), jnp.float32))
+        perceptor = jperceptor.Perceptor(jm, jp, "tiny", SIZE, clip_cfg["embed_dim"])
     arch = j_vqgan_arch(cfg)
     vq = j_make_vqgan(arch, dtype=jnp.float32)
     vq_params = jax.jit(vq.init)(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 8)))
@@ -164,7 +182,8 @@ def _rigs():
                                        out_is_tokens=True)
     fz = {"clip": perceptor.params, "vq": vq_params}
 
-    clip = make_clip("tiny", device="cpu", image=True)
+    clip = (make_clip("tiny", device="cpu", image=True) if clip_cfg is None
+            else make_clip_from_config(clip_cfg, device="cpu", image=True))
     clip.load_state_dict(clip_state_dict(perceptor.params))
     tvq = make_vqgan(TINY_VQ, device="cpu")
     tvq.load_state_dict(vqgan_state_dict(vq_params))
@@ -202,6 +221,36 @@ def test_train_step_loss_and_grads_match_jax(rng, augs):
     want = mixer_state_dict(jax.tree.map(np.asarray, j_grads))
     got = {n: p.grad for n, p in tmap.named_parameters()}
     assert sorted(want) == sorted(got)
+    top = max(float(g.abs().max()) for g in want.values())
+    for n, g in want.items():
+        err = float((got[n] - g).abs().max())
+        assert err <= 1e-4 * (float(g.abs().max()) + 1e-3 * top), n
+
+
+def test_train_step_with_fused_tower_matches_jax(monkeypatch):
+    clip_cfg = dict(CLIP_VIT_CONFIGS["tiny"], vision_width=128, vision_heads=4)
+    real_j = jclip_fused.make_clip_image_apply
+    monkeypatch.setattr(jclip_fused, "make_clip_image_apply",
+                        lambda module, fused=None: real_j(module, fused=True, interpret=True))
+    calls = []
+    real = clip_fused.encode_image_fused
+    monkeypatch.setattr(clip_fused, "encode_image_fused",
+                        lambda m, x: calls.append(x.shape) or real(m, x))
+    monkeypatch.setattr(loop, "make_clip_image_apply",
+                        lambda module: clip_fused.make_clip_image_apply(module, fused=True))
+    (loss_fn, params, fz, _, _), (_, tloss_fn, tmap, mc, _) = _rigs(clip_cfg)
+    mc.augs = []
+    toks = _tokens(4)
+    (j_loss, _), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, fz, {"inp": jnp.asarray(toks), "out": jnp.asarray(toks)},
+        jax.random.PRNGKey(0))
+    tt = torch.from_numpy(toks).long()
+    loss, _ = tloss_fn({"inp": tt, "out": tt}, torch.Generator().manual_seed(0))
+    loss.backward()
+    assert calls == [(CUTN * REPEAT * 4, SIZE, SIZE, 3)]
+    assert abs(loss.item() - float(j_loss)) <= 1e-5 * abs(float(j_loss))
+    want = mixer_state_dict(jax.tree.map(np.asarray, j_grads))
+    got = {n: p.grad for n, p in tmap.named_parameters()}
     top = max(float(g.abs().max()) for g in want.values())
     for n, g in want.items():
         err = float((got[n] - g).abs().max())
