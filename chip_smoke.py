@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's prompt->image, train-step and trainer paths once on
-one NVIDIA GPU, in phases.
+"""Drive the PyTorch port's prompt->image, serving, train-step and trainer paths
+(the default cutouts, then the unpooled crops) once on one NVIDIA GPU, in phases.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
 
 1. [device] Needs torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi), torch and CUDA versions, and whether triton imports.
@@ -17,7 +18,10 @@ one NVIDIA GPU, in phases.
 6. [warp] The warp forward (K9) and its adjoint (K10) against their plain
    versions at the train step's shape (64 crops of 224x224x3 with real Af and Pe
    draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
-   at 64x64; two adjoint runs bitwise equal; <K9 x, g> = <x, K10 g> in float32.
+   at 64x64; then with a 224x224 output frame of a 64x256x256x3 input (the
+   unpooled crops): real Re draws, Re's largest zoom, Cc (a pure shift), the
+   whole frame (shrinking) and a fused Af-then-Pe map; two adjoint runs bitwise
+   equal; <K9 x, g> = <x, K10 g> in float32.
 7. [stream] The whole-stack Mixer kernel (K4, one launch for 32 blocks)
    against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
    at B=1 and 4, float32 and bf16; two K4 launches bitwise equal; the
@@ -27,7 +31,8 @@ one NVIDIA GPU, in phases.
    train loss's shape (3200 x 768 x 3072, quick_gelu) and a small gelu shape,
    float32 and bf16; two backward runs bitwise equal.
 9. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
-   each kernel's bound; for the warps also grid_sample's forward and backward;
+   each kernel's bound; for the warps also grid_sample's forward and backward,
+   square (224 -> 224) and rectangular (256 -> 224, Re draws);
    K4 beside 32 x K2 and 32 x K5 at the same batch; K11 beside the eager
    module sublayer (ln_2 -> mlp) forward and backward.
 10. [reference] The tiny prompt->image slice, card against CPU module path;
@@ -55,10 +60,22 @@ one NVIDIA GPU, in phases.
    FFVC_FUSED_CLIP=1, EMA, cosine schedule, clipping: 5 steps with two log
    steps (previews, checkpoints), a resume to step 7, the run folder checked;
    step, log-step, save and write times and checkpoint bytes. Then, at mapper
-   depth 2, 4 steps against 2 + 2 resumed, within a stated ceiling, beside a
-   second uninterrupted run.
-16. Prints the card's line, the kernels' JSON line (K11's launches from the
-   [trainer] runs), then `{"ok": true, "device": {...}}` last.
+   depth 2, 4 steps against 2 + 2 resumed and against a second uninterrupted
+   run: parameters, EMA and Adam moments bitwise equal.
+16. [cutouts] MakeCutouts on the card against the CPU, float32, at draws pinned
+   from a CPU generator: `pool: false` + Re, `pool_size` 256 + Cc, `interpolate`,
+   `fuse_geometric`; output and input gradient.
+17. [trainer-crops] `train(cfg, device="cuda")` at the flagship with `pool: false`
+   and augs Re, Af, Pe, Ji, Er (noise 0.1), module tower, beside the default
+   cutouts in the same harness: per step a finite loss, changed parameters, the
+   warp counters up by 3 forward and 3 adjoint, one pair of them from 256 to
+   224 px (2 and 2, none, by default); step and per-stage ms, peak memory. Then
+   two identical 2-step runs at depth 2, bitwise equal.
+18. Prints the card's line, the kernels' JSON line (K11's launches from the
+   [trainer] runs, the warps' from [train] and [trainer-crops], with the
+   rectangular warps' times, and their launches in [trainer-crops] as the
+   wrappers counted them, under "rect"), then `{"ok": true,
+   "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -81,6 +98,7 @@ MIXER_BF16_TOL = 3e-2
 WARP_F32_TOL = 1e-4
 WARP_BF16_TOL = 3e-2
 WARP_SHAPE = (64, 224, 224, 3)  # the train step's cutouts: B=8 x cutn=8
+RECT_IN = (64, 256, 256, 3)  # the unpooled renders, tiled cutn-major, cut to 224
 # a Pe-family draw at distortion 1.4 whose horizon crosses the 64-px frame
 HORIZON_END_DISP = [[20.89, 41.26], [-32.96, 4.26], [-40.97, -30.36], [0.75, -2.43]]
 VQ_MIN_AGREEMENT = 0.999
@@ -98,10 +116,7 @@ SEED = 0
 CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
-# Adam's bias-corrected step is at most 1.007 lr per element over its first 4
-# updates (Cauchy-Schwarz over the moments' weights), so two runs whose grads
-# differ move apart by at most 2 x that per step; the EMA averages the parameters
-RESUME_CEILING = 2 * 4 * 1.007 * TRAINER_LR
+AB_ROUNDS = 5  # --step-ab: timed steps of each variant
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -344,10 +359,40 @@ def warp_draws(gen, b, h, w):
     return {"Af": (af, "border"), "Pe": (pe, "zeros")}
 
 
+def rect_draws(gen, b, h, w, out):
+    """{name: (m (b, 3, 3) on the card, padding mode)} of warps from an (h, w)
+    frame onto an (out, out) one: the Re sampler's boxes, Re's largest zoom (the
+    scale-0.1 area at both ends of the aspect range), the centre crop (a pure
+    shift), the whole frame (shrinking) and a fused Af-then-Pe map."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
+    dev = "cuda"
+    area = 0.1 * h * w
+    aspect = torch.tensor([0.75, 1.333], device=dev).repeat(b // 2)
+    cw, ch = torch.sqrt(area * aspect), torch.sqrt(area / aspect)
+    x0 = torch.rand(b, generator=gen, device=dev) * (w - cw)
+    y0 = torch.rand(b, generator=gen, device=dev) * (h - ch)
+    full = torch.full((b,), float(h), device=dev)
+    shift = torch.full((b,), (h - out) / 2.0, device=dev)
+    side = torch.full((b,), float(out), device=dev)
+    return {
+        "Re": (augment.crop_matrices(*augment.re_sample(gen, b, h, w, augment.RE_SCALE, dev),
+                                     out), "border"),
+        "Re max zoom": (augment.crop_matrices(x0, y0, cw, ch, out), "border"),
+        "Cc": (augment.crop_matrices(shift, shift, side, side, out), "border"),
+        "whole frame": (augment.crop_matrices(full * 0, full * 0, full, full, out), "border"),
+        "fused Af-Pe": (augment.fused_matrices(*augment.fused_sample(gen, b, h, w, dev), h, w),
+                        "border"),
+    }
+
+
 def phase_warp(gen):
     """K9 and K10 against their plain versions, each within its ceiling of max
-    |plain|; two K10 runs bitwise equal; the dot-product test in float32. ->
-    {kernel name: max abs err at the train step's shape in bf16}."""
+    |plain|, at equal frames and from 256 to 224 px; two K10 runs bitwise equal;
+    the dot-product test in float32. -> {kernel name: max abs err in bf16 at the
+    train step's square shape, and under "rect" at the rectangular one}."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops import augment
@@ -361,27 +406,33 @@ def phase_warp(gen):
     )
 
     b, h, w, c = WARP_SHAPE
-    cases = [(f"{name} {b}x{h}x{w}x{c}", m, mode, (b, h, w, c))
+    cases = [(f"{name} {b}x{h}x{w}x{c}", m, mode, WARP_SHAPE, (h, w))
              for name, (m, mode) in warp_draws(gen, b, h, w).items()]
     start, _ = augment.pe_sample(gen, 1, 64, 64, "cuda")
     horizon = augment.solve_homography(start + torch.tensor([HORIZON_END_DISP], device="cuda"),
                                        start)
-    cases.append(("horizon 1x64x64x3", horizon, "zeros", (1, 64, 64, 3)))
+    cases.append(("horizon 1x64x64x3", horizon, "zeros", (1, 64, 64, 3), (64, 64)))
     far = augment._affine3(augment._affine_inverse_about_center(
         torch.tensor([0.2], device="cuda"), torch.tensor([55.0], device="cuda"),
         torch.tensor([-60.0], device="cuda"), torch.ones(1, device="cuda"), 64, 64))
-    cases.append(("far-overshoot border 1x64x64x3", far, "border", (1, 64, 64, 3)))
+    cases.append(("far-overshoot border 1x64x64x3", far, "border", (1, 64, 64, 3), (64, 64)))
+    rb, rh, rw, rc = RECT_IN
+    cases += [(f"{name} {rb}x{rh}x{rw}x{rc} -> {h}x{w}", m, mode, RECT_IN, (h, w))
+              for name, (m, mode) in rect_draws(gen, rb, rh, rw, h).items()]
     worst = {"warp_forward": 0.0, "warp_adjoint": 0.0}
-    for label, m, mode, shape in cases:
+    rect = {"warp_forward": 0.0, "warp_adjoint": 0.0}
+    for label, m, mode, shape, out_hw in cases:
+        in_hw = tuple(shape[1:3])
         for dtype, tol in ((torch.float32, WARP_F32_TOL), (torch.bfloat16, WARP_BF16_TOL)):
             x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            out = warp_forward(x, m, mode)
-            grad = warp_adjoint(g, m, mode)
-            again = warp_adjoint(g, m, mode)
+            g = torch.randn((shape[0], *out_hw, shape[3]), generator=gen, device="cuda").to(dtype)
+            out = warp_forward(x, m, mode, out_hw)
+            grad = warp_adjoint(g, m, mode, in_hw)
+            again = warp_adjoint(g, m, mode, in_hw)
             torch.cuda.synchronize()
-            for name, got, ref in (("warp_forward", out, warp_forward_plain(x, m, mode)),
-                                   ("warp_adjoint", grad, warp_adjoint_plain(g, m, mode))):
+            for name, got, ref in (("warp_forward", out, warp_forward_plain(x, m, mode, out_hw)),
+                                   ("warp_adjoint", grad,
+                                    warp_adjoint_plain(g, m, mode, in_hw))):
                 err = (got.float() - ref.float()).abs().max().item()
                 scale = ref.float().abs().max().item()
                 log(f"[warp] {name} {label} {mode} {str(dtype)[6:]}: max abs err {err:.3e}, "
@@ -392,6 +443,8 @@ def phase_warp(gen):
                                          f"{mode} {dtype}")
                 if dtype == torch.bfloat16 and shape == WARP_SHAPE:
                     worst[name] = max(worst[name], err)
+                if dtype == torch.bfloat16 and shape == RECT_IN:
+                    rect[name] = max(rect[name], err)
             if not torch.equal(grad, again):
                 raise AssertionError(f"warp_adjoint differs between two runs at {label} {dtype}")
             if dtype == torch.float32:
@@ -403,7 +456,8 @@ def phase_warp(gen):
                 if not dot_err <= 1e-5:
                     raise AssertionError(f"warp_adjoint is not the transpose of warp_forward at "
                                          f"{label}")
-    log("[warp] two adjoint runs bitwise equal at every draw and dtype")
+    log("[warp] two adjoint runs bitwise equal at every draw, pair of frames and dtype")
+    worst["rect"] = rect
     return worst
 
 
@@ -701,11 +755,10 @@ def stream_timing(gen, smi, record):
     return rows
 
 
-def warp_timing(gen, smi, record):
-    """K9 and K10 at the train step's shape in bf16, for its Af (border) and Pe
-    (zeros) draws, beside the plain versions and grid_sample's forward and
-    input-gradient calls on the same NHWC data; -> {kernel name: the mean over
-    the two draws, one launch each per step}."""
+def time_warp_pair(x, g, m, mode, label, smi, record):
+    """K9 from x's frame onto g's and K10 back, bf16, each beside its plain
+    version and grid_sample's forward or input gradient on the same NHWC data;
+    -> {kernel name: row with library_ms}."""
     import torch
     import torch.nn.functional as F
 
@@ -719,44 +772,66 @@ def warp_timing(gen, smi, record):
         warp_forward_plain,
     )
 
+    b, h, w, c = x.shape
+    out_hw, in_hw = tuple(g.shape[1:3]), (h, w)
+    pad = {"zeros": 0, "border": 1}[mode]
+    # per output pixel: s(q) (6 products, 6 sums, 2 divides, clamps) and 9 flops a channel
+    ops = b * out_hw[0] * out_hw[1] * (20 + 9 * c)
+    frames = f"{b}x{h}x{w}x{c}" + (f" -> {out_hw[0]}x{out_hw[1]}" if out_hw != in_hw else "")
+
+    def grid():  # input-frame pixel coords -> grid_sample's [-1, 1] with align_corners=True
+        sx, sy = augment.inverse_coords(m, *out_hw)
+        return torch.stack([sx * (2.0 / (w - 1)) - 1, sy * (2.0 / (h - 1)) - 1],
+                           -1).to(x.dtype)
+
+    def lib_fwd():
+        return F.grid_sample(x.permute(0, 3, 1, 2), grid(), "bilinear", mode,
+                             align_corners=True).permute(0, 2, 3, 1).contiguous()
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), grid(), 0, pad, True,
+            [True, False])[0].permute(0, 2, 3, 1).contiguous()
+
+    out = warp_forward(x, m, mode, out_hw)
+    rows = {}
+    for name, kernel_fn, plain_fn, lib_fn, moved in (
+            ("warp_forward", lambda: warp_forward(x, m, mode, out_hw),
+             lambda: warp_forward_plain(x, m, mode, out_hw), lib_fwd, ([x, m], [out])),
+            ("warp_adjoint", lambda: warp_adjoint(g, m, mode, in_hw),
+             lambda: warp_adjoint_plain(g, m, mode, in_hw), lib_bwd, ([g, m], [x]))):
+        k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
+        lib_ms = (cuda_ms(lib_fn) + cuda_ms(lib_fn)) / 2
+        row = record(f"{name} {label} {mode} {frames} bf16", k_ms, p_ms, bound(*moved, ops, "f32"))
+        log(f"[time] {name} {label}: grid_sample {'backward' if 'adj' in name else 'forward'} "
+            f"{lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) ({smi})")
+        rows[name] = {**row, "library_ms": lib_ms}
+    return rows
+
+
+def warp_timing(gen, smi, record):
+    """K9 and K10 at the train step's shape in bf16, for its Af (border) and Pe
+    (zeros) draws; -> {kernel name: the mean over the two draws (one launch each
+    per step), with under "rect" the row from 256 to 224 px (64 unpooled renders
+    cut by the Re sampler's boxes, the [trainer-crops] path's warp)}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
     b, h, w, c = WARP_SHAPE
     x = torch.rand(WARP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn(WARP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
-    # per pixel: s(q) (6 products, 6 sums, 2 divides, clamps) and 9 flops a channel
-    ops = b * h * w * (20 + 9 * c)
-    rows = {"warp_forward": [], "warp_adjoint": []}
-    for draw, (m, mode) in warp_draws(gen, b, h, w).items():
-        pad = {"zeros": 0, "border": 1}[mode]
-
-        def grid():  # pixel coords -> grid_sample's [-1, 1] with align_corners=True
-            sx, sy = augment.inverse_coords(m, h, w)
-            return torch.stack([sx * (2.0 / (w - 1)) - 1, sy * (2.0 / (h - 1)) - 1],
-                               -1).to(x.dtype)
-
-        def lib_fwd():
-            return F.grid_sample(x.permute(0, 3, 1, 2), grid(), "bilinear", mode,
-                                 align_corners=True).permute(0, 2, 3, 1).contiguous()
-
-        def lib_bwd():
-            return torch.ops.aten.grid_sampler_2d_backward(
-                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), grid(), 0, pad, True,
-                [True, False])[0].permute(0, 2, 3, 1).contiguous()
-
-        out = warp_forward(x, m, mode)
-        for name, kernel_fn, plain_fn, lib_fn in (
-                ("warp_forward", lambda: warp_forward(x, m, mode),
-                 lambda: warp_forward_plain(x, m, mode), lib_fwd),
-                ("warp_adjoint", lambda: warp_adjoint(g, m, mode),
-                 lambda: warp_adjoint_plain(g, m, mode), lib_bwd)):
-            k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
-            lib_ms = (cuda_ms(lib_fn) + cuda_ms(lib_fn)) / 2
-            bnd = bound([g if name == "warp_adjoint" else x, m], [out], ops, "f32")
-            row = record(f"{name} {draw} {mode} {b}x{h}x{w}x{c} bf16", k_ms, p_ms, bnd)
-            log(f"[time] {name} {draw}: grid_sample {'backward' if 'adj' in name else 'forward'}"
-                f" {lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) ({smi})")
-            rows[name].append({**row, "library_ms": lib_ms})
-    return {name: {k: (v[0][k] + v[1][k]) / 2 if k != "bound_by" else v[0][k]
-                   for k in v[0]} for name, v in rows.items()}
+    rows = [time_warp_pair(x, g, m, mode, draw, smi, record)
+            for draw, (m, mode) in warp_draws(gen, b, h, w).items()]
+    times = {name: {k: (rows[0][name][k] + rows[1][name][k]) / 2 if k != "bound_by"
+                    else rows[0][name][k] for k in rows[0][name]} for name in rows[0]}
+    rb, rh, rw, rc = RECT_IN
+    m = augment.crop_matrices(*augment.re_sample(gen, rb, rh, rw, augment.RE_SCALE, "cuda"), h)
+    x = torch.rand(RECT_IN, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((rb, h, w, rc), generator=gen, device="cuda").to(torch.bfloat16)
+    for name, row in time_warp_pair(x, g, m, "border", "Re", smi, record).items():
+        times[name]["rect"] = {"shape": f"{rb}x{rh}x{rw}x{rc} -> {h}x{w}", **row}
+    return times
 
 
 def mlp_ln_timing(gen, smi, record):
@@ -1503,12 +1578,10 @@ def phase_trainer(smi):
 
 def trainer_resume_check(tmp, path):
     """At the flagship widths with mapper depth 2, no schedule: 4 uninterrupted
-    steps against 2 + 2 resumed, and against a second uninterrupted run. On the
-    card the cutouts' adaptive-pooling backward adds with atomics, so two runs'
-    grads differ in their last bits, and the straight-through VQ turns a tiny
-    change of the latent into another code: the check is a ceiling, printed with
-    the two uninterrupted runs' own difference and whether the runs came out
-    bitwise equal."""
+    steps against 2 + 2 resumed, and against a second uninterrupted run. Every sum
+    of the step runs in a fixed order (the kernels, the matmul pools, cuDNN held
+    to its deterministic algorithms by train()), so the parameters, their EMA
+    and Adam's moments must be bitwise equal."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.train import loop
@@ -1523,23 +1596,288 @@ def trainer_resume_check(tmp, path):
     run("b", 2)
     b = run("b", 4)
 
-    def apart(x, y):
-        diffs = torch.cat([(p - q).abs().flatten() for p, q in zip(x.params, y.params)])
-        de = max((p - q).abs().max().item() for p, q in zip(x.ema_params, y.ema_params))
-        equal = all(torch.equal(p, q) for p, q in zip(x.params + x.ema_params,
-                                                       y.params + y.ema_params))
-        return (diffs.max().item(), de, diffs.mean().item(),
-                int((diffs > 0.1 * TRAINER_LR).sum()), diffs.numel(), equal)
+    def tensors(state):
+        return (list(state.params) + list(state.ema_params) + list(state.opt_state.mu)
+                + list(state.opt_state.nu))
 
-    for label, (dp, de, mean, far, n, equal) in (
-            ("4 steps against 2 + 2 resumed", apart(a, b)),
-            ("two uninterrupted 4-step runs", apart(a, again))):
-        log(f"[trainer] depth 2, {label}: max |dparams| {dp:.3e}, max |dEMA| {de:.3e} "
-            f"(ceiling {RESUME_CEILING:.3e}); mean |dparams| {mean:.3e}, {far} of {n} elements "
-            f"apart by more than lr/10; bitwise equal on the card: {equal}")
-    dp, de = apart(a, b)[:2]
-    if not (a.step == b.step == 4 and dp <= RESUME_CEILING and de <= RESUME_CEILING):
-        raise AssertionError("[trainer] the resumed run left the uninterrupted one")
+    for label, other in (("4 steps against 2 + 2 resumed", b),
+                         ("two uninterrupted 4-step runs", again)):
+        pairs = list(zip(tensors(a), tensors(other)))
+        diff = max((x.float() - y.float()).abs().max().item() for x, y in pairs)
+        equal = all(torch.equal(x, y) for x, y in pairs)
+        log(f"[trainer] depth 2, {label}: params, EMA and Adam moments ({len(pairs)} tensors) "
+            f"bitwise equal: {equal} (max |difference| {diff:.3e})")
+        if not (equal and a.step == other.step == 4):
+            raise AssertionError(f"[trainer] {label}: the runs differ")
+
+
+def phase_cutouts():
+    """MakeCutouts on the card (the kernels, the matmul pools) against the CPU (the
+    plain versions), float32, noise 0, two 256-px renders, cutn 4, cut 224, at
+    draws pinned from a CPU generator: `pool: false` + Re, `pool_size` 256 + Cc,
+    `pool: false` + Cc + `interpolate` to 112, `fuse_geometric` (Af, Pe). Output
+    and input gradient within 1e-4 of max |CPU| (sums in another order)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+    from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
+
+    pin = torch.Generator().manual_seed(SEED + 4)
+    n = 8
+    re_box = augment.re_sample(pin, n, 256, 256, augment.RE_SCALE)
+    fused = augment.fused_sample(pin, n, 224, 224)
+
+    def pinned_re(gen, x):
+        return augment._crop_resize(x, *(v.to(x.device) for v in re_box), 224)
+
+    def pinned_fused(gen, x):
+        m = augment.fused_matrices(*(v.to(x.device) for v in fused), 224, 224)
+        return augment.warp_projective(x, m, "border")
+
+    x = torch.rand(2, 256, 256, 3, generator=pin)
+    configs = [("pool: false + Re", dict(pool=False, augs=["Re"]), [pinned_re]),
+               ("pool_size 256 + Cc", dict(pool_size=256, augs=["Cc"]), None),
+               ("pool: false + Cc + interpolate 112",
+                dict(pool=False, augs=["Cc"], interpolate=True, interp_size=112), None),
+               ("fuse_geometric Af, Pe", dict(augs=["Af", "Pe"], fuse_geometric=True),
+                [pinned_fused])]
+    for label, kw, augs in configs:
+        results = []
+        for dev in ("cpu", "cuda"):
+            mc = MakeCutouts(cut_size=224, cutn=4, noise_fac=0.0, **kw)
+            if augs is not None:
+                mc.augs = augs
+            xd = x.to(dev).requires_grad_()
+            counts = (warp_forward.launches, warp_adjoint.launches)
+            out = mc(torch.Generator(device=dev), xd)
+            ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+            (grad,) = torch.autograd.grad(out, xd, ct)
+            launched = (warp_forward.launches - counts[0], warp_adjoint.launches - counts[1])
+            if launched != ((1, 1) if dev == "cuda" else (0, 0)):
+                raise AssertionError(f"[cutouts] {label} on {dev}: warp launches {launched}")
+            results.append((out.detach().cpu(), grad.cpu()))
+        (o_cpu, g_cpu), (o_card, g_card) = results
+        errs = [(a - b).abs().max().item() / b.abs().max().item()
+                for a, b in ((o_card, o_cpu), (g_card, g_cpu))]
+        log(f"[cutouts] {label}: card vs CPU, output {tuple(o_card.shape)} err / max|CPU| "
+            f"{errs[0]:.3e}, input grad {errs[1]:.3e} (limit 1e-4)")
+        if not (o_card.shape == o_cpu.shape and max(errs) <= 1e-4):
+            raise AssertionError(f"[cutouts] {label}: the card disagrees with the CPU")
+
+
+CROPS = dict(pool=False, augs=["Re", "Af", "Pe", "Ji", "Er"], noise_fac=0.1)
+
+
+def phase_trainer_crops(smi):
+    """`train(cfg, device="cuda")` at the flagship geometry with the unpooled
+    crops (CROPS), the module tower, no EMA, 4 steps (step 0 a log step). Each
+    step: a finite loss, changed parameters, the kernels' launches (the warps 3
+    forward and 3 adjoint, of which the wrappers count one forward and one
+    adjoint from 256 to 224 px as rectangular), host ms and per-stage CUDA-event
+    ms. Then two identical 2-step runs with the crops at depth 2, bitwise equal.
+    -> (the kernels' launches in the flagship run, {warp: its rectangular
+    launches in that run})."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
+
+    counters = train_counters()
+    warps = {name: counters[name] for name in ("warp_forward", "warp_adjoint")}
+    per_step = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
+                "mixer_token_bwd": 32, "warp_forward": 3, "warp_adjoint": 3, "mlp_ln": 0,
+                "mlp_ln_bwd": 0}
+    real = loop.make_train_step
+    steps, losses = {}, []
+
+    def make_train_step(*a, **k):
+        step_fn, loss_fn = real(*a, **k)
+
+        def checked(state, batch, gen, mark=None):
+            before = {name: fn.launches for name, fn in counters.items()}
+            rect_before = {name: fn.rect_launches for name, fn in warps.items()}
+            watch = [state.params[0], state.params[len(state.params) // 2], state.params[-1]]
+            snapshot = [p.detach().clone() for p in watch]
+            events = [torch.cuda.Event(enable_timing=True)]
+
+            def stage_mark(stage):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+
+            step, t = state.step, time.perf_counter()
+            events[0].record()
+            out = step_fn(state, batch, gen, stage_mark)
+            torch.cuda.synchronize()
+            steps[step] = ((time.perf_counter() - t) * 1e3,
+                           [events[j].elapsed_time(events[j + 1]) for j in range(len(STAGES))])
+            loss = out[1]["loss"].item()
+            losses.append(loss)
+            launched = {name: fn.launches - before[name] for name, fn in counters.items()}
+            rect = {name: fn.rect_launches - rect_before[name] for name, fn in warps.items()}
+            if launched != per_step or set(rect.values()) != {1}:
+                raise AssertionError(f"[trainer-crops] step {step}: launches {launched}, need "
+                                     f"{per_step}; rectangular warp launches {rect}, need 1 each")
+            if not np.isfinite(loss) or any(torch.equal(a, p.detach())
+                                            for a, p in zip(snapshot, watch)):
+                raise AssertionError(f"[trainer-crops] step {step}: loss {loss}, or a watched "
+                                     "parameter did not change")
+            return out
+
+        return checked, loss_fn
+
+    toks = np.zeros((32, 77), np.int32)
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + np.arange(32), EOT
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), fused_clip(False):
+        path = os.path.join(tmp, "tokens.npz")
+        np.savez(path, tokens=toks)
+        loop.make_train_step = make_train_step
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            for fn in warps.values():
+                fn.rect_launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = loop.train(trainer_config(os.path.join(tmp, "crops"), path, max_steps=4,
+                                              log_interval=100, use_ema=False, **CROPS),
+                               device="cuda")
+            took = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            rect = {name: fn.rect_launches for name, fn in warps.items()}
+        finally:
+            loop.make_train_step = real
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if state.step != 4 or set(rect.values()) != {4}:
+            raise AssertionError(f"[trainer-crops] step {state.step}, rectangular warp launches "
+                                 f"{rect}; need 4 and 4 each")
+        del state
+        plain = sorted(ms for s_, (ms, _) in steps.items() if s_ > 0)
+        log(f"[trainer-crops] pool: false, augs Re Af Pe Ji Er, noise 0.1: 4 steps in {took:.1f} s "
+            f"(model builds and two checkpoint saves included); "
+            f"losses {', '.join(f'{v:.6f}' for v in losses)}; median non-log step "
+            f"{plain[len(plain) // 2]:.2f} ms of {len(plain)}; peak device memory "
+            f"{peak:.2f} GiB ({smi})")
+        for s_, (ms, stage_ms) in sorted(steps.items()):
+            log(f"[trainer-crops] step {s_}: {ms:.2f} ms (host clock, synchronized after it); "
+                f"CUDA-event stages "
+                f"{', '.join(f'{n} {v:.2f}' for n, v in zip(STAGES, stage_ms))} ({smi})")
+        log(f"[trainer-crops] launches {launches}; from 256 to 224 px {rect}")
+        states = []
+        for name in ("d2a", "d2b"):
+            st = loop.train(trainer_config(os.path.join(tmp, name), path, max_steps=2, depth=2,
+                                           log_interval=100, **CROPS), device="cuda")
+            states.append(list(st.params) + list(st.ema_params) + list(st.opt_state.mu)
+                          + list(st.opt_state.nu))
+        equal = all(torch.equal(a, b) for a, b in zip(*states))
+        log(f"[trainer-crops] depth 2, two identical 2-step runs: params, EMA and Adam moments "
+            f"({len(states[0])} tensors) bitwise equal: {equal}")
+        if not equal:
+            raise AssertionError("[trainer-crops] two identical runs differ")
+    return launches, rect
+
+
+def torch_pools():
+    """The cutouts' pools as torch's F.adaptive_{avg,max}_pool2d (atomic CUDA
+    backwards: the port's pools before the matmul formulation) while the block
+    runs, restored after it."""
+    import torch.nn.functional as F
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import cutouts
+
+    nchw = lambda pool: lambda x, size: pool(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)  # noqa: E731
+    return patched(cutouts, adaptive_avg_pool=nchw(F.adaptive_avg_pool2d),
+                   adaptive_max_pool=nchw(F.adaptive_max_pool2d))
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """`module`'s attributes replaced by `attrs` while the block runs."""
+    old = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def step_ab():
+    """`python3 chip_smoke.py --step-ab`: what the trainer's two determinism
+    repairs cost the flagship train step (entry.train_entry, module tower), in
+    one process: the step as train() runs it (the matmul pools, cuDNN held to
+    its deterministic algorithms), without the cuDNN guard, and with torch's
+    pools inside the guard. A warm-up each, then AB_ROUNDS rounds with the
+    three in rotated order; median host ms (synchronized after each step) and
+    median per-stage CUDA-event ms of each. Then [trainer]'s depth-2 resume check
+    without the guard. The card's line is printed last."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT, train_entry
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
+
+    smi = phase_device()
+    phase_build()
+    labels = ("as train() runs it", "without the cuDNN guard", "torch's pools, in the guard")
+
+    def in_variant(label):
+        stack = contextlib.ExitStack()
+        if label != "without the cuDNN guard":
+            stack.enter_context(loop.deterministic_convolutions())
+        if label == "torch's pools, in the guard":
+            stack.enter_context(torch_pools())
+        return stack
+
+    step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    order = list(labels) + [labels[(r + i) % 3] for r in range(AB_ROUNDS) for i in range(3)]
+    rows = {label: [] for label in labels}
+    for i, label in enumerate(order):
+        events = [torch.cuda.Event(enable_timing=True)]
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        with in_variant(label):
+            t = time.perf_counter()
+            events[0].record()
+            state, metrics = step_fn(state, batch, gen, mark)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        if not np.isfinite(metrics["loss"].item()):
+            raise AssertionError(f"[step-ab] {label}: loss {metrics['loss'].item()}")
+        if i >= len(labels):  # past the warm-ups
+            rows[label].append([ms] + [events[j].elapsed_time(events[j + 1])
+                                       for j in range(len(STAGES))])
+    for label, got in rows.items():
+        med = np.median(np.array(got), axis=0)
+        log(f"[step-ab] {label}: steps {', '.join(f'{r[0]:.2f}' for r in got)}; median "
+            f"{med[0]:.2f} ms; median stages "
+            f"{', '.join(f'{n} {v:.2f}' for n, v in zip(STAGES, med[1:]))} ({smi})")
+    del step_fn, state, batch
+    torch.cuda.empty_cache()
+    toks = np.zeros((32, 77), np.int32)
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + np.arange(32), EOT
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), fused_clip(True), \
+            patched(loop, deterministic_convolutions=contextlib.nullcontext):
+        path = os.path.join(tmp, "tokens.npz")
+        np.savez(path, tokens=toks)
+        log("[step-ab] [trainer]'s depth-2 resume check without the cuDNN guard:")
+        try:
+            trainer_resume_check(tmp, path)
+        except AssertionError as e:  # a finding of this measurement, not a failed check
+            log(f"[step-ab] not bitwise without the guard: {e}")
+    print(smi, flush=True)
+    return 0
 
 
 def main():
@@ -1549,6 +1887,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--step-ab"]:
+        return step_ab()
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1573,6 +1913,11 @@ def main():
     launches.update({k: v for k, v in train_launches.items() if not k.startswith("mlp_ln")})
     trainer = phase_trainer(smi)
     launches.update(mlp_ln=trainer["mlp_ln"], mlp_ln_bwd=trainer["mlp_ln_bwd"])
+    phase_cutouts()
+    crops, rect = phase_trainer_crops(smi)
+    for name in ("warp_forward", "warp_adjoint"):
+        launches[name] += crops[name]
+        times[name]["rect"].update(launches=rect[name], max_abs_err=errs["rect"][name])
     pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
     csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
     rows = [  # name, source, TPU kernel replaced, launches (the path's run), max abs err
@@ -1599,7 +1944,9 @@ def main():
     ]
     # library_ms: grid_sample's forward and backward for the warps; no single
     # PyTorch call computes the other functions (K11's rows carry the eager
-    # module sublayer's time as eager_ms instead)
+    # module sublayer's time as eager_ms instead). The warps' launches are
+    # [train]'s and [trainer-crops]'s; their "rect" rows, the 256 -> 224 px
+    # warps of [trainer-crops]
     kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
                 "launches": n, "max_abs_err": err, "library_ms": None, **times[name]}
                for name, src, tpu, n, err in rows]

@@ -4,14 +4,18 @@
 // Replaces feed_forward_vqgan_clip_tpu/ops/pallas/warp_forward.py `_kernel` and
 // `_kernel_pipe` (the same function on a skewed TPU schedule), and
 // ops/pallas/warp_adjoint.py `_kernel`. m (B, 3, 3) float32 maps OUTPUT pixels to
-// INPUT pixels (row-major, 9 floats per image); the output has the input's size.
-// Images and gradients are float32 or bf16 (B, H, W, C), C any.
+// INPUT pixels (row-major, 9 floats per image). The input frame is (h, w), the
+// output frame (ho, wo): equal for Af, Pe and Ro, different for the crops
+// (`_crop_resize` maps a box of the input onto a cut_size x cut_size output).
+// Images and gradients are float32 or bf16: img and grad (B, h, w, C), out and g
+// (B, ho, wo, C), C any.
 //
 //   forward   out[b, q, c]  = sum_taps w(s(q), p) img[b, p, c],  s(q) = m_b(q)
 //   adjoint   grad[b, p, c] = sum_q    w(s(q), p) g[b, q, c]
 //
-// with the 4 bilinear taps of grid_sample (zeros padding: a tap outside the frame
-// reads 0; border padding: the sample point is clamped into the frame, which is
+// with q over the output frame, p over the input frame, and the 4 bilinear taps of
+// grid_sample (zeros padding: a tap outside the input frame reads 0; border
+// padding: the sample point is clamped into the input frame, which is
 // grid_sample's border padding, so only the edge pixel gets weight there).
 //
 // `sample_taps` computes s(q) and the tap weights for both kernels, so the adjoint
@@ -22,7 +26,8 @@
 //
 // What bounds them on an H100: at the train step's shape (64 crops of 224x224x3
 // bf16) each kernel must read one image and write one, 19.3 MB each: 0.0115 ms at
-// 3.35 TB/s. One crop is 301 KB, so the taps' reads hit L2.
+// 3.35 TB/s (with an unpooled 256-px input, 25.2 MB + 19.3 MB: 0.0133 ms). One
+// crop is 301 KB, so the taps' reads hit L2.
 //   * K9 is a direct gather: one thread per output pixel, all C channels, the 4
 //     taps read in bf16/f32 and interpolated in float32 in grid_sample's order
 //     (top = v00 (1-wx) + v01 wx, bot likewise, out = top (1-wy) + bot wy).
@@ -34,16 +39,18 @@
 //     over the box's corners, the preimage is the convex hull of the corners'
 //     images; the thread visits their bounding box widened by 1 px (a q just
 //     outside has a sample within rounding of the box edge, where its hat weight
-//     is ~0) and clipped to the frame: about 5x5 pixels for Af and Pe draws.
-//     Where the sign changes (the horizon of m^-1 crosses the box) the thread
-//     visits the whole output frame.
-//   * Border mode: a sample clamped onto the frame's edge reaches only the edge
-//     pixels, so an edge pixel's box extends outward to the bounding box of the
-//     whole frame's samples (the image of the output frame's corners, when m's
-//     denominator keeps one sign over the output frame and no sample exceeds
-//     1e5 px; else the whole frame is visited). Edge pixels are ordered after the
-//     interior pixels, so their longer loops share warps with each other.
-// What bounds K10 in practice is that per-q work: ~20-40 visits per pixel, each
+//     is ~0) and clipped to the output frame: about 5x5 pixels for Af and Pe
+//     draws, up to ~9x9 for a crop magnified 3.2x (Re at scale 0.1). Where the
+//     sign changes (the horizon of m^-1 crosses the box) the thread visits the
+//     whole output frame.
+//   * Border mode: a sample clamped onto the input frame's edge reaches only the
+//     edge pixels, so an edge pixel's box extends outward to the bounding box of
+//     all the output frame's samples (the image of the output frame's corners,
+//     when m's denominator keeps one sign over the output frame and no sample
+//     exceeds 1e5 px; else the whole output frame is visited). Edge pixels are
+//     ordered after the interior pixels, so their longer loops share warps with
+//     each other.
+// What bounds K10 in practice is that per-q work: ~20-80 visits per pixel, each
 // recomputing s(q). Tiles staged in shared memory are later work.
 
 #include <math.h>
@@ -69,7 +76,7 @@ struct Taps {
 // The sample point s(q) of output pixel (qx, qy) under m, with the TPU kernels'
 // guards (|den| < 1e-8 -> +-1e-8, s clipped to +-1e6 so that the float -> int
 // conversion is defined; NaN goes to the clip bound), clamped into the frame in
-// border mode, and its taps.
+// border mode, and its taps; (h, w) is the input frame.
 __device__ __forceinline__ Taps sample_taps(const float* __restrict__ m, int qx, int qy,
                                             int h, int w, bool border) {
   const float fx = static_cast<float>(qx), fy = static_cast<float>(qy);
@@ -92,12 +99,14 @@ __device__ __forceinline__ Taps sample_taps(const float* __restrict__ m, int qx,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 warp_forward_kernel(const T* __restrict__ img, const float* __restrict__ mats,
-                    T* __restrict__ out, int b, int h, int w, int c, bool border) {
+                    T* __restrict__ out, int b, int h, int w, int ho, int wo, int c,
+                    bool border) {
+  // one thread per output pixel q = (qx, qy) of the (ho, wo) frame
   const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (i >= static_cast<long long>(b) * h * w) return;
-  const int bi = static_cast<int>(i / (static_cast<long long>(h) * w));
-  const int r = static_cast<int>(i % (static_cast<long long>(h) * w));
-  const int qy = r / w, qx = r % w;
+  if (i >= static_cast<long long>(b) * ho * wo) return;
+  const int bi = static_cast<int>(i / (static_cast<long long>(ho) * wo));
+  const int r = static_cast<int>(i % (static_cast<long long>(ho) * wo));
+  const int qy = r / wo, qx = r % wo;
   const Taps t = sample_taps(mats + bi * 9, qx, qy, h, w, border);
   int x1 = t.x0 + 1, y1 = t.y0 + 1;
   // zeros mode: a tap outside the frame reads 0; border mode: the taps are in the
@@ -125,15 +134,15 @@ warp_forward_kernel(const T* __restrict__ img, const float* __restrict__ mats,
   }
 }
 
-// The bounding box of the samples of the whole output frame: the convex hull of
-// its corners' images, valid when m's denominator keeps one sign over the frame
+// The bounding box of the samples of the whole output frame (ho, wo): the convex
+// hull of its corners' images, valid when m's denominator keeps one sign over the frame
 // (with margin: rounding cannot flip it, and the 1e-8 guard never acts) and no
 // corner maps beyond 1e5 px (so the 1e6 clip never acts). Returns false otherwise.
-__device__ bool frame_hull(const float* __restrict__ m, int h, int w, double* lo_x,
+__device__ bool frame_hull(const float* __restrict__ m, int ho, int wo, double* lo_x,
                            double* hi_x, double* lo_y, double* hi_y) {
-  const double cx[4] = {0.0, w - 1.0, 0.0, w - 1.0};
-  const double cy[4] = {0.0, 0.0, h - 1.0, h - 1.0};
-  const double scale = fabs((double)m[6]) * (w - 1) + fabs((double)m[7]) * (h - 1) +
+  const double cx[4] = {0.0, wo - 1.0, 0.0, wo - 1.0};
+  const double cy[4] = {0.0, 0.0, ho - 1.0, ho - 1.0};
+  const double scale = fabs((double)m[6]) * (wo - 1) + fabs((double)m[7]) * (ho - 1) +
                        fabs((double)m[8]);
   double den[4];
   for (int k = 0; k < 4; ++k) {
@@ -158,12 +167,13 @@ __device__ bool frame_hull(const float* __restrict__ m, int h, int w, double* lo
 
 // The output pixels whose samples can lie in the input box [x0, x1] x [y0, y1]:
 // the bounding box of the corners' images under m^-1 (the adjugate: the scale
-// drops out of a projective map), widened by 1 px and clipped to the frame, in
-// [*qx0, *qx1] x [*qy0, *qy1] (empty when *qx0 > *qx1). Returns false where
+// drops out of a projective map), widened by 1 px and clipped to the output frame
+// (ho, wo), in [*qx0, *qx1] x [*qy0, *qy1] (empty when *qx0 > *qx1). Returns false where
 // m^-1's denominator does not keep one strict sign over the corners: the horizon
 // crosses the box, and the caller visits the whole frame.
 __device__ bool preimage_box(const float* __restrict__ mf, double x0, double x1, double y0,
-                             double y1, int h, int w, int* qx0, int* qx1, int* qy0, int* qy1) {
+                             double y1, int ho, int wo, int* qx0, int* qx1, int* qy0,
+                             int* qy1) {
   double m[9];
   for (int k = 0; k < 9; ++k) m[k] = mf[k];
   const double a[9] = {
@@ -188,21 +198,23 @@ __device__ bool preimage_box(const float* __restrict__ mf, double x0, double x1,
     hi_y = fmax(hi_y, qy);
   }
   if (pos && neg) return false;
-  *qx0 = static_cast<int>(fmin(fmax(floor(lo_x) - 1.0, 0.0), (double)w));
-  *qx1 = static_cast<int>(fmin(fmax(ceil(hi_x) + 1.0, -1.0), w - 1.0));
-  *qy0 = static_cast<int>(fmin(fmax(floor(lo_y) - 1.0, 0.0), (double)h));
-  *qy1 = static_cast<int>(fmin(fmax(ceil(hi_y) + 1.0, -1.0), h - 1.0));
+  *qx0 = static_cast<int>(fmin(fmax(floor(lo_x) - 1.0, 0.0), (double)wo));
+  *qx1 = static_cast<int>(fmin(fmax(ceil(hi_x) + 1.0, -1.0), wo - 1.0));
+  *qy0 = static_cast<int>(fmin(fmax(floor(lo_y) - 1.0, 0.0), (double)ho));
+  *qy1 = static_cast<int>(fmin(fmax(ceil(hi_y) + 1.0, -1.0), ho - 1.0));
   return true;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
-                    T* __restrict__ grad, int b, int h, int w, int c, bool border) {
+                    T* __restrict__ grad, int b, int h, int w, int ho, int wo, int c,
+                    bool border) {
+  // one thread per input pixel p = (px, py) of the (h, w) frame, in this order:
+  // every image's interior pixels, then every image's edge pixels (top row,
+  // bottom row, then the left and right ends of the rows between)
   const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   if (i >= static_cast<long long>(b) * h * w) return;
-  // pixel order: every image's interior pixels, then every image's edge pixels
-  // (top row, bottom row, then the left and right ends of the rows between)
   const int iw = max(w - 2, 0), ih = max(h - 2, 0);
   const long long n_in = static_cast<long long>(b) * ih * iw;
   int bi, px, py;
@@ -227,12 +239,13 @@ warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
     }
   }
   const float* m = mats + bi * 9;
-  // the input box whose samples reach p with nonzero weight
+  // the input box whose samples reach p with nonzero weight (an edge pixel of the
+  // input frame, in border mode, also gets the samples clamped onto it)
   double x0 = px - 1.0, x1 = px + 1.0, y0 = py - 1.0, y1 = py + 1.0;
   bool full = false;
   if (border && (px == 0 || px == w - 1 || py == 0 || py == h - 1)) {
     double lo_x, hi_x, lo_y, hi_y;
-    if (frame_hull(m, h, w, &lo_x, &hi_x, &lo_y, &hi_y)) {
+    if (frame_hull(m, ho, wo, &lo_x, &hi_x, &lo_y, &hi_y)) {
       if (px == 0) x0 = fmin(x0, lo_x - 1.0);
       if (px == w - 1) x1 = fmax(x1, hi_x + 1.0);
       if (py == 0) y0 = fmin(y0, lo_y - 1.0);
@@ -241,11 +254,12 @@ warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
       full = true;
     }
   }
-  int qx0 = 0, qx1 = w - 1, qy0 = 0, qy1 = h - 1;
-  if (!full && !preimage_box(m, x0, x1, y0, y1, h, w, &qx0, &qx1, &qy0, &qy1)) {
-    qx0 = 0, qx1 = w - 1, qy0 = 0, qy1 = h - 1;
+  // the output pixels q to visit: the box's preimage, or the whole output frame
+  int qx0 = 0, qx1 = wo - 1, qy0 = 0, qy1 = ho - 1;
+  if (!full && !preimage_box(m, x0, x1, y0, y1, ho, wo, &qx0, &qx1, &qy0, &qy1)) {
+    qx0 = 0, qx1 = wo - 1, qy0 = 0, qy1 = ho - 1;
   }
-  const T* gb = g + static_cast<long long>(bi) * h * w * c;
+  const T* gb = g + static_cast<long long>(bi) * ho * wo * c;
   T* out = grad + (static_cast<long long>(bi) * h * w + static_cast<long long>(py) * w + px) * c;
   for (int c0 = 0; c0 < c; c0 += kChunk) {
     const int nc = min(kChunk, c - c0);
@@ -264,7 +278,7 @@ warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
         if (t.y0 == py) ay = __fsub_rn(1.f, t.wy);
         if (ty1 == py) ay = __fadd_rn(ay, t.wy);
         const float wgt = __fmul_rn(ay, ax);
-        const T* gq = gb + (static_cast<long long>(qy) * w + qx) * c + c0;
+        const T* gq = gb + (static_cast<long long>(qy) * wo + qx) * c + c0;
 #pragma unroll
         for (int k = 0; k < kChunk; ++k)
           if (k < nc) acc[k] = fmaf(wgt, to_f(gq[k]), acc[k]);
@@ -278,36 +292,39 @@ warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
 
 template <typename T>
 int launch(bool adjoint, const void* src, const float* mats, void* dst, int b, int h, int w,
-           int c, bool border, cudaStream_t s) {
-  const long long n = static_cast<long long>(b) * h * w;
+           int ho, int wo, int c, bool border, cudaStream_t s) {
+  // a thread per output pixel (forward) or per input pixel (adjoint)
+  const long long n = static_cast<long long>(b) * (adjoint ? h * w : ho * wo);
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   if (adjoint)
-    warp_adjoint_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(src), mats,
-                                                       static_cast<T*>(dst), b, h, w, c, border);
+    warp_adjoint_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
   else
-    warp_forward_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(src), mats,
-                                                       static_cast<T*>(dst), b, h, w, c, border);
+    warp_forward_kernel<T><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
   FFVC_RETURN_LAST_ERROR();
 }
 
 int dispatch(bool adjoint, const void* src, const float* mats, void* dst, int b, int h, int w,
-             int c, int border, int dtype, void* stream) {
+             int ho, int wo, int c, int border, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ffvc::kBF16)
-    return launch<bf16>(adjoint, src, mats, dst, b, h, w, c, border != 0, s);
-  return launch<float>(adjoint, src, mats, dst, b, h, w, c, border != 0, s);
+    return launch<bf16>(adjoint, src, mats, dst, b, h, w, ho, wo, c, border != 0, s);
+  return launch<float>(adjoint, src, mats, dst, b, h, w, ho, wo, c, border != 0, s);
 }
 
 }  // namespace
 
-// img (B, H, W, C), mats (B, 9) float32 -> out (B, H, W, C); border 0 = zeros padding.
+// img (B, h, w, C), mats (B, 9) float32 -> out (B, ho, wo, C); border 0 = zeros padding.
 extern "C" int ffvc_warp_forward(const void* img, const float* mats, void* out, int b, int h,
-                                 int w, int c, int border, int dtype, void* stream) {
-  return dispatch(false, img, mats, out, b, h, w, c, border, dtype, stream);
+                                 int w, int ho, int wo, int c, int border, int dtype,
+                                 void* stream) {
+  return dispatch(false, img, mats, out, b, h, w, ho, wo, c, border, dtype, stream);
 }
 
-// g (B, H, W, C), mats (B, 9) float32 -> grad (B, H, W, C), the image gradient.
+// g (B, ho, wo, C), mats (B, 9) float32 -> grad (B, h, w, C), the image gradient.
 extern "C" int ffvc_warp_adjoint(const void* g, const float* mats, void* grad, int b, int h,
-                                 int w, int c, int border, int dtype, void* stream) {
-  return dispatch(true, g, mats, grad, b, h, w, c, border, dtype, stream);
+                                 int w, int ho, int wo, int c, int border, int dtype,
+                                 void* stream) {
+  return dispatch(true, g, mats, grad, b, h, w, ho, wo, c, border, dtype, stream);
 }

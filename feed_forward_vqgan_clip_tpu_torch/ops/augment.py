@@ -1,35 +1,48 @@
-"""Cutout augmentations: random affine (`Af`), random perspective (`Pe`), colour
-jitter (`Ji`) and random erasing (`Er`), the reference's default set.
+"""Cutout augmentations, every code of the reference's table: the geometric
+codes (`Af`, `Pe`, `Ro`, the crops `Cr`, `Re`, `Re2`, `Cc`, the resize `R`, the
+elastic `Et` and thin-plate `Ts` warps), the pointwise codes (`Ji`, `Ji2`,
+`Er`, `Er2`, `Sh`, `Gn`) and the fused Af-then-Pe warp of `fuse_geometric`.
 
 Port of feed_forward_vqgan_clip_tpu/ops/augment.py: the bilinear sampler
-(`grid_sample`, `warp_perspective_inverse`), `warp_projective` with its exact
-image gradient, the kornia 0.5.10 draws and matrices of `Af` and `Pe`
-(`af_sample` / `af_matrices` / `af_apply` / `random_affine`, `pe_sample` /
-`pe_matrices` / `pe_apply` / `random_perspective`, `solve_homography`,
-`_kornia_ac_false_fold`), the HSV
-conversions, `ji_sample` / `ji_apply` / `color_jitter`, `er_sample` /
-`er_apply` / `random_erasing` and `build_augment_pipeline`. Like the JAX package
-they follow kornia 0.5.10's math, not torchvision's defaults. Images are NHWC
-in [0, 1]. Random draws come from an explicit torch.Generator; torch's and
-JAX's generators give different numbers, so the tests compare the `*_apply`
-functions at draws made with numpy and the samplers by their distributions.
+(`grid_sample`, `warp_perspective_inverse` with its `out_hw` output frame),
+`warp_projective` with its exact image gradient, the kornia 0.5.10 draws and
+matrices of each code, the HSV conversions and `build_augment_pipeline`. Like
+the JAX package they follow kornia 0.5.10's math, not torchvision's defaults.
+Images are NHWC in [0, 1]. Each code is a `*_sample` function that draws its
+parameters from an explicit torch.Generator, in the order its docstring gives,
+and a function that applies them (`*_apply`, `_crop_resize`, `elastic_warp`,
+`tps_warp`, ...). torch's and JAX's generators give different numbers, so the
+tests hand the JAX functions the draws of a seeded torch.Generator, replayed in
+that order, compare the applying functions at draws made with numpy, and the
+samplers by their distributions.
 
 `warp_projective` runs the warp kernels on the card (ops/kernels/warp_forward.py,
-warp_adjoint.py) and their plain versions on the CPU. The other codes, the crops
-that ride the same warp with a rectangular output and `fuse_geometric` are
-ROADMAP A13.
+warp_adjoint.py) and their plain versions on the CPU; Af, Pe, Ro, the fused
+warp and the crops ride it, the crops with a cut_size x cut_size output frame.
+`R` (an antialiased resize), `Et` and `Ts` (per-pixel sample fields) have no
+Pallas kernel in the JAX package and run in plain PyTorch here too.
 """
 
+import functools
 import math
 from typing import Callable, List, Sequence
 
 import torch
+import torch.nn.functional as F
 
-# the default codes' settings in the reference's table (kornia 0.5.10)
+# the codes' settings in the reference's table (kornia 0.5.10)
 AF_DEGREES, AF_TRANSLATE, AF_P = 15.0, 0.1, 0.7
 PE_DISTORTION, PE_P = 0.7, 0.7
+RO_DEGREES, RO_P = 15.0, 0.7
 JI_SATURATION, JI_HUE, JI_P = 0.1, 0.1, 0.7
+JI2_BRIGHTNESS, JI2_CONTRAST, JI2_SATURATION, JI2_HUE, JI2_P = 0.1, 0.1, 0.05, 0.05, 0.5
 ER_SCALE, ER_RATIO, ER_P = (0.1, 0.4), (0.3, 1 / 0.3), 0.7
+SH_SHARPNESS, SH_P = 0.4, 0.7
+GN_MEAN, GN_STD, GN_P = 0.0, 1.0, 0.5
+ET_KERNEL, ET_SIGMA, ET_ALPHA, ET_P = 63, 32.0, 1.0, 0.7
+TS_SCALE, TS_P = 0.3, 0.7
+CR_P = 0.5
+RE_SCALE, RE2_SCALE, RE_RATIO = (0.1, 1.0), (0.9, 1.0), (0.75, 1.333)
 
 
 # ---------------------------------------------------------------- the bilinear warp
@@ -72,10 +85,11 @@ def _base_grid(b, h, w, device="cpu"):
     return xs.expand(b, h, w), ys.expand(b, h, w)
 
 
-def inverse_coords(h_inv, h, w):
-    """The sample coords (sx, sy), each (B, H, W) float32, of every output pixel
-    under the per-sample output->input homography h_inv (B, 3, 3)."""
-    gx, gy = _base_grid(h_inv.shape[0], h, w, h_inv.device)
+def inverse_coords(h_inv, ho, wo):
+    """The sample coords (sx, sy), each (B, Ho, Wo) float32, of every pixel of an
+    (ho, wo) output frame under the per-sample output->input homography h_inv
+    (B, 3, 3)."""
+    gx, gy = _base_grid(h_inv.shape[0], ho, wo, h_inv.device)
     m = h_inv.float()[:, :, :, None, None]
     den = m[:, 2, 0] * gx + m[:, 2, 1] * gy + m[:, 2, 2]
     sx = (m[:, 0, 0] * gx + m[:, 0, 1] * gy + m[:, 0, 2]) / den
@@ -83,46 +97,51 @@ def inverse_coords(h_inv, h, w):
     return sx, sy
 
 
-def warp_perspective_inverse(img, h_inv, padding_mode="zeros"):
+def warp_perspective_inverse(img, h_inv, padding_mode="zeros", out_hw=None):
     """Warp img (B, H, W, C) with the per-sample inverse homography h_inv (B, 3, 3)
-    (output->input, pixel coords) -> (B, H, W, C) float32. The output has the
-    input's size (the crops' rectangular outputs are ROADMAP A13)."""
+    (output->input, pixel coords) -> (B, Ho, Wo, C) float32, (Ho, Wo) = out_hw or
+    the input's size (the crops and resizes ask for another)."""
     _, h, w, _ = img.shape
-    return grid_sample(img, *inverse_coords(h_inv, h, w), padding_mode)
+    ho, wo = out_hw or (h, w)
+    return grid_sample(img, *inverse_coords(h_inv, ho, wo), padding_mode)
 
 
 class WarpProjective(torch.autograd.Function):
     """`warp_perspective_inverse` in the image's dtype with an exact image
     gradient: forward `warp_forward` (K9), backward `warp_adjoint` (K10), the
     counterpart of the JAX package's `warp_projective` custom_vjp. The matrices
-    are drawn, never trained: they get no gradient.
+    are drawn, never trained: they get no gradient. The input's frame is saved
+    for the backward, which maps the output's gradient back onto it.
 
-        out = WarpProjective.apply(img, m, padding_mode)
+        out = WarpProjective.apply(img, m, padding_mode, out_hw)
     """
 
     @staticmethod
-    def forward(ctx, img, m, padding_mode):
+    def forward(ctx, img, m, padding_mode, out_hw):
         # imported here: the kernel modules import this module's plain math
         from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
 
         m = m.float()
         ctx.save_for_backward(m)
         ctx.padding_mode, ctx.img_dtype = padding_mode, img.dtype
-        return warp_forward(img, m, padding_mode)
+        ctx.in_hw = tuple(img.shape[1:3])
+        return warp_forward(img, m, padding_mode, out_hw)
 
     @staticmethod
     def backward(ctx, gout):
         from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
 
         (m,) = ctx.saved_tensors
-        gimg = warp_adjoint(gout.to(ctx.img_dtype), m, ctx.padding_mode)
-        return gimg, None, None
+        gimg = warp_adjoint(gout.to(ctx.img_dtype), m, ctx.padding_mode, ctx.in_hw)
+        return gimg, None, None, None
 
 
-def warp_projective(img, m, padding_mode="zeros"):
+def warp_projective(img, m, padding_mode="zeros", out_hw=None):
     """Bilinear warp of img (B, H, W, C) under the output->input maps m (B, 3, 3),
-    zeros or border padding -> (B, H, W, C) in img's dtype; differentiable in img."""
-    return WarpProjective.apply(img, m, padding_mode)
+    zeros or border padding -> (B, Ho, Wo, C) in img's dtype, (Ho, Wo) = out_hw
+    or (H, W); differentiable in img. JAX's `pad` and `kind` arguments only steer
+    the TPU kernels' planner and have no counterpart."""
+    return WarpProjective.apply(img, m, padding_mode, out_hw)
 
 
 # ---------------------------------------------------------------- Af and Pe
@@ -199,10 +218,11 @@ def af_matrices(ang_deg, tx, ty, h, w):
     return _kornia_ac_false_fold(_affine3(inv), h, w)
 
 
-def af_apply(x, ang_deg, tx, ty):
-    """kornia RandomAffine.apply for sampled (angle, translations), border padding."""
+def af_apply(x, ang_deg, tx, ty, padding_mode="border"):
+    """kornia RandomAffine.apply for sampled (angle, translations), border padding
+    (zeros for `Ro`)."""
     _, h, w, _ = x.shape
-    return warp_projective(x, af_matrices(ang_deg, tx, ty, h, w), "border")
+    return warp_projective(x, af_matrices(ang_deg, tx, ty, h, w), padding_mode)
 
 
 def random_affine(generator, x):
@@ -212,6 +232,16 @@ def random_affine(generator, x):
     b, h, w, _ = x.shape
     warped = af_apply(x, *af_sample(generator, b, h, w, x.device))
     return _apply_p(generator, AF_P, warped, x)
+
+
+def random_rotation(generator, x):
+    """The `Ro` code: kornia RandomRotation(15), an angle uniform in +-RO_DEGREES
+    (one draw per sample, then the application coin), `af_apply` with zero
+    translation and zeros padding, each sample rotated with probability RO_P."""
+    b = x.shape[0]
+    ang = _uniform(generator, b, -RO_DEGREES, RO_DEGREES, x.device)
+    zero = torch.zeros(b, device=x.device)
+    return _apply_p(generator, RO_P, af_apply(x, ang, zero, zero, "zeros"), x)
 
 
 def pe_sample(generator, b, h, w, device="cpu"):
@@ -246,6 +276,138 @@ def random_perspective(generator, x):
     b, h, w, _ = x.shape
     warped = pe_apply(x, *pe_sample(generator, b, h, w, x.device))
     return _apply_p(generator, PE_P, warped, x)
+
+
+def fused_sample(generator, b, h, w, device="cpu"):
+    """The draws of `fused_affine_perspective`, in this order: `af_sample`'s
+    (angle, tx, ty), the affine's application coins, `pe_sample`'s corner
+    displacements, the perspective's coins. -> (ang_deg, tx, ty, af_on, end,
+    pe_on); af_on and pe_on (b,) bool."""
+    ang, tx, ty = af_sample(generator, b, h, w, device)
+    af_on = torch.rand(b, generator=generator, device=device) < AF_P
+    _, end = pe_sample(generator, b, h, w, device)
+    pe_on = torch.rand(b, generator=generator, device=device) < PE_P
+    return ang, tx, ty, af_on, end, pe_on
+
+
+def fused_matrices(ang_deg, tx, ty, af_on, end, pe_on, h, w):
+    """The composed output->input maps (B, 3, 3) of `fused_affine_perspective`,
+    as the JAX package builds them: the affine inverse about the centre at +angle
+    (no kornia align-corners fold), the homography taking the moved corners back
+    to the frame's, each the identity where its coin did not fall, composed
+    Af_inv @ Pe_inv (Pe is applied last in the sequential chain, so its inverse
+    acts first on the output coordinate)."""
+    b = ang_deg.shape[0]
+    dev = ang_deg.device
+    eye = torch.eye(3, device=dev).expand(b, 3, 3)
+    af3 = _affine3(_affine_inverse_about_center(ang_deg * math.pi / 180, tx, ty,
+                                                torch.ones(b, device=dev), h, w))
+    af3 = torch.where(af_on[:, None, None], af3, eye)
+    base = torch.tensor([[0.0, 0.0], [w - 1.0, 0.0], [w - 1.0, h - 1.0], [0.0, h - 1.0]],
+                        device=dev).expand(b, 4, 2)
+    h_inv = torch.where(pe_on[:, None, None], solve_homography(end, base), eye)
+    return torch.einsum("bij,bjk->bik", af3, h_inv)
+
+
+def fused_affine_perspective(generator, x):
+    """`fuse_geometric`: Af followed by Pe composed into one projective warp with
+    border padding over the whole composed map (one resample instead of two), as
+    the JAX package does it. It is not `af_apply` then `pe_apply`: the
+    interpolation, the angle's sign convention, the align-corners fold and the
+    padding differ, by design; the per-sample application probabilities are the
+    codes' own."""
+    b, h, w, _ = x.shape
+    m = fused_matrices(*fused_sample(generator, b, h, w, x.device), h, w)
+    return warp_projective(x, m, "border")
+
+
+# ---------------------------------------------------------------- crops and resize
+
+
+def crop_matrices(x0, y0, cw, ch, out_size):
+    """The output->input maps (B, 3, 3) that crop each sample's box (x0, y0, cw,
+    ch) and resize it bilinearly to out_size x out_size: the axis-aligned map
+    sx = x0 + qx (cw - 1) / (S - 1), sy = y0 + qy (ch - 1) / (S - 1) that kornia's
+    crop_by_boxes solves from the box's corners."""
+    zeros = torch.zeros_like(x0)
+    ones = torch.ones_like(x0)
+    denom = float(max(out_size - 1, 1))
+    return torch.stack([torch.stack([(cw - 1.0) / denom, zeros, x0], -1),
+                        torch.stack([zeros, (ch - 1.0) / denom, y0], -1),
+                        torch.stack([zeros, zeros, ones], -1)], dim=1)
+
+
+def _crop_resize(x, x0, y0, cw, ch, out_size):
+    """`crop_matrices` through `warp_projective` with an (out_size, out_size)
+    output frame and border padding: x (B, H, W, C) -> (B, out_size, out_size,
+    C)."""
+    m = crop_matrices(x0, y0, cw, ch, out_size)
+    return warp_projective(x, m, "border", (out_size, out_size))
+
+
+def _full(b, value, device):
+    return torch.full((b,), float(value), device=device)
+
+
+def cr_sample(generator, b, h, w, size, device="cpu"):
+    """kornia RandomCrop(size) at the `Cr` code's p: draws, in order, y0 and x0
+    uniform in [0, side - size), then the coins; a sample whose coin does not
+    fall is cropped at the centre. -> (x0, y0), each (b,) float32."""
+    max_y, max_x = h - size, w - size
+    y0 = torch.rand(b, generator=generator, device=device) * max_y
+    x0 = torch.rand(b, generator=generator, device=device) * max_x
+    applied = torch.rand(b, generator=generator, device=device) < CR_P
+    return (torch.where(applied, x0, _full(b, max_x / 2.0, device)),
+            torch.where(applied, y0, _full(b, max_y / 2.0, device)))
+
+
+def random_crop(generator, x, size):
+    """The `Cr` code: a size x size crop of every sample (the output size is
+    fixed), at a random offset with probability CR_P, else centred."""
+    b, h, w, _ = x.shape
+    side = _full(b, size, x.device)
+    return _crop_resize(x, *cr_sample(generator, b, h, w, size, x.device), side, side, size)
+
+
+def center_crop(x, size):
+    """The `Cc` code: kornia CenterCrop(size); no draws."""
+    b, h, w, _ = x.shape
+    side = _full(b, size, x.device)
+    return _crop_resize(x, _full(b, (w - size) / 2.0, x.device),
+                        _full(b, (h - size) / 2.0, x.device), side, side, size)
+
+
+def re_sample(generator, b, h, w, scale, device="cpu"):
+    """kornia RandomResizedCrop's box draws: in order, the area uniform in
+    scale * H * W, the log aspect (box w/h) uniform in log RE_RATIO, then the
+    offsets' uniforms; box sides sqrt(area * aspect) and sqrt(area / aspect)
+    clamped to [1, side], the origin uniform in [0, side - box]. -> (x0, y0, cw,
+    ch), each (b,) float32."""
+    area = _uniform(generator, b, scale[0], scale[1], device) * h * w
+    aspect = torch.exp(_uniform(generator, b, math.log(RE_RATIO[0]), math.log(RE_RATIO[1]),
+                                device))
+    cw = torch.sqrt(area * aspect).clamp(1.0, w)
+    ch = torch.sqrt(area / aspect).clamp(1.0, h)
+    x0 = torch.rand(b, generator=generator, device=device) * (w - cw)
+    y0 = torch.rand(b, generator=generator, device=device) * (h - ch)
+    return x0, y0, cw, ch
+
+
+def random_resized_crop(generator, x, size, scale=RE_SCALE):
+    """The `Re` (scale RE_SCALE) and `Re2` (RE2_SCALE) codes: kornia
+    RandomResizedCrop(size), a drawn box of every sample resized to size x size."""
+    b, h, w, _ = x.shape
+    return _crop_resize(x, *re_sample(generator, b, h, w, scale, x.device), size)
+
+
+def resize_bilinear(x, size: int):
+    """NHWC images -> (N, size, size, C), `jax.image.resize(..., "bilinear")`
+    (the `R` code, the reference's Resize module, and the in-train eval's
+    resize): half-pixel centres and a triangle filter widened by the scale when
+    it shrinks (antialiasing)."""
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
 
 
 # ---------------------------------------------------------------- colour and erasing
@@ -309,6 +471,20 @@ def ji_sample(generator, b, device="cpu"):
     return sf, hf
 
 
+def ji2_sample(generator, b, device="cpu"):
+    """kornia random_color_jitter_generator (0.5.10) at the `Ji2` code's
+    settings, in this order: brightness, contrast and saturation factors uniform
+    in [max(0, 1 - c), 1 + c], hue shifts uniform in +-JI2_HUE, then one
+    application order of the four transforms for the whole call
+    (torch.randperm(4)). -> (bf, cf, sf, hf, order)"""
+    bf = _uniform(generator, b, 1 - JI2_BRIGHTNESS, 1 + JI2_BRIGHTNESS, device)
+    cf = _uniform(generator, b, 1 - JI2_CONTRAST, 1 + JI2_CONTRAST, device)
+    sf = _uniform(generator, b, 1 - JI2_SATURATION, 1 + JI2_SATURATION, device)
+    hf = _uniform(generator, b, -JI2_HUE, JI2_HUE, device)
+    order = torch.randperm(4, generator=generator, device=device)
+    return bf, cf, sf, hf, order
+
+
 def ji_apply(x, bf, cf, sf, hf, order=None):
     """kornia ColorJitter.apply_transform (0.5.10): brightness ADDITIVE (x +
     (factor - 1), clamped), contrast a pure scale (clamped), saturation scales S
@@ -356,6 +532,15 @@ def color_jitter(generator, x):
     return _apply_p(generator, JI_P, out.to(x.dtype), x)
 
 
+def color_jitter2(generator, x):
+    """The `Ji2` code: kornia ColorJitter(0.1, 0.1, 0.05, 0.05, p=0.5), each of the
+    four transforms its own HSV or pixel pass in the drawn order (`ji_apply`, in
+    float32; reading the order costs one copy of 4 ints to the host), each
+    sample jittered with probability JI2_P."""
+    out = ji_apply(x.float(), *ji2_sample(generator, x.shape[0], x.device))
+    return _apply_p(generator, JI2_P, out.to(x.dtype), x)
+
+
 def er_sample(generator, n, h, w, device="cpu"):
     """kornia random_rectangles_params_generator (0.5.10) at the `Er` code's
     settings: area uniform in ER_SCALE*H*W; the aspect (box h/w) a two-part
@@ -389,26 +574,195 @@ def er_apply(x, x0, y0, ew, eh):
     return torch.where(inside[..., None], torch.zeros((), dtype=x.dtype, device=x.device), x)
 
 
-def random_erasing(generator, x):
+def random_erasing(generator, x, same_on_batch=True):
     """The `Er` code: kornia RandomErasing(p=0.7, same_on_batch=True), one
-    rectangle of zeros for the whole batch, each sample erased with probability
-    ER_P."""
-    _, h, w, _ = x.shape
-    box = er_sample(generator, 1, h, w, x.device)
+    rectangle of zeros for the whole batch (`Er2`: same_on_batch=False, one per
+    sample), each sample erased with probability ER_P."""
+    b, h, w, _ = x.shape
+    box = er_sample(generator, 1 if same_on_batch else b, h, w, x.device)
     return _apply_p(generator, ER_P, er_apply(x, *box), x)
+
+
+# ---------------------------------------------------------------- sharpness and noise
+
+
+def _conv2d_same(x, kernel2d):
+    """Each channel of x (B, H, W, C) correlated with kernel2d (kh, kw, odd sides),
+    zero padding to the same size; the kernel in x's dtype."""
+    c = x.shape[-1]
+    kh, kw = kernel2d.shape
+    weight = kernel2d.to(device=x.device, dtype=x.dtype).expand(c, 1, kh, kw).contiguous()
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=(kh // 2, kw // 2), groups=c)
+    return out.permute(0, 2, 3, 1)
+
+
+def _keep_border(blurred, x):
+    """blurred with x's first and last rows and columns."""
+    h, w = x.shape[1:3]
+    edge = torch.ones(h, w, dtype=torch.bool, device=x.device)
+    edge[1:-1, 1:-1] = False
+    return torch.where(edge[None, :, :, None], x, blurred)
+
+
+def sh_apply(x, factor):
+    """kornia RandomSharpness.apply for sampled factors (B, 1, 1, 1): a blend away
+    from the 3x3 smoothed image, the border rows and columns not smoothed,
+    clamped to [0, 1]."""
+    kernel = torch.tensor([[1.0, 1.0, 1.0], [1.0, 5.0, 1.0], [1.0, 1.0, 1.0]]) / 13.0
+    blurred = _keep_border(_conv2d_same(x, kernel), x)
+    return (x + factor * (x - blurred)).clamp(0.0, 1.0)
+
+
+def random_sharpness(generator, x):
+    """The `Sh` code: kornia RandomSharpness(0.4, p=0.7), a factor uniform in [0,
+    SH_SHARPNESS) per sample, then the coins."""
+    b = x.shape[0]
+    factor = _uniform(generator, b, 0.0, SH_SHARPNESS, x.device).reshape(b, 1, 1, 1)
+    return _apply_p(generator, SH_P, sh_apply(x, factor), x)
+
+
+def gaussian_noise(generator, x):
+    """The `Gn` code: kornia RandomGaussianNoise(0, 1, p=0.5), N(0, 1) noise in
+    x's dtype (drawn first, then the coins)."""
+    noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return _apply_p(generator, GN_P, x + GN_MEAN + GN_STD * noise, x)
+
+
+# ---------------------------------------------------------------- elastic and thin-plate
+
+
+def _sample_normalized_ac_false(x, gx_norm, gy_norm):
+    """F.grid_sample(align_corners=False, padding_mode='zeros') at normalised
+    [-1, 1] coords: pixel p = ((g + 1) S - 1) / 2, then the 4-tap gather with
+    each tap outside the frame zeroed (`grid_sample`)."""
+    _, h, w, _ = x.shape
+    sx = ((gx_norm + 1.0) * w - 1.0) / 2.0
+    sy = ((gy_norm + 1.0) * h - 1.0) / 2.0
+    return grid_sample(x, sx, sy, "zeros")
+
+
+def _gaussian_blur(x, kernel_size, sigma):
+    """Each channel of x (B, H, W, C) blurred by a normalised Gaussian of
+    kernel_size taps, vertically then horizontally, zero padding."""
+    half = kernel_size // 2
+    xs = torch.arange(-half, half + 1, dtype=torch.float32)
+    g = torch.exp(-(xs ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return _conv2d_same(_conv2d_same(x, g[:, None]), g[None, :])
+
+
+def elastic_warp(x, noise):
+    """kornia 0.5.10 `elastic_transform2d` at the `Et` code's settings: the noise
+    field (B, H, W, 2) blurred by a normalised zero-padded Gaussian (ET_KERNEL
+    taps, ET_SIGMA), scaled by ET_ALPHA, added to the normalised align-corners
+    grid, clamped to [-1, 1], sampled with align_corners=False and zeros
+    padding."""
+    _, h, w, _ = x.shape
+    disp = _gaussian_blur(noise, ET_KERNEL, ET_SIGMA) * ET_ALPHA
+    gnx = torch.linspace(-1.0, 1.0, w, device=x.device)
+    gny = torch.linspace(-1.0, 1.0, h, device=x.device)
+    gx = (gnx[None, None, :] + disp[..., 0]).clamp(-1.0, 1.0)
+    gy = (gny[None, :, None] + disp[..., 1]).clamp(-1.0, 1.0)
+    return _sample_normalized_ac_false(x, gx, gy)
+
+
+def elastic_transform(generator, x):
+    """The `Et` code: kornia RandomElasticTransform's defaults, a noise field
+    uniform in [-1, 1) of shape (B, H, W, 2) (drawn first, then the coins), each
+    sample warped with probability ET_P."""
+    b, h, w, _ = x.shape
+    noise = torch.rand(b, h, w, 2, generator=generator, device=x.device) * 2.0 - 1.0
+    return _apply_p(generator, ET_P, elastic_warp(x, noise), x)
+
+
+_TPS_EPS = 1e-8
+# kornia's control points: the 4 corners and the centre, normalised coords
+TPS_SRC = ((-1.0, -1.0), (-1.0, 1.0), (1.0, -1.0), (1.0, 1.0), (0.0, 0.0))
+
+
+def _tps_kernel(d2):
+    """kornia _kernel_distance: 0.5 d^2 log(d^2 + eps) (= d^2 log d)."""
+    return 0.5 * d2 * torch.log(d2 + _TPS_EPS)
+
+
+def _pair_sq_dist(a, b):
+    d = (-2.0 * torch.einsum("bnd,bmd->bnm", a, b) + (a * a).sum(-1)[:, :, None]
+         + (b * b).sum(-1)[:, None, :])
+    return d.clamp_min(0.0)  # kornia clamps at 0
+
+
+def get_tps_transform(points_src, points_dst):
+    """kornia 0.5.10 `get_tps_transform`: solve [K P; P^T 0][w; a] = [dst; 0] with
+    U(r) = r^2 log r at the src points. -> (kernel weights (B, N, 2), affine
+    weights (B, 3, 2), row 0 the constant term)."""
+    b, n = points_src.shape[:2]
+    dev = points_src.device
+    k = _tps_kernel(_pair_sq_dist(points_src, points_src))
+    p = torch.cat([torch.ones(b, n, 1, device=dev), points_src], -1)  # (B, N, 3)
+    l_top = torch.cat([k, p], -1)
+    l_bot = torch.cat([p, torch.zeros(b, 3, 3, device=dev)], 1).transpose(1, 2)
+    rhs = torch.cat([points_dst, torch.zeros(b, 3, 2, device=dev)], 1)
+    # solve_ex: no singularity check, so no host sync on the card
+    weights = torch.linalg.solve_ex(torch.cat([l_top, l_bot], 1), rhs).result
+    return weights[:, :n], weights[:, n:]
+
+
+def warp_points_tps(points, kernel_centers, kernel_weights, affine_weights):
+    """f(v) = a0 + A v + sum_i w_i U(|v - c_i|) over (B, M, 2) points."""
+    k = _tps_kernel(_pair_sq_dist(points, kernel_centers))
+    return (torch.einsum("bmn,bnd->bmd", k, kernel_weights)
+            + torch.einsum("bmd,bde->bme", points, affine_weights[:, 1:])
+            + affine_weights[:, None, 0])
+
+
+def tps_warp(x, src, dst):
+    """kornia 0.5.10 RandomThinPlateSpline.apply_transform, with its upstream quirk
+    (kornia issue #1186) kept: the weights are solved with `dst` as the spline's
+    source points, but the evaluation passes `src` as the kernel centres."""
+    b, h, w, _ = x.shape
+    kernel_w, affine_w = get_tps_transform(dst, src)
+    gny, gnx = torch.meshgrid(torch.linspace(-1.0, 1.0, h, device=x.device),
+                              torch.linspace(-1.0, 1.0, w, device=x.device), indexing="ij")
+    coords = torch.stack([gnx, gny], -1).reshape(1, h * w, 2).expand(b, h * w, 2)
+    warped = warp_points_tps(coords, src, kernel_w, affine_w).reshape(b, h, w, 2)
+    return _sample_normalized_ac_false(x, warped[..., 0], warped[..., 1])
+
+
+def ts_sample(generator, b, device="cpu"):
+    """kornia RandomThinPlateSpline(0.3)'s draws: the destination points, TPS_SRC
+    moved by uniform(-TS_SCALE, TS_SCALE) per coordinate. -> (src, dst), each
+    (b, 5, 2) float32."""
+    src = torch.tensor(TPS_SRC, device=device).expand(b, 5, 2)
+    shift = torch.rand(b, 5, 2, generator=generator, device=device) * (2 * TS_SCALE) - TS_SCALE
+    return src, src + shift
+
+
+def thin_plate_spline(generator, x):
+    """The `Ts` code: `tps_warp` at `ts_sample`'s points (drawn first, then the
+    coins), each sample warped with probability TS_P."""
+    return _apply_p(generator, TS_P, tps_warp(x, *ts_sample(generator, x.shape[0], x.device)),
+                    x)
 
 
 AugFn = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
 
 
-def build_augment_pipeline(codes: Sequence[str]) -> List[AugFn]:
-    """Aug codes -> list of (generator, images) -> images functions (the
-    reference's table; the other codes, the crops among them, are ROADMAP A13)."""
-    table = {"Af": random_affine, "Pe": random_perspective, "Ji": color_jitter,
-             "Er": random_erasing}
-    for c in codes:
-        if c not in table:
-            raise NotImplementedError(
-                f"augmentation code {c!r} is not ported yet (ROADMAP A13); the port has "
-                f"{sorted(table)}")
+def build_augment_pipeline(codes: Sequence[str], cut_size: int) -> List[AugFn]:
+    """Aug codes -> list of (generator, images) -> images functions: the JAX
+    package's table (the reference's); the crops and `R` resize to cut_size. An
+    unknown code raises ValueError."""
+    table = {
+        "Ji2": color_jitter2, "Ji": color_jitter, "Sh": random_sharpness, "Gn": gaussian_noise,
+        "Pe": random_perspective, "Ro": random_rotation, "Af": random_affine,
+        "Et": elastic_transform, "Ts": thin_plate_spline,
+        "Cr": functools.partial(random_crop, size=cut_size),
+        "Er": random_erasing, "Er2": functools.partial(random_erasing, same_on_batch=False),
+        "Re": functools.partial(random_resized_crop, size=cut_size, scale=RE_SCALE),
+        "Re2": functools.partial(random_resized_crop, size=cut_size, scale=RE2_SCALE),
+        "Cc": lambda generator, x: center_crop(x, cut_size),
+        "R": lambda generator, x: resize_bilinear(x, cut_size),
+    }
+    missing = [c for c in codes if c not in table]
+    if missing:
+        raise ValueError(f"unknown augmentation codes: {missing}")
     return [table[c] for c in codes]

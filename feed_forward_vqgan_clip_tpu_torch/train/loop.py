@@ -21,6 +21,7 @@ and resumed run repeats the uninterrupted one. The mesh, multi-process and
 tensor-parallel paths wait for ROADMAP A12, the diversity term for A16.
 """
 
+import contextlib
 import copy
 import logging
 import os
@@ -30,7 +31,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from feed_forward_vqgan_clip_tpu_torch.config import (
     COMPUTE_DTYPES,
@@ -50,6 +50,7 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
 )
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor, load_perceptor
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import VQGAN, latent_bounds, load_vqgan, synth
+from feed_forward_vqgan_clip_tpu_torch.ops.augment import resize_bilinear
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import (
@@ -213,15 +214,6 @@ def make_render_fn(frozen: FrozenModels):
         return synth(vq, clamp_with_grad(z.float(), z_lo, z_hi)).float()
 
     return render
-
-
-def resize_bilinear(x, size: int):
-    """NHWC images -> (N, size, size, C), `jax.image.resize(..., "bilinear")`:
-    half-pixel centres and a triangle filter widened by the scale when it
-    shrinks (antialiasing)."""
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
-                        align_corners=False, antialias=True)
-    return out.permute(0, 2, 3, 1)
 
 
 def make_eval_step(frozen: FrozenModels, eval_p: Perceptor):
@@ -418,15 +410,33 @@ def _as_rows(rows: np.ndarray, device):
     return torch.as_tensor(rows.astype(np.float32), device=device)
 
 
-def train(cfg: TrainConfig, *, device="cuda") -> TrainState:  # noqa: C901 - one loop, as JAX's
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN restricted to its deterministic algorithms while the block runs,
+    restored after: at some shapes its default backward algorithms add with
+    atomics (the tiny decoder of tests/test_torch_gpu.py's trainer test)."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = old
+
+
+def train(cfg: TrainConfig, *, device="cuda") -> TrainState:
     """Train a mapper from `cfg` (load_config / make_config) in `cfg.folder`,
     resuming from the checkpoints there; -> the final TrainState. Runs on the
-    card unless `device` says otherwise."""
+    card unless `device` says otherwise. Every sum of the step runs in a fixed
+    order (the kernels, the matmul pools, cuDNN's deterministic algorithms), so
+    a resumed run repeats the uninterrupted one bit for bit."""
+    with deterministic_convolutions():
+        return _train(cfg, device=device)
+
+
+def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop, as JAX's
     if cfg.get("mesh_shape"):
         raise NotImplementedError("mesh_shape: multi-device training is ROADMAP A12")
-    if (not cfg.get("pool", True)) or cfg.get("interpolate") or cfg.get("fuse_geometric"):
-        raise NotImplementedError("pool: false, interpolate and fuse_geometric cutouts are "
-                                  "ROADMAP A13")
     dtype = dtype_of(cfg)
     folder = cfg.get("folder") or "."
     os.makedirs(folder, exist_ok=True)
@@ -491,8 +501,11 @@ def train(cfg: TrainConfig, *, device="cuda") -> TrainState:  # noqa: C901 - one
 
     make_cutouts = MakeCutouts(
         cut_size=int(cfg.get("cut_size") or clip_size), cutn=int(cfg.get("cutn")),
-        augs=cfg.get("augs"), pool_size=int(cfg.get("pool_size") or clip_size),
-        noise_fac=float(cfg.get("noise_fac")))
+        augs=cfg.get("augs"), pool=bool(cfg.get("pool", True)),
+        pool_size=int(cfg.get("pool_size") or clip_size),
+        interpolate=bool(cfg.get("interpolate")),
+        interp_size=int(cfg.get("interp_size") or clip_size),
+        noise_fac=float(cfg.get("noise_fac")), fuse_geometric=bool(cfg.get("fuse_geometric")))
     train_step, _ = make_train_step(cfg, mapper, frozen, make_cutouts,
                                     inp_is_tokens=inp_is_tokens, out_is_tokens=out_is_tokens,
                                     same_io=same_io)

@@ -12,8 +12,12 @@ the Mixer block, the Mixer train kernels (every output and parameter grad),
 the whole-stack kernel (K4) and the stacked-layout block (K5) f32 (TF32 off)
 within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
 kernels f32 within 1e-4 and bf16 within 3e-2 of max |plain| (the same taps and
-weights, sums in another order, one bf16 rounding); the tiny slice, f32, within
-1e-3 of the CPU module path.
+weights, sums in another order, one bf16 rounding), at equal and at different
+input and output frames; the tiny slice, f32, within 1e-3 of the CPU module
+path. The pools' backward and the tiny trainer's steps must repeat bit for bit;
+the plain-PyTorch backwards of Et, Ts and R (no kernel of their own) within
+1e-5 of max |grad| between two runs, and whether they are bitwise equal is
+printed (run with -rP to read it).
 """
 
 import copy
@@ -28,7 +32,8 @@ from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fus
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed_mixer_apply
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
-from feed_forward_vqgan_clip_tpu_torch.ops import augment
+from feed_forward_vqgan_clip_tpu_torch.config import make_config
+from feed_forward_vqgan_clip_tpu_torch.ops import augment, pooling
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     ChannelGrads,
     MixerResiduals,
@@ -69,6 +74,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
     warp_forward,
     warp_forward_plain,
 )
+from feed_forward_vqgan_clip_tpu_torch.train import loop
 
 pytestmark = pytest.mark.gpu
 
@@ -307,6 +313,133 @@ def test_warp_kernels_take_any_channel_count(cuda, c):
         assert _rel(warp_adjoint(g, m, mode), warp_adjoint_plain(g, m, mode)) <= 1e-4
 
 
+def _crop_mats(case, b, gen):
+    """(m, input frame, output frame, padding) of a rectangular warp: crops of a
+    64-px frame to 32 (Re draws, shrinking or magnifying, and Cc), a 20-px box
+    zoomed to 64 (3.2x), and a projective map onto a 40x24 frame."""
+    if case == "re_64_to_32":
+        box = augment.re_sample(gen, b, 64, 64, (0.1, 1.0))
+        return augment.crop_matrices(*box, 32), (64, 64), (32, 32), "border"
+    if case == "cc_64_to_32":
+        full = torch.full((b,), 32.0)
+        return augment.crop_matrices(full / 2, full / 2, full, full, 32), (64, 64), (32, 32), \
+            "border"
+    if case == "zoom_32_to_64":
+        x0 = torch.rand(b, generator=gen) * 12
+        side = torch.full((b,), 20.0)
+        return augment.crop_matrices(x0, x0.flip(0), side, side, 64), (32, 32), (64, 64), \
+            "border"
+    m = augment.pe_matrices(*augment.pe_sample(gen, b, 64, 48, "cpu"), 64, 48)
+    return m, (64, 48), (40, 24), "zeros"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["re_64_to_32", "cc_64_to_32", "zoom_32_to_64",
+                                  "pe_64x48_to_40x24"])
+def test_rectangular_warp_kernels_match_plain(cuda, case, dtype):
+    """K9 onto an output frame other than the input's and K10 back onto the
+    input frame, against their plain versions; two K10 runs bitwise equal."""
+    gen = torch.Generator().manual_seed(11)
+    b = 4
+    m, (h, w), (ho, wo), mode = _crop_mats(case, b, gen)
+    m = m.to(cuda)
+    img = torch.rand(b, h, w, 3, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, ho, wo, 3, generator=gen).to(cuda, dtype)
+    counts = (warp_forward.launches, warp_adjoint.launches)
+    out = warp_forward(img, m, mode, (ho, wo))
+    grad = warp_adjoint(g, m, mode, (h, w))
+    again = warp_adjoint(g, m, mode, (h, w))
+    assert (warp_forward.launches, warp_adjoint.launches) == (counts[0] + 1, counts[1] + 2)
+    assert out.shape == (b, ho, wo, 3) and grad.shape == (b, h, w, 3)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert _rel(out, warp_forward_plain(img, m, mode, (ho, wo))) <= tol
+    assert _rel(grad, warp_adjoint_plain(g, m, mode, (h, w))) <= tol
+    assert torch.equal(grad, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pool_backward_repeats_bitwise(cuda, dtype):
+    """The cutouts' (avg + max) / 2 pool, 256 -> 224 at the train step's batch:
+    two backward runs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(8, 256, 256, 3, generator=gen, device=cuda).to(dtype).requires_grad_()
+    g = torch.randn(8, 224, 224, 3, generator=gen, device=cuda).to(dtype)
+
+    def grad():
+        out = (pooling.adaptive_avg_pool(x, 224) + pooling.adaptive_max_pool(x, 224)) / 2.0
+        return torch.autograd.grad(out, x, g)[0]
+
+    assert torch.equal(grad(), grad())
+
+
+@pytest.mark.parametrize("code", ["Et", "Ts", "R"])
+def test_plain_code_backwards_between_runs(cuda, code):
+    """Et and Ts (a gather whose backward is a scatter-add) and R (F.interpolate
+    with antialias, whose CUDA backward adds with atomics) at fixed draws, 64
+    crops of 224 px in f32: the image gradient of two runs within 1e-5 of its
+    max; whether the two are bitwise equal is printed."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand(64, 256 if code == "R" else 224, 256 if code == "R" else 224, 3,
+                   generator=gen, device=cuda).requires_grad_()
+    if code == "Et":
+        noise = torch.rand(64, 224, 224, 2, generator=gen, device=cuda) * 2 - 1
+        fn = lambda v: augment.elastic_warp(v, noise)  # noqa: E731
+    elif code == "Ts":
+        src, dst = augment.ts_sample(gen, 64, cuda)
+        fn = lambda v: augment.tps_warp(v, src, dst)  # noqa: E731
+    else:
+        fn = lambda v: augment.resize_bilinear(v, 224)  # noqa: E731
+    g = torch.randn(64, 224, 224, 3, generator=gen, device=cuda)
+    first, second = (torch.autograd.grad(fn(x), x, g)[0] for _ in range(2))
+    print(f"{code}: two backward runs bitwise equal: {torch.equal(first, second)}, max |diff| "
+          f"{(first - second).abs().max().item():.3e}")
+    assert _rel(first, second) <= 1e-5
+
+
+TINY_VQ = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
+               num_res_blocks=1, attn_resolutions=(4,), resolution=8)
+
+
+@pytest.mark.parametrize("cutouts", [
+    dict(),
+    dict(pool=False, augs=["Re", "Af", "Pe", "Ji", "Er"]),
+    dict(pool_size=16, augs=["Cc", "Af", "Pe", "Sh"], fuse_geometric=True, interpolate=True,
+         interp_size=32),
+], ids=["default", "unpooled_re", "pool16_cc_fused_interp"])
+def test_trainer_repeats_bitwise_and_runs_deterministic(cuda, tmp_path, monkeypatch, cutouts):
+    """train() on the card at a tiny size: two runs of 2 steps give bitwise-equal
+    parameters and Adam moments, and a third run under
+    torch.use_deterministic_algorithms(True) (where an op with a nondeterministic
+    CUDA implementation raises, and one with a deterministic alternative takes
+    it) gives the same bits: no op of the path has another implementation there.
+    CUBLAS_WORKSPACE_CONFIG is set only to pass that mode's check; cuBLAS's
+    workspace was fixed by this process's first call, so a run that wants
+    cuBLAS itself deterministic sets it before any CUDA call."""
+    toks = np.zeros((8, 77), np.int32)
+    toks[:, 0], toks[:, 1], toks[:, 2] = 49406, np.arange(8) + 5, 49407
+    path = str(tmp_path / "toks.npz")
+    np.savez(path, tokens=toks)
+    kw = dict(clip_model="tiny", vqgan_arch=TINY_VQ, model_type="mlp_mixer", dim=64, depth=2,
+              dropout=0, vq_image_size=4, batch_size=4, cutn=2, cut_size=32, pool_size=32,
+              compute_dtype="float32", noise_dim=0, max_steps=2, log_interval=100, seed=0,
+              path=path)
+    kw.update(cutouts)
+
+    def run(name):
+        state = loop.train(make_config(folder=str(tmp_path / name), **kw), device=cuda)
+        return list(state.params) + list(state.opt_state.mu) + list(state.opt_state.nu)
+
+    a, b = run("a"), run("b")
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = run("det")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(x, y) for x, y in zip(a, det))
+
+
 def test_warp_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     m = torch.eye(3, device=cuda)[None]
     with pytest.raises(TypeError):
@@ -315,6 +448,10 @@ def test_warp_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         warp_adjoint(torch.zeros(1, 1, 8, 3, device=cuda), m, "zeros")
     with pytest.raises(ValueError):
         warp_forward(torch.zeros(1, 8, 8, 3, device=cuda), m, "reflection")
+    with pytest.raises(ValueError):
+        warp_forward(torch.zeros(1, 8, 8, 3, device=cuda), m, "zeros", (1, 8))
+    with pytest.raises(ValueError):
+        warp_adjoint(torch.zeros(1, 8, 8, 3, device=cuda), m, "zeros", (8, 1))
 
 
 def _mlp_weights(d, e, dtype, rng, cuda):

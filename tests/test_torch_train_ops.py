@@ -6,7 +6,10 @@ Inputs and random draws are numpy (torch's and JAX's generators differ), so the
 augmentations compare at pinned draws and the samplers by their distributions.
 Tolerances: float32 values 1e-6 absolute for pooling, cutouts and erasing (the
 same arithmetic), 1e-5 for the HSV chain and the losses (f32 transcendental and
-reduction order), 1e-6 relative for Adam; grads 1e-5 relative.
+reduction order), 1e-6 relative for Adam; grads 1e-5 relative. The pools have
+JAX's formulation, so their gradients agree at tied maxima too (both split
+the gradient between equal maxima), and in bf16 (the window matrices cast to
+bf16 on both sides) within one bf16 rounding.
 """
 
 import jax
@@ -56,6 +59,35 @@ def test_adaptive_pools_match_jax(rng, kind, size, out):
     ref, g_ref = _vjp_jax(lambda v: jfn(v, out), x, ct)
     np.testing.assert_allclose(got, ref, atol=1e-6)
     np.testing.assert_allclose(g_got, g_ref, atol=1e-5)  # no ties in continuous data
+
+
+@pytest.mark.parametrize("size,out", [(37, 16), (8, 32), (24, 20)])
+def test_max_pool_splits_tied_maxima_as_jax(rng, size, out):
+    """Values from {0, 1, 2}: most windows hold tied maxima, whose gradient both
+    formulations split equally (torch.maximum and jnp.maximum)."""
+    x = rng.integers(0, 3, size=(2, size, size, 3)).astype(np.float32)
+    ct = rng.normal(size=(2, out, out, 3)).astype(np.float32)
+    got, g_got = _vjp_torch(lambda v: pooling.adaptive_max_pool(v, out), x, ct)
+    ref, g_ref = _vjp_jax(lambda v: jpool.adaptive_max_pool(v, out), x, ct)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_allclose(g_got, g_ref, atol=1e-6)
+    # a 2x2 window of four equal maxima: each gets a quarter (torch's own pool
+    # would send all of it to one)
+    xt = torch.ones(1, 2, 2, 1, requires_grad=True)
+    pooling.adaptive_max_pool(xt, 1).sum().backward()
+    assert torch.equal(xt.grad, torch.full_like(xt, 0.25))
+
+
+def test_pools_in_bf16_match_jax(rng):
+    x = rng.uniform(size=(2, 37, 37, 3)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    xj = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    for tfn, jfn in ((pooling.adaptive_avg_pool, jpool.adaptive_avg_pool),
+                     (pooling.adaptive_max_pool, jpool.adaptive_max_pool)):
+        got = tfn(xb, 24)
+        assert got.dtype == torch.bfloat16
+        want = np.asarray(jfn(xj, 24).astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -8, atol=1e-6)
 
 
 # ---------------------------------------------------------------- colour space
@@ -166,11 +198,11 @@ def test_apply_probability():
 
 
 def test_pipeline_codes():
-    assert len(augment.build_augment_pipeline(["Ji", "Er", "Ji"])) == 3
-    assert augment.build_augment_pipeline(["Af", "Pe"]) == [augment.random_affine,
-                                                            augment.random_perspective]
-    with pytest.raises(NotImplementedError, match="A13"):
-        augment.build_augment_pipeline(["Af", "Cc"])
+    assert len(augment.build_augment_pipeline(["Ji", "Er", "Ji"], 8)) == 3
+    assert augment.build_augment_pipeline(["Af", "Pe"], 8) == [augment.random_affine,
+                                                               augment.random_perspective]
+    with pytest.raises(ValueError, match="unknown augmentation codes"):
+        augment.build_augment_pipeline(["Af", "Cc", "Xy"], 8)
 
 
 # ---------------------------------------------------------------- cutouts

@@ -13,7 +13,10 @@ io/from_jax.py. The loss and every mapper gradient must agree, three times:
     batch, and the per-sample application masks);
   * the default set Af, Pe, Ji, Er at numpy-pinned draws (`af_apply` angles and
     shifts, `pe_apply` corner points, each with its masks): the warps' forward
-    and exact image gradient inside the whole chain.
+    and exact image gradient inside the whole chain;
+  * `pool: false` with the `Cc` code: the 8-px renders tiled unpooled and cut
+    to 32-px crops (a warp whose output frame is not its input's, border
+    padding), noise 0.
 
 And once with the fused image tower (FFVC_FUSED_CLIP's path, K11's plain
 version on the CPU) against JAX's fused tower in interpret mode: augmentations
@@ -198,11 +201,15 @@ def _rigs(clip_cfg=None):
     return (loss_fn, params, fz, jmc, frozen), (step, tloss_fn, tmap, mc, tfrozen)
 
 
-@pytest.mark.parametrize("augs", ["neutralised", "ji_er_pinned", "af_pe_ji_er_pinned"])
+@pytest.mark.parametrize("augs", ["neutralised", "ji_er_pinned", "af_pe_ji_er_pinned",
+                                  "unpooled_center_crop"])
 def test_train_step_loss_and_grads_match_jax(rng, augs):
     (loss_fn, params, fz, jmc, _), (_, tloss_fn, tmap, mc, _) = _rigs()
     if augs == "neutralised":
         mc.augs = []
+    elif augs == "unpooled_center_crop":  # the JAX side's augs are ["Cc"] already
+        jmc.pool = mc.pool = False
+        mc.augs = augment.build_augment_pipeline(["Cc"], SIZE)
     else:
         draws = _pinned_draws(rng)
         geometric = augs.startswith("af_pe")

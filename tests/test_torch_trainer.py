@@ -133,6 +133,25 @@ def test_resume_reproduces_uninterrupted_run_bitwise(tmp_path, feature_data):
         assert torch.equal(ea, eb)
 
 
+@pytest.mark.parametrize("cutouts", [
+    dict(pool=False, augs=["Re", "Af", "Pe", "Ji", "Er"]),
+    dict(pool_size=48, augs=["Af", "Pe", "Ji"], fuse_geometric=True, interpolate=True,
+         interp_size=32),
+], ids=["unpooled_re", "fused_interpolate"])
+def test_cutout_configs_resume_bitwise(tmp_path, feature_data, cutouts):
+    """The other cutout modes through train(): the unpooled 8-px renders cut by Re
+    to 32 px, and 48-px pools through the fused Af-then-Pe warp, averaged down to
+    32 px; 4 steps against 2 + 2 resumed, bit for bit."""
+    kw = dict(path=feature_data, use_ema=True, log_interval=100, **cutouts)
+    a = loop.train(_cfg(tmp_path / "a", max_steps=4, **kw), device="cpu")
+    loop.train(_cfg(tmp_path / "b", max_steps=2, **kw), device="cpu")
+    b = loop.train(_cfg(tmp_path / "b", max_steps=4, **kw), device="cpu")
+    assert a.step == b.step == 4
+    for pa, pb in zip(a.params + a.ema_params + a.opt_state.mu, b.params + b.ema_params
+                      + b.opt_state.mu):
+        assert torch.equal(pa, pb)
+
+
 def test_cli_train_on_the_cpu(tmp_path, feature_data):
     cfg = dict(_cfg(tmp_path / "run", path=feature_data, max_steps=1))
     cfg["vqgan_arch"] = {k: list(v) if isinstance(v, tuple) else v for k, v in TINY_VQ.items()}

@@ -11,7 +11,12 @@ contract products into FMAs); bf16 within one bf16 ulp of the float32 result
 image gradient atol 2e-4, rtol 1e-4, the JAX warp tests' own tolerance (sums in
 another order); the dot-product test 1e-10 relative in float64; `pe_apply`'s
 output 5e-5 absolute, because each side solves its own homography (float32 LU in
-two libraries: ~1e-6 relative in H, ~1e-5 px in the samples).
+two libraries: ~1e-6 relative in H, ~1e-5 px in the samples). The rectangular
+cases (an output frame other than the input's: crops of a 64-px frame to 32, a
+box of a 32-px frame zoomed 3.2x to 64, a projective map of 64x48 onto 40x24)
+are held to the same tolerances, and to the JAX package's Pallas kernels in
+interpret mode at 1e-4 (forward) and 2e-4 (adjoint), the tolerances of its own
+tests/test_warp_forward.py and test_warp_adjoint.py.
 """
 
 import math
@@ -151,6 +156,72 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert out.shape == grad.shape == img.shape
 
 
+# ---------------------------------------------------------------- rectangular frames
+
+
+def _crop_np(x0, y0, cw, ch, out):
+    """The crop maps of augment._crop_resize, in numpy."""
+    m = np.zeros((len(x0), 3, 3), np.float32)
+    m[:, 0, 0], m[:, 0, 2] = (np.float32(cw) - 1) / (out - 1), x0
+    m[:, 1, 1], m[:, 1, 2] = (np.float32(ch) - 1) / (out - 1), y0
+    m[:, 2, 2] = 1
+    return m
+
+
+def _rect_case(name, seed=0):
+    """(img, m, ct, output frame, padding, the JAX kernels' kind)."""
+    rng = np.random.default_rng(seed)
+    hw, out, mode, kind = (64, 64), (32, 32), "border", "crop"
+    if name == "crop_64_to_32":  # Re-like boxes: one shrinking, one magnifying
+        m = _crop_np([3.5, 20.25], [10.0, 1.75], [50.0, 21.0], [41.0, 26.5], 32)
+    elif name == "center_64_to_32":
+        m = _crop_np([16.0] * 2, [16.0] * 2, [32.0] * 2, [32.0] * 2, 32)
+    elif name == "zoom_32_to_64":  # a 20-px box magnified 3.2x
+        m, hw, out = _crop_np([4.0, 11.5], [8.25, 0.0], [20.0] * 2, [20.0] * 2, 64), (32, 32), \
+            (64, 64)
+    else:  # a Pe draw of a 64x48 frame onto a 40x24 output
+        m, hw, out, mode, kind = _pe_mats(4, 2, 64, 48, 0.7), (64, 48), (40, 24), "zeros", \
+            "projective"
+    img = rng.normal(size=(m.shape[0], *hw, 3)).astype(np.float32)
+    ct = rng.normal(size=(m.shape[0], *out, 3)).astype(np.float32)
+    return img, m, ct, out, mode, kind
+
+
+RECT = ["crop_64_to_32", "center_64_to_32", "zoom_32_to_64", "pe_64x48_to_40x24"]
+
+
+@pytest.mark.parametrize("name", RECT)
+def test_rectangular_warp_matches_jax(name):
+    img, m, ct, out_hw, mode, _ = _rect_case(name)
+    x = _t(img).requires_grad_()
+    got = augment.warp_projective(x, _t(m), mode, out_hw)
+    (got * _t(ct)).sum().backward()
+    want, vjp = jax.vjp(lambda v: jaug.warp_perspective_inverse(v, jnp.asarray(m), mode, out_hw),
+                        jnp.asarray(img))
+    assert got.shape == (m.shape[0], *out_hw, 3) and x.grad.shape == img.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), atol=2e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", RECT)
+def test_rectangular_adjoint_is_the_transpose_in_float64(name):
+    img, m, ct, out_hw, mode, _ = _rect_case(name, seed=1)
+    x = torch.from_numpy(img.astype(np.float64)).requires_grad_()
+    out = augment.warp_projective(x, _t(m), mode, out_hw)
+    lhs = (out * torch.from_numpy(ct.astype(np.float64))).sum()
+    lhs.backward()
+    rhs = (x.detach() * x.grad).sum()
+    assert abs(lhs.item() - rhs.item()) <= 1e-10 * abs(lhs.item())
+
+
+def test_wrappers_take_the_output_and_input_frames_on_the_cpu():
+    img, m, ct, out_hw, mode, _ = _rect_case("crop_64_to_32")
+    out = warp_forward(_t(img), _t(m), mode, out_hw)
+    grad = warp_adjoint(_t(ct), _t(m), mode, img.shape[1:3])
+    assert out.shape == ct.shape and grad.shape == img.shape
+
+
 # ---------------------------------------------------------------- the Pallas kernels
 
 
@@ -169,6 +240,24 @@ def test_matches_jax_pallas_kernels_in_interpret_mode(monkeypatch, kind, mode):
     # the Pallas forward sums its hat contractions in another order (~1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(out), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(g_got.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), atol=2e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", RECT)
+def test_rectangular_warp_matches_jax_pallas_kernels_in_interpret_mode(monkeypatch, name):
+    """The JAX package's K9 with an `out_hw` frame and K10 with an `in_hw` frame,
+    as its `_crop_resize` reaches them."""
+    monkeypatch.setattr(jaug, "_WARP_FWD_MODE", "pallas")
+    monkeypatch.setattr(jaug, "_WARP_VJP_MODE", "pallas")
+    monkeypatch.setattr(jaug, "_WARP_INTERPRET", True)
+    img, m, ct, out_hw, mode, kind = _rect_case(name)
+    out, vjp = jax.vjp(lambda x: jaug.warp_projective(x, jnp.asarray(m), mode, 0, kind, out_hw),
+                       jnp.asarray(img))
+    x = _t(img).requires_grad_()
+    got = augment.warp_projective(x, _t(m), mode, out_hw)
+    (got * _t(ct)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]), atol=2e-4,
                                rtol=1e-4)
 
 
@@ -261,7 +350,7 @@ def test_pe_sampler_pulls_corners_inward():
 def test_geometric_codes_apply_with_probability(code):
     """Each sample is warped with probability 0.7 and otherwise passed through."""
     x = torch.rand(2000, 12, 12, 3, generator=torch.Generator().manual_seed(2))
-    (fn,) = augment.build_augment_pipeline([code])
+    (fn,) = augment.build_augment_pipeline([code], 12)
     out = fn(torch.Generator().manual_seed(3), x)
     assert out.shape == x.shape and out.dtype == x.dtype
     changed = (out != x).flatten(1).any(1).float().mean().item()
