@@ -4,10 +4,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
+    python3 chip_smoke.py --warp-against DIR   # K10 against another tree's (warp_against)
 
 1. [device] Needs torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi), torch and CUDA versions, and whether triton imports.
-2. [build] Compiles csrc/*.cu with nvcc for sm_90a (ops/kernels/build.py).
+2. [build] Compiles csrc/*.cu with nvcc for sm_90a (ops/kernels/build.py);
+   counts the HGMMA (wgmma) instructions of K11's GEMM kernels in the
+   library's SASS (cuobjdump, where the toolkit has it).
 3. [vq] VQ kernel against its plain version on the card (stated near-tie rule).
 4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
    and bf16.
@@ -20,21 +23,27 @@
    draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
    at 64x64; then with a 224x224 output frame of a 64x256x256x3 input (the
    unpooled crops): real Re draws, Re's largest zoom, Cc (a pure shift), the
-   whole frame (shrinking) and a fused Af-then-Pe map; two adjoint runs bitwise
-   equal; <K9 x, g> = <x, K10 g> in float32.
+   whole frame (shrinking) and a fused Af-then-Pe map; Af at the ends of its
+   ranges (rotation +-15 degrees, translation +-10%, and a draw pushed onto two
+   edges: the longest border strips); two adjoint runs bitwise equal; <K9 x, g>
+   = <x, K10 g> in float32.
 7. [stream] The whole-stack Mixer kernel (K4, one launch for 32 blocks)
    against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
    at B=1 and 4, float32 and bf16; two K4 launches bitwise equal; the
    stacked-layout block (K5) against its plain version at B=4, blocks 0 and 31.
 8. [mlp-ln] The CLIP MLP sublayer (K11) forward, and its backward with dx
    alone and with the six parameter grads, against their plain versions at the
-   train loss's shape (3200 x 768 x 3072, quick_gelu) and a small gelu shape,
+   train loss's shape (3200 x 768 x 3072, quick_gelu), at 100 rows of the same
+   widths (ragged against the GEMM's 128-row tile) and a small gelu shape,
    float32 and bf16; two backward runs bitwise equal.
+   [c3] The plain backwards of the R, Et and Ts codes, run twice at 64 crops of
+   224 px (R from 256 px), float32: bitwise equal.
 9. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
    each kernel's bound; for the warps also grid_sample's forward and backward,
    square (224 -> 224) and rectangular (256 -> 224, Re draws);
    K4 beside 32 x K2 and 32 x K5 at the same batch; K11 beside the eager
-   module sublayer (ln_2 -> mlp) forward and backward.
+   module sublayer (ln_2 -> mlp) forward and backward, each with its TFLOP/s;
+   K10 on the Af, Pe and rectangular draws beside grid_sample's input gradient.
 10. [reference] The tiny prompt->image slice, card against CPU module path;
    the tiny serving Predictor, card (K4 at 2x2, K2 at 3x3) against CPU.
 11. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
@@ -191,6 +200,24 @@ def phase_build():
             log(f"[build]   {line.split(chr(39))[1]}")  # the mangled kernel name
         elif "registers" in line or "spill" in line:
             log(f"[build]     {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                              capture_output=True, text=True, timeout=300).stdout
+        counts, kernel = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = line.split("Function :")[1].strip()
+            elif "HGMMA" in line and kernel:
+                counts[kernel] = counts.get(kernel, 0) + 1
+        wgmma = {k: n for k, n in counts.items() if "wgmma_gemm_kernel" in k}
+        log(f"[build] HGMMA (wgmma) instructions in the SASS: {sum(wgmma.values())} in "
+            f"{len(wgmma)} wgmma_gemm_kernel instantiations (K11), "
+            f"{sum(counts.values()) - sum(wgmma.values())} elsewhere")
+        if not wgmma:
+            raise AssertionError("K11's GEMM kernels hold no HGMMA instruction")
+    else:
+        log("[build] cuobjdump not found: the SASS is not inspected")
 
 
 def _vq_case(n, k, c, gen, tie=False):
@@ -388,6 +415,22 @@ def rect_draws(gen, b, h, w, out):
     }
 
 
+def af_extremes(h, w):
+    """Af's maps (on the card) at the ends of its ranges: rotation +-15 degrees and
+    translation +-10% on both axes in every sign combination, then a draw pushed
+    onto two edges at once; the border strips of K10's edge pixels are longest."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
+    combos = [(a, x, y) for a in (augment.AF_DEGREES, -augment.AF_DEGREES)
+              for x in (augment.AF_TRANSLATE, -augment.AF_TRANSLATE)
+              for y in (augment.AF_TRANSLATE, -augment.AF_TRANSLATE)]
+    combos.append((augment.AF_DEGREES, augment.AF_TRANSLATE, augment.AF_TRANSLATE))
+    ang, tx, ty = (torch.tensor([v[i] for v in combos], device="cuda") for i in range(3))
+    return augment.af_matrices(ang, tx * w, ty * h, h, w)
+
+
 def phase_warp(gen):
     """K9 and K10 against their plain versions, each within its ceiling of max
     |plain|, at equal frames and from 256 to 224 px; two K10 runs bitwise equal;
@@ -416,6 +459,9 @@ def phase_warp(gen):
         torch.tensor([0.2], device="cuda"), torch.tensor([55.0], device="cuda"),
         torch.tensor([-60.0], device="cuda"), torch.ones(1, device="cuda"), 64, 64))
     cases.append(("far-overshoot border 1x64x64x3", far, "border", (1, 64, 64, 3), (64, 64)))
+    extremes = af_extremes(h, w)
+    cases.append((f"Af extremes {extremes.shape[0]}x{h}x{w}x{c}", extremes, "border",
+                  (extremes.shape[0], h, w, c), (h, w)))
     rb, rh, rw, rc = RECT_IN
     cases += [(f"{name} {rb}x{rh}x{rw}x{rc} -> {h}x{w}", m, mode, RECT_IN, (h, w))
               for name, (m, mode) in rect_draws(gen, rb, rh, rw, h).items()]
@@ -570,7 +616,8 @@ def phase_mlp_ln(gen):
     )
 
     worst = {"mlp_ln": 0.0, "mlp_ln_bwd": 0.0}
-    for (n, d, e), act in ((MLP_SHAPE, "quick_gelu"), ((300, 96, 384), "gelu")):
+    for (n, d, e), act in ((MLP_SHAPE, "quick_gelu"), ((100, *MLP_SHAPE[1:]), "quick_gelu"),
+                           ((300, 96, 384), "gelu")):
         for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
             w = random_mlp_weights(d, e, dtype, gen)
             x = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
@@ -604,6 +651,32 @@ def phase_mlp_ln(gen):
     log("[mlp-ln] two backward runs bitwise equal, and dx alone equal to dx with the "
         "parameter grads, at every shape and dtype")
     return worst
+
+
+def phase_c3(gen):
+    """The plain backwards of the R, Et and Ts codes (ops/augment.py: weight-matrix
+    products for R, the gather's sorted fixed-order segment sum for Et and Ts),
+    run twice at 64 crops of 224 px (R from 256 px) in float32: bitwise equal."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
+    b, h, w, c = WARP_SHAPE
+    g = torch.randn(WARP_SHAPE, generator=gen, device="cuda")
+    noise = torch.rand(b, h, w, 2, generator=gen, device="cuda") * 2 - 1
+    src, dst = augment.ts_sample(gen, b, "cuda")
+    for code, side, fn in (("R", RECT_IN[1], lambda v: augment.resize_bilinear(v, h)),
+                           ("Et", h, lambda v: augment.elastic_warp(v, noise)),
+                           ("Ts", h, lambda v: augment.tps_warp(v, src, dst))):
+        x = torch.rand(b, side, side, c, generator=gen, device="cuda").requires_grad_()
+        first, second = (torch.autograd.grad(fn(x), x, g)[0] for _ in range(2))
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        log(f"[c3] {code} backward at {b}x{side}x{side}x{c} f32, two runs: bitwise equal "
+            f"{same}, max |diff| {(first - second).abs().max().item():.3e}, finite "
+            f"{torch.isfinite(first).all().item()}")
+        if not (same and torch.isfinite(first).all().item()):
+            raise AssertionError(f"the {code} backward differs between two runs")
 
 
 def bound(inputs, outputs, flops, peak):
@@ -755,14 +828,36 @@ def stream_timing(gen, smi, record):
     return rows
 
 
+def grid_sample_grid(m, x, out_hw):
+    """The sample points of m's output frame as grid_sample's [-1, 1] grid
+    (align_corners=True over x's (h, w) frame), in x's dtype."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops import augment
+
+    h, w = x.shape[1:3]
+    sx, sy = augment.inverse_coords(m, *out_hw)
+    return torch.stack([sx * (2.0 / (w - 1)) - 1, sy * (2.0 / (h - 1)) - 1], -1).to(x.dtype)
+
+
+def grid_sample_adjoint(x, g, m, mode):
+    """() -> grid_sample's input gradient for output gradient g (NHWC) at m's samples
+    of x's frame: the PyTorch call K10 is held against (grid build and permutes in)."""
+    import torch
+
+    pad = {"zeros": 0, "border": 1}[mode]
+    out_hw = tuple(g.shape[1:3])
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), grid_sample_grid(m, x, out_hw), 0, pad,
+        True, [True, False])[0].permute(0, 2, 3, 1).contiguous()
+
+
 def time_warp_pair(x, g, m, mode, label, smi, record):
     """K9 from x's frame onto g's and K10 back, bf16, each beside its plain
     version and grid_sample's forward or input gradient on the same NHWC data;
     -> {kernel name: row with library_ms}."""
-    import torch
     import torch.nn.functional as F
 
-    from feed_forward_vqgan_clip_tpu_torch.ops import augment
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
         warp_adjoint,
         warp_adjoint_plain,
@@ -774,24 +869,18 @@ def time_warp_pair(x, g, m, mode, label, smi, record):
 
     b, h, w, c = x.shape
     out_hw, in_hw = tuple(g.shape[1:3]), (h, w)
-    pad = {"zeros": 0, "border": 1}[mode]
     # per output pixel: s(q) (6 products, 6 sums, 2 divides, clamps) and 9 flops a channel
     ops = b * out_hw[0] * out_hw[1] * (20 + 9 * c)
     frames = f"{b}x{h}x{w}x{c}" + (f" -> {out_hw[0]}x{out_hw[1]}" if out_hw != in_hw else "")
 
-    def grid():  # input-frame pixel coords -> grid_sample's [-1, 1] with align_corners=True
-        sx, sy = augment.inverse_coords(m, *out_hw)
-        return torch.stack([sx * (2.0 / (w - 1)) - 1, sy * (2.0 / (h - 1)) - 1],
-                           -1).to(x.dtype)
+    def grid():
+        return grid_sample_grid(m, x, out_hw)
 
     def lib_fwd():
         return F.grid_sample(x.permute(0, 3, 1, 2), grid(), "bilinear", mode,
                              align_corners=True).permute(0, 2, 3, 1).contiguous()
 
-    def lib_bwd():
-        return torch.ops.aten.grid_sampler_2d_backward(
-            g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), grid(), 0, pad, True,
-            [True, False])[0].permute(0, 2, 3, 1).contiguous()
+    lib_bwd = grid_sample_adjoint(x, g, m, mode)
 
     out = warp_forward(x, m, mode, out_hw)
     rows = {}
@@ -804,7 +893,8 @@ def time_warp_pair(x, g, m, mode, label, smi, record):
         lib_ms = (cuda_ms(lib_fn) + cuda_ms(lib_fn)) / 2
         row = record(f"{name} {label} {mode} {frames} bf16", k_ms, p_ms, bound(*moved, ops, "f32"))
         log(f"[time] {name} {label}: grid_sample {'backward' if 'adj' in name else 'forward'} "
-            f"{lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) ({smi})")
+            f"{lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) against the "
+            f"kernel's {k_ms:.4f} ms: kernel {'faster' if k_ms < lib_ms else 'slower'} ({smi})")
         rows[name] = {**row, "library_ms": lib_ms}
     return rows
 
@@ -886,14 +976,115 @@ def mlp_ln_timing(gen, smi, record):
                      f"{' dx only' if name == 'mlp_ln_bwd' else ''}", k_ms, p_ms,
                      bound(ins, outs, ops, "bf16"), ops)
         log(f"[time] {name}: eager module sublayer {'backward to x' if 'bwd' in name else ''}"
-            f" {eager_ms:.4f} ms (cuBLAS bf16 with the LayerNorm and activation passes) ({smi})")
+            f" {eager_ms:.4f} ms ({ops / eager_ms / 1e9:.1f} TFLOP/s; cuBLAS bf16 with the "
+            f"LayerNorm and activation passes) against the kernel's {k_ms:.4f} ms "
+            f"({ops / k_ms / 1e9:.1f} TFLOP/s) ({smi})")
         rows[name] = {**row, "eager_ms": eager_ms}
+    gemm_widths(x, dy, g, dg, w, smi)
     full = mlp_ln_bwd(dy, x, g, dg, w, params=True)
     k_ms, p_ms = paired_ms(lambda: mlp_ln_bwd(dy, x, g, dg, w, params=True),
                            lambda: mlp_ln_bwd_plain(dy, x, g, dg, w, params=True))
     record(f"mlp_ln_bwd (K11) N={n} D={d} E={e} bf16 with the parameter grads", k_ms, p_ms,
            bound([dy, x, g, dg, *w_bytes], list(full), 2 * flops, "bf16"), 2 * flops)
     return rows
+
+
+def gemm_widths(x, dy, g, dg, w, smi):
+    """K11's four GEMMs (csrc/wgmma_gemm.cuh) alone at the train loss's shape, at
+    each compiled tile width, CUDA events: ms and TFLOP/s, the planner's pick
+    marked."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mlp_ln as k11
+
+    n, d = x.shape
+    e = w.w1.shape[0]
+    k = k11._Launcher(x.device, x.dtype)
+    g2, dg2, da = (torch.empty_like(g) for _ in range(3))
+    out, dxn = torch.empty_like(x), torch.empty(n, d, device=x.device)
+    dyd = dy.to(x.dtype)
+    gemms = (  # name, (M, N, K), launch at a width
+        ("fc1", (n, e, d), lambda bn: k11._wgmma(k, x, w.w1, 0, g2, n, e, d, "act", bias=w.b1,
+                                                 aux=dg2, act=1, bn=bn)),
+        ("fc2", (n, d, e), lambda bn: k11._wgmma(k, g, w.w2, 0, out, n, d, e, "res", bias=w.b2,
+                                                 res=x, bn=bn)),
+        ("dgh", (n, e, d), lambda bn: k11._wgmma(k, dyd, w.w2, 1, da, n, e, d, "mul", mul=dg,
+                                                 bn=bn)),
+        ("dxn", (n, d, e), lambda bn: k11._wgmma(k, da, w.w1, 1, dxn, n, d, e, "f32", bn=bn)),
+    )
+    for name, (mm, nn, kk), launch in gemms:
+        pick = k11.wgmma_plan(mm, nn, k.sms)[0]
+        cells = []
+        for bn in k11.WGMMA_WIDTHS:
+            ms = cuda_ms(lambda: launch(bn))
+            cells.append(f"{bn}: {ms:.4f} ms {2 * mm * nn * kk / ms / 1e9:.1f} TFLOP/s"
+                         f"{' (planned)' if bn == pick else ''}")
+        log(f"[time] K11 GEMM {name} M={mm} N={nn} K={kk} by tile width: {'; '.join(cells)} "
+            f"({smi})")
+
+
+def warp_against(parent):
+    """`python3 chip_smoke.py --warp-against DIR`: K10 of this tree against the
+    warp adjoint of another tree's csrc/warp.cu (DIR, a checkout unpacked with git
+    archive), built with nvcc beside this tree's kernels: bitwise equality on the
+    [warp] phase's square and rectangular draws and Af's extremes, f32 and bf16, and
+    the times of both and of grid_sample's input gradient (bf16, in turns other,
+    this, this, other). The card's line is printed last."""
+    import ctypes
+
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
+
+    smi = phase_device()
+    build.load_library()
+    src = os.path.join(parent, "feed_forward_vqgan_clip_tpu_torch", "csrc", "warp.cu")
+    lib_path = build.BUILD_DIR / "warp_other.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), src], check=True,
+                   capture_output=True, timeout=600)
+    other = ctypes.CDLL(str(lib_path))
+    other.ffvc_warp_adjoint.argtypes = build._SIGNATURES["ffvc_warp_adjoint"]
+
+    def adjoint_other(g, m, mode, in_hw):
+        b, ho, wo, c = g.shape
+        grad = g.new_empty(b, *in_hw, c)
+        err = other.ffvc_warp_adjoint(g.data_ptr(), m.contiguous().data_ptr(), grad.data_ptr(),
+                                      b, *in_hw, ho, wo, c, int(mode == "border"),
+                                      int(g.dtype == torch.bfloat16),
+                                      build.stream_handle(g.device))
+        if err:
+            raise RuntimeError(f"the other tree's ffvc_warp_adjoint: CUDA error {err}")
+        return grad
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, h, w, c = WARP_SHAPE
+    extremes = af_extremes(h, w)
+    rb, rh, rw, rc = RECT_IN
+    cases = [(name, m, mode, WARP_SHAPE) for name, (m, mode) in warp_draws(gen, b, h, w).items()]
+    cases.append(("Af extremes", extremes, "border", (extremes.shape[0], h, w, c)))
+    cases += [(f"{name} {rh} -> {h}", m, mode, RECT_IN)
+              for name, (m, mode) in rect_draws(gen, rb, rh, rw, h).items()]
+    for label, m, mode, shape in cases:
+        in_hw = tuple(shape[1:3])
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.randn((shape[0], h, w, shape[3]), generator=gen, device="cuda").to(dtype)
+            same = torch.equal(warp_adjoint(g, m, mode, in_hw), adjoint_other(g, m, mode, in_hw))
+            log(f"[warp-against] K10 {label} {mode} {str(dtype)[6:]}: bitwise equal to the "
+                f"other tree's {same}")
+            if not same:
+                raise AssertionError(f"K10 differs from the other tree's at {label} {dtype}")
+        if label in ("Af", "Pe", "Af extremes", f"Re {rh} -> {h}"):
+            x = torch.rand(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            g = torch.randn((shape[0], h, w, shape[3]), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            this_ms, other_ms = paired_ms(lambda: warp_adjoint(g, m, mode, in_hw),
+                                          lambda: adjoint_other(g, m, mode, in_hw))
+            lib_ms = cuda_ms(grid_sample_adjoint(x, g, m, mode))
+            log(f"[warp-against] K10 {label} {mode} bf16: this tree {this_ms:.4f} ms, the other "
+                f"tree {other_ms:.4f} ms, grid_sampler_2d_backward {lib_ms:.4f} ms ({smi})")
+    print(smi, flush=True)
+    return 0
 
 
 TINY_VQGAN = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
@@ -1889,6 +2080,8 @@ def main():
         return 1
     if sys.argv[1:] == ["--step-ab"]:
         return step_ab()
+    if sys.argv[1:2] == ["--warp-against"] and len(sys.argv) == 3:
+        return warp_against(sys.argv[2])
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1898,6 +2091,7 @@ def main():
     errs.update(phase_warp(gen))
     errs.update(phase_stream(gen))
     errs.update(phase_mlp_ln(gen))
+    phase_c3(gen)
     times = phase_timing(gen, smi)
     phase_reference()
     phase_serve_reference()
@@ -1939,7 +2133,7 @@ def main():
         ("warp_adjoint", "warp.cu", "warp_adjoint.py:172", launches["warp_adjoint"],
          errs["warp_adjoint"]),
         ("mlp_ln", "mlp_ln.cu", "mlp_ln.py:59", launches["mlp_ln"], errs["mlp_ln"]),
-        ("mlp_ln_bwd", "mixer_train.cu", "mlp_ln.py:81", launches["mlp_ln_bwd"],
+        ("mlp_ln_bwd", "mlp_ln.cu", "mlp_ln.py:81", launches["mlp_ln_bwd"],
          errs["mlp_ln_bwd"]),
     ]
     # library_ms: grid_sample's forward and backward for the warps; no single

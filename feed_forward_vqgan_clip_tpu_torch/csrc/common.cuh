@@ -27,6 +27,21 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
+// Exact GELU (erff), the Mixer's activation and one of the CLIP MLP sublayer's.
+__device__ __forceinline__ float gelu_f(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// d/dv gelu(v) = Phi(v) + v phi(v)
+__device__ __forceinline__ float gelu_grad_f(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * expf(-0.5f * v * v) * 0.3989422804014327f;
+}
+
+// The activations of the CLIP MLP sublayer (csrc/mlp_ln.cu): exact GELU, or CLIP's
+// quick_gelu(v) = v * sigmoid(1.702 v).
+enum Activation : int { kActGelu = 0, kActQuickGelu = 1 };
+
 }  // namespace ffvc
 
 // Every C entry point returns this: the launch's cudaGetLastError() as an int, so a

@@ -1,7 +1,8 @@
 // The Mixer kernels' device code: one LayerNorm row, one GEMM output tile with its
 // fused epilogue, and the in-order sum of split-K partial tiles. csrc/mixer_block.cu
 // launches each as its own kernel (one tile per block, K2 and the train kernels), as
-// does csrc/mlp_ln.cu for the CLIP MLP sublayer (K11, with its own activation);
+// does the CLIP MLP sublayer (K11) for its float32 route and its parameter-grad GEMMs
+// (its bf16 path GEMMs run on csrc/wgmma_gemm.cuh);
 // csrc/mixer_stream.cu runs the same functions inside one persistent kernel over the
 // whole depth (K4). They therefore compute every tile with the same code.
 //
@@ -120,11 +121,8 @@ struct GemmTrainArgs : GemmArgs {
   int batch_sum;    // one C: the sum over the batch of the products
 };
 
-// The activations of the CLIP MLP sublayer (csrc/mlp_ln.cu): exact GELU, or CLIP's
-// quick_gelu(v) = v * sigmoid(1.702 v).
-enum Activation : int { kActGelu = 0, kActQuickGelu = 1 };
-
-// The train epilogue with a choice of activation (the MLP sublayer's first GEMM).
+// The train epilogue with a choice of activation (Activation, common.cuh; the MLP
+// sublayer's first GEMM in float32).
 // A type of its own, so the Mixer kernels' instantiations do not carry the choice.
 struct GemmMlpArgs : GemmTrainArgs {
   int act;  // Activation, where gelu is set
@@ -147,16 +145,6 @@ struct BlockK {
     k_end = min(p.k, k_begin + p.k_per_split);
   }
 };
-
-__device__ __forceinline__ float gelu_f(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// d/dv gelu(v) = Phi(v) + v phi(v)
-__device__ __forceinline__ float gelu_grad_f(float v) {
-  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
-         v * expf(-0.5f * v * v) * 0.3989422804014327f;
-}
 
 // C and R are batch element bz's output and residual in the working type; the
 // train outputs (gelu_grad, mul, out_f32, an f32 C) are indexed from p.

@@ -3,17 +3,17 @@
 //
 //   forward
 //     xn  = LN(x) * scale + bias               ffvc_ln_rows_train, centered (mixer_block.cu)
-//     g   = act(xn W1^T + b1), dg = act'(.)    ffvc_mlp_gemm (here): the GEMM tile with the
-//                                              activation epilogue, quick_gelu or GELU
-//     out = x + (g W2^T + b2)                  ffvc_gemm, residual epilogue (mixer_block.cu)
+//     g   = act(xn W1^T + b1), dg = act'(.)    fc1: the GEMM with the activation epilogue,
+//                                              quick_gelu or GELU
+//     out = x + (g W2^T + b2)                  fc2: the GEMM with the residual epilogue
 //   backward
-//     da  = round((dy W2) * dg)                ffvc_gemm_train, mul epilogue (+ f32 copy)
-//     dxn = da W1                              ffvc_gemm_train, f32 output
+//     da  = round((dy W2) * dg)                dgh: the GEMM with the mul epilogue (+ f32 copy)
+//     dxn = da W1                              dxn: the GEMM with an f32 output
 //     dx  = dy + LN'(dxn)                      ffvc_ln_bwd_rows, statistics recomputed
 //                                              from x; also dxn * xhat (mixer_train.cu)
 //   and, where the parameter grads are asked for,
 //     xn                                       ffvc_ln_rows_train, as in the forward
-//     dW1 = da^T xn, dW2 = dy^T g              ffvc_gemm_train, M-major A
+//     dW1 = da^T xn, dW2 = dy^T g              ffvc_gemm_train, M-major A (mixer_tile.cuh)
 //     db1, db2, dscale, dbias                  ffvc_col_sum, fixed order (mixer_train.cu)
 //
 // Replaces feed_forward_vqgan_clip_tpu/ops/pallas/mlp_ln.py `_fwd_kernel` (`_fwd_res`:
@@ -29,30 +29,80 @@
 // What bounds it on an H100: at the train loss (rows = 64 crops x 50 tokens = 3200,
 // D = 768, E = 3072, bf16) the forward is 2 x 2 x 3200 x 768 x 3072 = 30.2 GFLOP
 // (0.031 ms at 989 TFLOP/s) against about 46 MB of inputs and outputs (0.014 ms at
-// 3.35 TB/s): compute-bound, on the tensor cores through the WMMA tile of
+// 3.35 TB/s): compute-bound. In bf16 the four path GEMMs (fc1, fc2, dgh, dxn) run on
+// the Hopper GEMM of wgmma_gemm.cuh (TMA ring, wgmma, persistent tiles; the weights
+// read in nn.Linear's layout, dgh's and dxn's MN-major through wgmma's transpose mode);
+// `ffvc_wgmma_gemm` below is their entry point. The tile width (128 or 192 columns) is
+// chosen per GEMM by the wrapper's `wgmma_plan` against the wave count. The float32
+// route and the parameter-grad GEMMs (an M-major A) stay on the WMMA tile of
 // mixer_tile.cuh. The dx-only backward is the same 30.2 GFLOP; with the parameter
 // grads, 60.4. The activation is exact here (expf, erff), not the TPU's polynomial.
-//
-// The activation choice lives in its own argument struct (GemmMlpArgs), so the
-// Mixer kernels' GEMM instantiations are compiled without it.
 
 #include "mixer_tile.cuh"
+#include "wgmma_gemm.cuh"
 
 using namespace ffvc;
 
-// g = act(A B + bias[col]) in the working type, and act' of the same pre-activation into
+// float32 only: g = act(A B + bias[col]) and act' of the same pre-activation into
 // gelu_grad: A (m x k) row-major, B a torch Linear weight (n x k, read K-major), one
-// batch element. act: Activation (csrc/mixer_tile.cuh).
+// batch element, on the WMMA tile. act: Activation (common.cuh).
 extern "C" int ffvc_mlp_gemm(const void* a, long long lda, const void* b, long long ldb, void* c,
                              long long ldc, const float* bias, int act, void* gelu_grad, int m,
                              int n, int k, int splits, int k_per_split, float* workspace,
                              int dtype, void* stream) {
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   GemmMlpArgs p{};
   fill_common(p, a, lda, 0, b, ldb, 0, c, ldc, 0, nullptr, 0, 0, bias, 2, 1, m, n, k, splits,
               k_per_split, workspace);
   p.gelu_grad = gelu_grad;
   p.act = act;
+  return launch_gemm<float, GemmMlpArgs, false, true>(p, 1, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// The path's pairs: K-major B with the forward's epilogues (fc1, fc2), MN-major B
+// with the backward's (dgh, dxn); only those are compiled.
+template <int BN, int kTransB>
+int dispatch_epilogue(const WgmmaParams& p, const void* a, const void* b, void* c, void* aux,
+                      int epi, int grid, cudaStream_t s) {
+  if constexpr (kTransB) {
+    if (epi == kEpiMul) return launch_wgmma_gemm<BN, 1, kEpiMul>(p, a, b, c, aux, grid, s);
+    if (epi == kEpiF32) return launch_wgmma_gemm<BN, 1, kEpiF32>(p, a, b, c, aux, grid, s);
+  } else {
+    if (epi == kEpiAct) return launch_wgmma_gemm<BN, 0, kEpiAct>(p, a, b, c, aux, grid, s);
+    if (epi == kEpiRes) return launch_wgmma_gemm<BN, 0, kEpiRes>(p, a, b, c, aux, grid, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// bf16 C (m x n) = A (m x k, row-major) . B, B K-major ((n, k) row-major, b_mn_major 0)
+// or MN-major ((k, n) row-major, 1), with epilogue `epi` (WgmmaEpilogue; kEpiAct and
+// kEpiRes with a K-major B, kEpiMul and kEpiF32 with an MN-major one): bias (n,) f32,
+// res / mul (m, n) bf16, aux (kEpiAct: act' bf16; kEpiMul: an optional f32 copy), act
+// (Activation). bn: the tile width, 128 or 192; grid: the persistent CTAs. k and n
+// multiples of 8, every pointer 16-byte aligned (checked by the wrapper).
+extern "C" int ffvc_wgmma_gemm(const void* a, const void* b, int b_mn_major, void* c, int m,
+                               int n, int k, int epi, const float* bias, const void* res,
+                               const void* mul, void* aux, int act, int bn, int grid,
+                               void* stream) {
+  WgmmaParams p{};
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.bias = bias;
+  p.res = static_cast<const bf16*>(res);
+  p.mul = static_cast<const bf16*>(mul);
+  p.aux_f32 = epi == kEpiMul ? static_cast<float*>(aux) : nullptr;
+  p.act = act;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch_gemm<bf16, GemmMlpArgs, false, true>(p, 1, s);
-  return launch_gemm<float, GemmMlpArgs, false, true>(p, 1, s);
+  if (bn == 128)
+    return b_mn_major ? dispatch_epilogue<128, 1>(p, a, b, c, aux, epi, grid, s)
+                      : dispatch_epilogue<128, 0>(p, a, b, c, aux, epi, grid, s);
+  if (bn == 192)
+    return b_mn_major ? dispatch_epilogue<192, 1>(p, a, b, c, aux, epi, grid, s)
+                      : dispatch_epilogue<192, 0>(p, a, b, c, aux, epi, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

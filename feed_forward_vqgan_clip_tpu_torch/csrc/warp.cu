@@ -31,27 +31,32 @@
 //   * K9 is a direct gather: one thread per output pixel, all C channels, the 4
 //     taps read in bf16/f32 and interpolated in float32 in grid_sample's order
 //     (top = v00 (1-wx) + v01 wx, bot likewise, out = top (1-wy) + bot wy).
-//   * K10 is a gather too, so it needs no atomics and is deterministic: one thread
-//     per INPUT pixel p (all C channels) sums w(s(q), p) g[q] over the output
-//     pixels q whose sample can reach p, in row-major order of q, in float32,
-//     and writes once. Those q are the preimage under m^-1 of p's support box
-//     (px-1, px+1) x (py-1, py+1). Where m^-1's denominator keeps one strict sign
-//     over the box's corners, the preimage is the convex hull of the corners'
-//     images; the thread visits their bounding box widened by 1 px (a q just
-//     outside has a sample within rounding of the box edge, where its hat weight
-//     is ~0) and clipped to the output frame: about 5x5 pixels for Af and Pe
-//     draws, up to ~9x9 for a crop magnified 3.2x (Re at scale 0.1). Where the
-//     sign changes (the horizon of m^-1 crosses the box) the thread visits the
-//     whole output frame.
+//   * K10 is a gather too, so it needs no atomics and is deterministic: each INPUT
+//     pixel p (all C channels) sums w(s(q), p) g[q] over the output pixels q whose
+//     sample can reach p, in row-major order of q, in float32, and writes once.
+//     Those q are the preimage of p's support box (px-1, px+1) x (py-1, py+1). Along
+//     one output row a projective map is monotone in qx wherever its denominator
+//     keeps its sign, so per row the q in the preimage form one interval: four
+//     linear inequalities in qx, computed in double from m (`BoundRoot`), widened
+//     by 1 px (a float sample can disagree with the double one at the ends; an extra
+//     q's weight test inside the loop makes it add exactly 0). Where the
+//     denominator changes sign along a row, or comes near zero, the whole row is
+//     visited.
+//   * Interior pixels run in tile blocks of 16 x 16 input pixels. A block computes
+//     the taps (x0, y0, wx, wy) of every output pixel its tile's preimage box holds,
+//     with their C values of g, once into shared memory, up to kTileCap of them at a
+//     time in row-major order, and each thread walks its own rows' intervals there:
+//     two divisions a q per block instead of a thread.
 //   * Border mode: a sample clamped onto the input frame's edge reaches only the
-//     edge pixels, so an edge pixel's box extends outward to the bounding box of
-//     all the output frame's samples (the image of the output frame's corners,
-//     when m's denominator keeps one sign over the output frame and no sample
-//     exceeds 1e5 px; else the whole output frame is visited). Edge pixels are
-//     ordered after the interior pixels, so their longer loops share warps with
-//     each other.
-// What bounds K10 in practice is that per-q work: ~20-80 visits per pixel, each
-// recomputing s(q). Tiles staged in shared memory are later work.
+//     edge pixels, so an edge pixel's support is unbounded on its outer side (sx <
+//     1 for px = 0, ...). The edge pixels run in blocks of their own after the
+//     tiles, one thread each, over the rows of their support's preimage (bounded by
+//     the hull of the output frame's samples, `frame_hull`, where valid; else the
+//     whole frame) and per row the exact interval of the clamped strip, computing
+//     each visited q's taps themselves. In zeros mode every pixel is a tile pixel.
+// For finite g this sums the same q with nonzero weight in the same order, with the
+// same arithmetic, as a walk of each pixel's whole preimage bounding box (the design
+// before), so the result is the same bits.
 
 #include <math.h>
 
@@ -205,83 +210,255 @@ __device__ bool preimage_box(const float* __restrict__ mf, double x0, double x1,
   return true;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
-                    T* __restrict__ grad, int b, int h, int w, int ho, int wo, int c,
-                    bool border) {
-  // one thread per input pixel p = (px, py) of the (h, w) frame, in this order:
-  // every image's interior pixels, then every image's edge pixels (top row,
-  // bottom row, then the left and right ends of the rows between)
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (i >= static_cast<long long>(b) * h * w) return;
-  const int iw = max(w - 2, 0), ih = max(h - 2, 0);
-  const long long n_in = static_cast<long long>(b) * ih * iw;
-  int bi, px, py;
-  if (i < n_in) {
-    bi = static_cast<int>(i / (static_cast<long long>(ih) * iw));
-    const int r = static_cast<int>(i % (static_cast<long long>(ih) * iw));
-    py = 1 + r / iw;
-    px = 1 + r % iw;
-  } else {
-    const int n_edge = h * w - ih * iw;
-    bi = static_cast<int>((i - n_in) / n_edge);
-    const int e = static_cast<int>((i - n_in) % n_edge);
-    if (e < w) {
-      py = 0;
-      px = e;
-    } else if (e < 2 * w) {
-      py = h - 1;
-      px = e - w;
-    } else {
-      py = 1 + (e - 2 * w) / 2;
-      px = (e - 2 * w) % 2 ? w - 1 : 0;
+// The preimage of an input box lo_x < sx < hi_x, lo_y < sy < hi_y under m, row by
+// row. Each bound b of sx = (m0 qx + m1 qy + m2) / D, D = m6 qx + m7 qy + m8, is a
+// linear inequality in qx once multiplied by D's sign s on the row: s (k qx + w(qy))
+// > 0 (a lower bound on sx) or < 0 (an upper one), k = m0 - b m6, w(qy) = (m1 - b
+// m7) qy + m2 - b m8; likewise for sy with m3, m4, m5. Where k != 0 its root r(qy) =
+// -w(qy) / k = u + v qy bounds qx: from below where s k > 0 for a lower bound (s k <
+// 0 for an upper one), else from above. Where k == 0, w(qy)'s sign alone keeps or
+// drops the row. A bound may be infinite: the clamped side of a border edge pixel.
+struct BoundRoot {
+  double u, v;  // the root's coefficients; where k == 0, w's (w0, w1)
+  int kind;     // sign of k; 0 where k == 0; 2 for an infinite bound (no constraint)
+};
+
+// Bound b on axis 0 (sx) or 1 (sy).
+__device__ BoundRoot bound_root(const float* __restrict__ m, int axis, double b) {
+  if (!isfinite(b)) return {0.0, 0.0, 2};
+  const int r = axis ? 3 : 0;  // the numerator's row of m
+  const double k = m[r] - b * m[6], w1 = m[r + 1] - b * m[7], w0 = m[r + 2] - b * m[8];
+  if (k == 0.0) return {w0, w1, 0};
+  return {-w0 / k, -w1 / k, k > 0.0 ? 1 : -1};
+}
+
+// D's margin from zero, as frame_hull's: rounding cannot flip its sign there, and the
+// 1e-8 guard never acts; m not finite: no row passes it.
+__device__ double denominator_margin(const float* __restrict__ m, int ho, int wo) {
+  for (int i = 0; i < 9; ++i)
+    if (!isfinite(m[i])) return INFINITY;
+  return fmax(1e-4 * (fabs((double)m[6]) * (wo - 1) + fabs((double)m[7]) * (ho - 1) +
+                      fabs((double)m[8])),
+              1e-6);
+}
+
+// D's sign along row qy over [c0, c1], or 0 where it changes or comes within the
+// margin of zero there (the row is then walked whole).
+__device__ int row_sign(const float* __restrict__ m, double margin, int qy, int c0, int c1) {
+  const double e = (double)m[7] * qy + (double)m[8];
+  const double dl = (double)m[6] * c0 + e, dr = (double)m[6] * c1 + e;
+  if (!(fabs(dl) >= margin && fabs(dr) >= margin && (dl > 0.0) == (dr > 0.0))) return 0;
+  return dl > 0.0 ? 1 : -1;
+}
+
+// The qx in [c0, c1] of a row of D's sign s (nonzero) whose sample lies between a
+// lower and an upper bound on one axis, widened by 1 px on each side (a float sample
+// can disagree with the double one at the ends): [*q0, *q1], empty when *q0 > *q1.
+__device__ void axis_interval(const BoundRoot& lower, const BoundRoot& upper, int s, int qy,
+                              int c0, int c1, int* q0, int* q1) {
+  double lo = -INFINITY, hi = INFINITY;
+  bool none = false;
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const BoundRoot& br = side ? upper : lower;
+    const double v = br.u + br.v * qy;
+    if (br.kind == 1 || br.kind == -1) {
+      if ((br.kind * s > 0) != (side == 1))
+        lo = fmax(lo, v);
+      else
+        hi = fmin(hi, v);
+    } else if (br.kind == 0) {
+      none = none || !(side ? s * v < 0.0 : s * v > 0.0);
     }
+  }
+  *q0 = c0;
+  *q1 = c1;
+  // qx > lo -> qx >= floor(lo) + 1, widened: floor(lo); qx < hi -> qx <= ceil(hi)
+  if (lo > c0) *q0 = static_cast<int>(fmin(floor(lo), c1 + 1.0));
+  if (hi < c1) *q1 = static_cast<int>(fmax(ceil(hi), c0 - 1.0));
+  if (none) *q0 = c0 + 1, *q1 = c0;
+}
+
+// Adds sample q's share of g to p's sums: the taps that are p are x0 at weight 1 -
+// wx, x0 + 1 at wx (in border mode clamped onto the edge, where its weight is 0),
+// the same in y. gq: q's C values from channel c0 on, nc of them.
+template <typename G>
+__device__ __forceinline__ void add_sample(const Taps& t, int px, int py, int h, int w,
+                                           bool border, const G& gq, int nc, float* acc) {
+  const int tx1 = border ? min(t.x0 + 1, w - 1) : t.x0 + 1;
+  const int ty1 = border ? min(t.y0 + 1, h - 1) : t.y0 + 1;
+  if ((t.x0 != px && tx1 != px) || (t.y0 != py && ty1 != py)) return;
+  float ax = 0.f, ay = 0.f;
+  if (t.x0 == px) ax = __fsub_rn(1.f, t.wx);
+  if (tx1 == px) ax = __fadd_rn(ax, t.wx);
+  if (t.y0 == py) ay = __fsub_rn(1.f, t.wy);
+  if (ty1 == py) ay = __fadd_rn(ay, t.wy);
+  const float wgt = __fmul_rn(ay, ax);
+#pragma unroll
+  for (int k = 0; k < kChunk; ++k)
+    if (k < nc) acc[k] = fmaf(wgt, gq(k), acc[k]);
+}
+
+constexpr int kTile = 16;       // a tile block's input pixels a side (kThreads of them)
+constexpr int kTileCap = 1152;  // output pixels whose taps a tile block holds at once
+constexpr int kRowCap = 64;     // output rows of a batch: the interval table's height
+
+// One tile block: the tile's input pixels (in border mode not those on the frame's
+// edge) as one thread each. The block's output box is the preimage box of the tile's
+// support; its taps and g values are staged in batches of whole rows (of parts of one
+// row where a row exceeds kTileCap), in row-major order. The per-row intervals are
+// shared too: pixel (px, py)'s interval in row qy is the intersection of the x bounds'
+// interval, the same for every pixel of column px, and the y bounds', the same for
+// every pixel of row py, so the block computes 2 x 16 of them a row into a table
+// (from the 2 x 18 bounds' roots, once a tile) and each thread reads its two.
+template <typename T>
+__device__ void adjoint_tile(const T* __restrict__ g, const float* __restrict__ mats,
+                             T* __restrict__ grad, int h, int w, int ho, int wo, int c,
+                             bool border, int tile) {
+  __shared__ int2 s_xy[kTileCap];
+  __shared__ float2 s_w[kTileCap];
+  __shared__ float4 s_g[kTileCap];
+  __shared__ short s_lo[2][kRowCap][kTile], s_hi[2][kRowCap][kTile];  // [axis][row][pixel]
+  __shared__ BoundRoot s_root[2][kTile + 2];  // [axis][bound b = t0 - 1 + j]
+  __shared__ double s_margin;
+  __shared__ int s_box[4];
+  const int tiles_x = (w + kTile - 1) / kTile, tiles_y = (h + kTile - 1) / kTile;
+  const int bi = tile / (tiles_x * tiles_y), r = tile % (tiles_x * tiles_y);
+  const int tx0 = r % tiles_x * kTile, ty0 = r / tiles_x * kTile;
+  const int ix = threadIdx.x % kTile, iy = threadIdx.x / kTile;
+  const int px = tx0 + ix, py = ty0 + iy;
+  const bool edge = px == 0 || px == w - 1 || py == 0 || py == h - 1;
+  const bool active = px < w && py < h && !(border && edge);
+  const float* m = mats + bi * 9;
+  if (threadIdx.x == 0) {
+    int b[4] = {0, wo - 1, 0, ho - 1};  // the whole output frame where the horizon crosses
+    if (!preimage_box(m, tx0 - 1.0, min(tx0 + kTile, w) + 0.0, ty0 - 1.0,
+                      min(ty0 + kTile, h) + 0.0, ho, wo, &b[0], &b[1], &b[2], &b[3])) {
+      b[0] = 0, b[1] = wo - 1, b[2] = 0, b[3] = ho - 1;
+    }
+    for (int i = 0; i < 4; ++i) s_box[i] = b[i];
+    s_margin = denominator_margin(m, ho, wo);
+  } else if (threadIdx.x <= 2 * (kTile + 2)) {
+    // bound j of an axis: b = t0 - 1 + j (pixel t0 + i has bounds j = i and i + 2)
+    const int axis = (threadIdx.x - 1) / (kTile + 2), j = (threadIdx.x - 1) % (kTile + 2);
+    s_root[axis][j] = bound_root(m, axis, (axis ? ty0 : tx0) - 1.0 + j);
+  }
+  __syncthreads();
+  const int qx0 = s_box[0], qx1 = s_box[1], qy0 = s_box[2];
+  const int bw = max(qx1 - qx0 + 1, 0);
+  const int total = bw * max(s_box[3] - qy0 + 1, 0);
+  // a batch: whole rows while a row fits, at most kRowCap of them
+  const int batch = bw <= kTileCap ? min(kTileCap / max(bw, 1), kRowCap) * bw : kTileCap;
+  const T* gb = g + static_cast<long long>(bi) * ho * wo * c;
+  for (int c0 = 0; c0 < c; c0 += kChunk) {
+    const int nc = min(kChunk, c - c0);
+    float acc[kChunk] = {0.f, 0.f, 0.f, 0.f};
+    for (int start = 0; start < total; start += batch) {
+      const int n = min(batch, total - start);
+      const int row0 = start / bw, rows = (start + n - 1) / bw - row0 + 1;
+      __syncthreads();  // every thread is done with the previous batch
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int qy = qy0 + (start + i) / bw, qx = qx0 + (start + i) % bw;
+        const Taps t = sample_taps(m, qx, qy, h, w, border);
+        s_xy[i] = make_int2(t.x0, t.y0);
+        s_w[i] = make_float2(t.wx, t.wy);
+        const T* gq = gb + (static_cast<long long>(qy) * wo + qx) * c + c0;
+        float v[kChunk] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k)
+          if (k < nc) v[k] = to_f(gq[k]);
+        s_g[i] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      // the interval table: per row of the batch, axis and pixel offset, the qx whose
+      // samples can lie between the pixel's two bounds on that axis, within [qx0, qx1]
+      for (int i = threadIdx.x; i < rows * 2 * kTile; i += kThreads) {
+        const int rr = i / (2 * kTile), axis = i % (2 * kTile) / kTile, o = i % kTile;
+        const int qy = qy0 + row0 + rr, s = row_sign(m, s_margin, qy, qx0, qx1);
+        int lo_q = qx0, hi_q = qx1;
+        if (s)
+          axis_interval(s_root[axis][o], s_root[axis][o + 2], s, qy, qx0, qx1, &lo_q, &hi_q);
+        s_lo[axis][rr][o] = static_cast<short>(lo_q);
+        s_hi[axis][rr][o] = static_cast<short>(hi_q);
+      }
+      __syncthreads();
+      if (!active) continue;
+      for (int rr = 0; rr < rows; ++rr) {
+        const int row = row0 + rr;
+        // this pixel's interval of the row, and the batch's part of the row
+        const int a = max(max(s_lo[0][rr][ix], s_lo[1][rr][iy]),
+                          qx0 + max(start - row * bw, 0));
+        const int z = min(min(s_hi[0][rr][ix], s_hi[1][rr][iy]),
+                          qx0 + min(start + n - 1 - row * bw, bw - 1));
+        for (int qx = a; qx <= z; ++qx) {
+          const int i = row * bw + qx - qx0 - start;
+          const int2 xy = s_xy[i];
+          const float2 wt = s_w[i];
+          const float4 gv = s_g[i];
+          add_sample(Taps{xy.x, xy.y, wt.x, wt.y}, px, py, h, w, border,
+                     [&](int k) { return k == 0 ? gv.x : k == 1 ? gv.y : k == 2 ? gv.z : gv.w; },
+                     nc, acc);
+        }
+      }
+    }
+    if (active) {
+      T* out = grad + ((static_cast<long long>(bi) * h + py) * w + px) * c;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (k < nc) out[c0 + k] = from_f<T>(acc[k]);
+    }
+  }
+}
+
+// One edge pixel of the input frame in border mode: e = 0 .. h w - (h-2)(w-2) - 1 of
+// image bi (top row, bottom row, then the left and right ends of the rows between).
+// Its support is unbounded on the frame's outer side(s); the rows to walk are those of
+// the preimage box of its support cut at the hull of the output frame's samples.
+template <typename T>
+__device__ void adjoint_edge_pixel(const T* __restrict__ g, const float* __restrict__ mats,
+                                   T* __restrict__ grad, int h, int w, int ho, int wo, int c,
+                                   int bi, int e) {
+  int px, py;
+  if (e < w) {
+    py = 0;
+    px = e;
+  } else if (e < 2 * w) {
+    py = h - 1;
+    px = e - w;
+  } else {
+    py = 1 + (e - 2 * w) / 2;
+    px = (e - 2 * w) % 2 ? w - 1 : 0;
   }
   const float* m = mats + bi * 9;
-  // the input box whose samples reach p with nonzero weight (an edge pixel of the
-  // input frame, in border mode, also gets the samples clamped onto it)
-  double x0 = px - 1.0, x1 = px + 1.0, y0 = py - 1.0, y1 = py + 1.0;
-  bool full = false;
-  if (border && (px == 0 || px == w - 1 || py == 0 || py == h - 1)) {
-    double lo_x, hi_x, lo_y, hi_y;
-    if (frame_hull(m, ho, wo, &lo_x, &hi_x, &lo_y, &hi_y)) {
-      if (px == 0) x0 = fmin(x0, lo_x - 1.0);
-      if (px == w - 1) x1 = fmax(x1, hi_x + 1.0);
-      if (py == 0) y0 = fmin(y0, lo_y - 1.0);
-      if (py == h - 1) y1 = fmax(y1, hi_y + 1.0);
-    } else {
-      full = true;
-    }
-  }
-  // the output pixels q to visit: the box's preimage, or the whole output frame
+  const double lo_x = px == 0 ? -INFINITY : px - 1.0, hi_x = px == w - 1 ? INFINITY : px + 1.0;
+  const double lo_y = py == 0 ? -INFINITY : py - 1.0, hi_y = py == h - 1 ? INFINITY : py + 1.0;
   int qx0 = 0, qx1 = wo - 1, qy0 = 0, qy1 = ho - 1;
-  if (!full && !preimage_box(m, x0, x1, y0, y1, ho, wo, &qx0, &qx1, &qy0, &qy1)) {
+  double hx0, hx1, hy0, hy1;
+  if (frame_hull(m, ho, wo, &hx0, &hx1, &hy0, &hy1) &&
+      !preimage_box(m, fmax(lo_x, hx0 - 1.0), fmin(hi_x, hx1 + 1.0), fmax(lo_y, hy0 - 1.0),
+                    fmin(hi_y, hy1 + 1.0), ho, wo, &qx0, &qx1, &qy0, &qy1)) {
     qx0 = 0, qx1 = wo - 1, qy0 = 0, qy1 = ho - 1;
   }
+  const BoundRoot bx0 = bound_root(m, 0, lo_x), bx1 = bound_root(m, 0, hi_x);
+  const BoundRoot by0 = bound_root(m, 1, lo_y), by1 = bound_root(m, 1, hi_y);
+  const double margin = denominator_margin(m, ho, wo);
   const T* gb = g + static_cast<long long>(bi) * ho * wo * c;
   T* out = grad + (static_cast<long long>(bi) * h * w + static_cast<long long>(py) * w + px) * c;
   for (int c0 = 0; c0 < c; c0 += kChunk) {
     const int nc = min(kChunk, c - c0);
     float acc[kChunk] = {0.f, 0.f, 0.f, 0.f};
     for (int qy = qy0; qy <= qy1; ++qy) {
-      for (int qx = qx0; qx <= qx1; ++qx) {
-        const Taps t = sample_taps(m, qx, qy, h, w, border);
-        // the taps that are p: x0 at weight 1 - wx, x0 + 1 at wx (in border mode
-        // clamped onto the edge, where its weight is 0), the same in y
-        const int tx1 = border ? min(t.x0 + 1, w - 1) : t.x0 + 1;
-        const int ty1 = border ? min(t.y0 + 1, h - 1) : t.y0 + 1;
-        if ((t.x0 != px && tx1 != px) || (t.y0 != py && ty1 != py)) continue;
-        float ax = 0.f, ay = 0.f;
-        if (t.x0 == px) ax = __fsub_rn(1.f, t.wx);
-        if (tx1 == px) ax = __fadd_rn(ax, t.wx);
-        if (t.y0 == py) ay = __fsub_rn(1.f, t.wy);
-        if (ty1 == py) ay = __fadd_rn(ay, t.wy);
-        const float wgt = __fmul_rn(ay, ax);
+      int a = qx0, z = qx1;
+      const int s = row_sign(m, margin, qy, qx0, qx1);
+      if (s) {
+        int ay, zy;
+        axis_interval(bx0, bx1, s, qy, qx0, qx1, &a, &z);
+        axis_interval(by0, by1, s, qy, qx0, qx1, &ay, &zy);
+        a = max(a, ay), z = min(z, zy);
+      }
+      for (int qx = a; qx <= z; ++qx) {
         const T* gq = gb + (static_cast<long long>(qy) * wo + qx) * c + c0;
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k)
-          if (k < nc) acc[k] = fmaf(wgt, to_f(gq[k]), acc[k]);
+        add_sample(sample_taps(m, qx, qy, h, w, true), px, py, h, w, true,
+                   [&](int k) { return to_f(gq[k]); }, nc, acc);
       }
     }
 #pragma unroll
@@ -290,18 +467,44 @@ warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
   }
 }
 
+// Blocks [0, b * tiles) are tile blocks; in border mode the blocks after them hold
+// the edge pixels, kThreads a block, image by image.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+warp_adjoint_kernel(const T* __restrict__ g, const float* __restrict__ mats,
+                    T* __restrict__ grad, int b, int h, int w, int ho, int wo, int c,
+                    bool border) {
+  const int tiles = b * ((w + kTile - 1) / kTile) * ((h + kTile - 1) / kTile);
+  if (static_cast<int>(blockIdx.x) < tiles) {
+    adjoint_tile(g, mats, grad, h, w, ho, wo, c, border, blockIdx.x);
+    return;
+  }
+  const long long n_edge = static_cast<long long>(h) * w - max(h - 2, 0) * max(w - 2, 0);
+  const long long i = (blockIdx.x - tiles) * static_cast<long long>(kThreads) + threadIdx.x;
+  if (i >= b * n_edge) return;
+  adjoint_edge_pixel(g, mats, grad, h, w, ho, wo, c, static_cast<int>(i / n_edge),
+                     static_cast<int>(i % n_edge));
+}
+
 template <typename T>
 int launch(bool adjoint, const void* src, const float* mats, void* dst, int b, int h, int w,
            int ho, int wo, int c, bool border, cudaStream_t s) {
-  // a thread per output pixel (forward) or per input pixel (adjoint)
-  const long long n = static_cast<long long>(b) * (adjoint ? h * w : ho * wo);
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if (adjoint)
+  if (adjoint) {
+    // the tile blocks, then (border mode) a thread per edge pixel
+    const long long tiles =
+        static_cast<long long>(b) * ((w + kTile - 1) / kTile) * ((h + kTile - 1) / kTile);
+    const long long n_edge =
+        border ? static_cast<long long>(b) * (h * w - max(h - 2, 0) * max(w - 2, 0)) : 0;
+    const unsigned blocks = static_cast<unsigned>(tiles + (n_edge + kThreads - 1) / kThreads);
     warp_adjoint_kernel<T><<<blocks, kThreads, 0, s>>>(
         static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
-  else
-    warp_forward_kernel<T><<<blocks, kThreads, 0, s>>>(
-        static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
+    FFVC_RETURN_LAST_ERROR();
+  }
+  // a thread per output pixel
+  const long long n = static_cast<long long>(b) * ho * wo;
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  warp_forward_kernel<T><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
   FFVC_RETURN_LAST_ERROR();
 }
 

@@ -1,0 +1,553 @@
+// A Hopper GEMM for bf16 operands with f32 accumulation: TMA loads into a ring of
+// 128-byte-swizzled shared-memory stages, one producer warp, two consumer warpgroups
+// issuing wgmma.mma_async, a persistent tile loop, and TMA stores. It carries the CLIP
+// MLP sublayer's four GEMMs (K11, csrc/mlp_ln.cu) with their epilogues:
+//
+//   C (M x N) = A (M x K) . B,  A row-major (K-major),
+//   B K-major: stored (N, K), element (k, n) at n*K + k (an nn.Linear weight read as
+//              its transpose), or MN-major: stored (K, N), at k*N + n (a weight read
+//              as it lies), through wgmma's transpose mode for 16-bit types, with no
+//              transposed copy.
+//
+// Block: 3 warpgroups (384 threads). Warpgroup 0 gives up registers (setmaxnreg) and
+// its first thread issues every TMA load; warpgroups 1 and 2 take 64 rows each of a
+// 128 x BN output tile. Per K step of 64: A's box (128 x 64) and B's (BN x 64
+// K-major, or BN/64 boxes of 64 x 64 MN-major) land in one of kStages stages; the
+// producer arms the stage's `full` barrier with the bytes it expects, the consumers
+// wait on it, issue four m64nBNk16 wgmma (K 16 each), keep one group in flight, and
+// arrive on the stage's `empty` barrier (one arrival per consumer warp) once the
+// group that read it has retired, so that the producer may refill it. The CTAs walk
+// the output tiles tile = blockIdx.x, + gridDim.x, ... (grid = min(tiles, SMs), row
+// blocks outer), the same sequence in the producer and the consumers, so the loads
+// of the next tile overlap a tile's epilogue.
+//
+// Epilogue: each consumer warpgroup takes its 64 x BN accumulator through the
+// per-element arithmetic in registers (res or mul, read at the start of the tile so
+// that the loads overlap the K loop), writes the outputs into its own buffer in the
+// layout of 128-byte-swizzled TMA boxes (64 rows x 128 bytes: conflict-free for the
+// fragment's writes), and one thread stores the boxes with TMA and goes on: the
+// stores drain during the next tile's K loop; the buffer is reused only once they
+// have read it. Ragged M and N edges are zero-filled by the loads and clipped by the
+// stores. Numerics: each output's K sum is one chain of wgmma in K order, the same on
+// every run (no split-K, no atomics); the epilogues keep the rounding points of the
+// WMMA tile's (csrc/mixer_tile.cuh, `epilogue_store`):
+//   kEpiAct  v += bias[n]; dg = round(act'(v)) into aux, C = round(act(v))   (fc1)
+//   kEpiRes  v += bias[n]; C = round(round(v) + res)                         (fc2)
+//   kEpiMul  v *= mul; aux (f32, where given) = v; C = round(v)              (dgh)
+//   kEpiF32  C = v in float32                                                (dxn)
+//
+// The accumulator fragment of m64nNk16: thread t of a warpgroup (warp w = t / 32,
+// lane l) holds, for each 8-column group j, d[4j], d[4j + 1] at row 16w + l/4,
+// columns 8j + 2(l % 4) and + 1, and d[4j + 2], d[4j + 3] eight rows below.
+//
+// Requirements, checked by the caller: K and N multiples of 8 and 16-byte-aligned
+// bases (TMA's strides and addresses).
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace ffvc {
+
+constexpr int kWgBM = 128;  // output rows of a tile: two consumer warpgroups x 64
+constexpr int kWgBK = 64;   // K per stage: one 128-byte swizzle row of bf16
+constexpr int kWgThreads = 384;
+
+enum WgmmaEpilogue : int { kEpiAct = 0, kEpiRes = 1, kEpiMul = 2, kEpiF32 = 3 };
+
+struct WgmmaParams {
+  CUtensorMap map_a;    // A (M, K): box 64 x 128
+  CUtensorMap map_b;    // B (N, K): box 64 x BN; or (K, N): box 64 x 64
+  CUtensorMap map_c;    // C (M, N): boxes of 64 rows x 128 bytes
+  CUtensorMap map_aux;  // kEpiAct: act' (M, N) bf16, as C
+  int m, n, k;
+  const float* bias;  // (N,) float32: kEpiAct, kEpiRes
+  const bf16* res;    // (M, N): kEpiRes
+  const bf16* mul;    // (M, N): kEpiMul
+  float* aux_f32;     // kEpiMul: an optional f32 copy of v (M, N), stored directly
+  int act;            // kEpiAct: Activation
+};
+
+// C's element type and the columns of one 128-byte store box.
+template <int kEpi>
+struct EpiOut {
+  static constexpr int kBytes = kEpi == kEpiF32 ? 4 : 2;
+  static constexpr int kBoxCols = 128 / kBytes;
+  static constexpr int kPlanes = kEpi == kEpiAct ? 2 : 1;  // C, and act' for kEpiAct
+};
+
+template <int BN, int kEpi>
+struct WgmmaTile {
+  static constexpr int kABytes = kWgBM * kWgBK * 2;  // 16 KB
+  static constexpr int kBBytes = BN * kWgBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // each consumer warpgroup's output buffer: its planes of 64 rows x BN
+  static constexpr int kPlaneBytes = 64 * BN * EpiOut<kEpi>::kBytes;
+  static constexpr int kEpiBytes = EpiOut<kEpi>::kPlanes * kPlaneBytes;
+  static constexpr int kFree = 232448 - 1024 - 2 * kEpiBytes - 2 * 6 * 8;
+  static constexpr int kStages = kFree / kStageBytes < 6 ? kFree / kStageBytes : 6;
+  static_assert(kStages >= 3, "the ring needs at least three stages");
+  // stages, output buffers, the stages' full and empty barriers, and slack to align
+  // the base to 1024 bytes
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kEpiBytes + 2 * kStages * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D box of `map` at coordinates (c0 innermost, c1) into shared memory; its
+// bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One 2-D box from shared memory to `map` at (c0, c1), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The stores issued so far have read their shared memory (kRead) or are complete.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Synchronises the 128 threads of one consumer warpgroup (named barrier `id`).
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The wgmma shared-memory descriptor of a 128-byte-swizzled tile at `p` (1024-byte
+// aligned swizzle atoms): start address, leading and stride byte offsets, all in
+// 16-byte units, layout type 1 (128B swizzle).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo_bytes & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes & 0x3FFFF) >> 4) << 32;
+  d |= 1ull << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Ties the accumulator registers to this point: no read of them moves above a wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16) . B (16 x 128), bf16 from shared memory; A
+// K-major, B K-major (kTransB 0) or MN-major (1); scale_d 0 drops d's old value.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// d (64 x 192, f32) += A (64 x 16) . B (16 x 192), bf16 from shared memory; A
+// K-major, B K-major (kTransB 0) or MN-major (1); scale_d 0 drops d's old value.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, %99;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int BN, int kTransB>
+__device__ __forceinline__ void wgmma_k16(float* d, uint64_t desc_a, uint64_t desc_b,
+                                          int scale_d) {
+  if constexpr (BN == 128)
+    wgmma_m64n128k16<kTransB>(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n192k16<kTransB>(d, desc_a, desc_b, scale_d);
+}
+
+// Byte offset of (row r, column lc) of a plane of 64 x BN elements of `bytes` each,
+// laid out as 128-byte-swizzled TMA boxes of 64 rows x 128 bytes, box after box.
+__device__ __forceinline__ int swizzled(int r, int lc, int bytes) {
+  const int box_cols = 128 / bytes, cc = lc % box_cols;
+  const int chunk = cc * bytes / 16;
+  return lc / box_cols * 8192 + r * 128 + ((chunk ^ (r % 8)) << 4) + cc * bytes % 16;
+}
+
+// res (kEpiRes) or mul (kEpiMul) at the fragment's places, read at the start of the
+// tile: e[2j + half] holds columns (8j + 2(l % 4), + 1) of row 16w + l/4 + 8 half.
+template <int BN, int kEpi>
+__device__ __forceinline__ void epilogue_prefetch(const WgmmaParams& p, __nv_bfloat162* e,
+                                                  int m0, int n0) {
+  if constexpr (kEpi == kEpiRes || kEpi == kEpiMul) {
+    const bf16* src = kEpi == kEpiRes ? p.res : p.mul;
+    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + warp * 16 + lane / 4 + half * 8, col = n0 + j * 8 + (lane % 4) * 2;
+        e[2 * j + half] = row < p.m && col < p.n
+                              ? *reinterpret_cast<const __nv_bfloat162*>(
+                                    src + static_cast<long long>(row) * p.n + col)
+                              : __floats2bfloat162_rn(0.f, 0.f);
+      }
+  }
+}
+
+// One consumer warpgroup's epilogue of its 64 x BN accumulator (rows m0 .., columns
+// n0 ..) into `buf` and out through TMA stores issued by its first thread.
+template <int BN, int kEpi>
+__device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
+                                         const __nv_bfloat162* e, unsigned char* buf, int m0,
+                                         int n0, int bar_id) {
+  using Out = EpiOut<kEpi>;
+  constexpr int kPlane = 64 * BN * Out::kBytes;
+  const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+  if (lt == 0) bulk_wait<true>();  // the previous tile's stores have read the buffer
+  warpgroup_sync(bar_id);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int lc = j * 8 + (lane % 4) * 2, col = n0 + lc;
+    float b0 = 0.f, b1 = 0.f;
+    if constexpr (kEpi == kEpiAct || kEpi == kEpiRes) {
+      if (col < p.n) {
+        b0 = p.bias[col];
+        b1 = p.bias[col + 1];
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + lane / 4 + half * 8;
+      float v0 = d[4 * j + 2 * half], v1 = d[4 * j + 2 * half + 1];
+      if constexpr (kEpi == kEpiAct || kEpi == kEpiRes) {
+        v0 += b0;
+        v1 += b1;
+      }
+      const int o = swizzled(r, lc, Out::kBytes);
+      if constexpr (kEpi == kEpiAct) {
+        // quick_gelu: s = sigmoid(1.702 v), value v s, derivative s + 1.702 (v s) (1 - s)
+        float g[2] = {v0, v1}, dg[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float v = g[i];
+          if (p.act == kActQuickGelu) {
+            // the correctly rounded reciprocal: 1.f / x to the bit, without a division
+            const float s = __frcp_rn(1.f + expf(-1.702f * v));
+            dg[i] = s + 1.702f * (v * s) * (1.f - s);
+            g[i] = v * s;
+          } else {
+            dg[i] = gelu_grad_f(v);
+            g[i] = gelu_f(v);
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(buf + o) = __floats2bfloat162_rn(g[0], g[1]);
+        *reinterpret_cast<__nv_bfloat162*>(buf + kPlane + o) = __floats2bfloat162_rn(dg[0], dg[1]);
+      } else if constexpr (kEpi == kEpiRes) {
+        const __nv_bfloat162 r2 = e[2 * j + half];
+        v0 = to_f(from_f<bf16>(v0)) + __low2float(r2);
+        v1 = to_f(from_f<bf16>(v1)) + __high2float(r2);
+        *reinterpret_cast<__nv_bfloat162*>(buf + o) = __floats2bfloat162_rn(v0, v1);
+      } else if constexpr (kEpi == kEpiMul) {
+        const __nv_bfloat162 m2 = e[2 * j + half];
+        v0 *= __low2float(m2);
+        v1 *= __high2float(m2);
+        const int row = m0 + r;
+        if (p.aux_f32 && row < p.m && col < p.n)
+          *reinterpret_cast<float2*>(p.aux_f32 + static_cast<long long>(row) * p.n + col) =
+              make_float2(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(buf + o) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(buf + o) = make_float2(v0, v1);
+      }
+    }
+  }
+  // the generic-proxy writes, visible to the TMA (async proxy), then one thread stores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(bar_id);
+  if (lt == 0) {
+#pragma unroll
+    for (int plane = 0; plane < Out::kPlanes; ++plane)
+#pragma unroll
+      for (int bx = 0; bx < BN / Out::kBoxCols; ++bx)
+        if (n0 + bx * Out::kBoxCols < p.n)
+          tma_store_2d(plane ? &p.map_aux : &p.map_c, buf + plane * kPlane + bx * 8192,
+                       n0 + bx * Out::kBoxCols, m0);
+    bulk_commit();
+  }
+}
+
+template <int BN, int kTransB, int kEpi>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_gemm_kernel(const __grid_constant__ WgmmaParams p) {
+  using Tile = WgmmaTile<BN, kEpi>;
+  constexpr int kStages = Tile::kStages;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* sa = smem;
+  unsigned char* sb = smem + kStages * Tile::kABytes;
+  unsigned char* out = sb + kStages * Tile::kBBytes;  // one buffer per consumer warpgroup
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * Tile::kEpiBytes);
+  uint64_t* empty = full + kStages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n;
+  const int k_tiles = (p.k + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+
+  if (wg == 0) {  // producer: registers to the consumers, one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int stage = 0, phase = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * kWgBM, n0 = t % tiles_n * BN;
+        // an MN-major box wholly right of N is not loaded: its columns are never stored
+        const int b_boxes = kTransB ? min(BN / 64, (p.n - n0 + 63) / 64) : 1;
+        const unsigned bytes = Tile::kABytes + (kTransB ? b_boxes * 64 * 64 * 2 : Tile::kBBytes);
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], bytes);
+          tma_load_2d(sa + stage * Tile::kABytes, &p.map_a, &full[stage], kt * kWgBK, m0);
+          unsigned char* b = sb + stage * Tile::kBBytes;
+          if constexpr (kTransB) {
+            for (int j = 0; j < b_boxes; ++j)
+              tma_load_2d(b + j * 64 * 64 * 2, &p.map_b, &full[stage], n0 + 64 * j, kt * kWgBK);
+          } else {
+            tma_load_2d(b, &p.map_b, &full[stage], kt * kWgBK, n0);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumers: rows 64 (wg - 1) .. of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    float d[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+    __nv_bfloat162 e[BN / 4];  // res or mul at the fragment's places
+    int stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t / tiles_n * kWgBM + c * 64, n0 = t % tiles_n * BN;
+      epilogue_prefetch<BN, kEpi>(p, e, m0, n0);
+      int prev = 0;
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        mbar_wait(&full[stage], phase);
+        wgmma_fence();
+        const unsigned char* a = sa + stage * Tile::kABytes + c * 64 * 128;
+        const unsigned char* b = sb + stage * Tile::kBBytes;
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          // A: 128-byte rows, 8-row groups 1024 bytes apart; K steps of 16 = 32 bytes.
+          // B K-major likewise; MN-major: 64-wide N chunks 8 KB apart (LBO), 8-deep
+          // K groups 1024 bytes apart (SBO), K steps of 16 rows = 2048 bytes.
+          const uint64_t da = wgmma_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, 64 * 64 * 2, 1024)
+                                      : wgmma_desc(b + kk * 32, 16, 1024);
+          wgmma_k16<BN, kTransB>(d, da, db, (kt | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's group has retired: release that stage
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(d);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      epilogue<BN, kEpi>(p, d, e, out + c * Tile::kEpiBytes, m0, n0, 1 + c);
+    }
+    if (threadIdx.x % 128 == 0) bulk_wait<false>();  // the last stores are complete
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+// libcuda's cuTensorMapEncodeTiled, through the runtime's entry-point lookup (no
+// -lcuda at link).
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// The TMA map of a row-major (rows, cols) matrix of bf16 (f32: float32), boxes of
+// box_rows x 128 bytes, 128-byte swizzle, zeros outside. False where the encoder
+// refuses it.
+inline bool make_tensor_map(CUtensorMap* map, const void* base, long long rows, long long cols,
+                            int box_rows, bool f32 = false) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return false;
+  const int bytes = f32 ? 4 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elems[2] = {1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elems,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Fills the maps of A (m, k), B (K-major (n, k), or MN-major (k, n)), C (m, n) and, for
+// kEpiAct, aux (m, n), and launches `grid` persistent CTAs of the BN-wide tile.
+// Returns a cudaError_t as int.
+template <int BN, int kTransB, int kEpi>
+int launch_wgmma_gemm(WgmmaParams p, const void* a, const void* b, void* c, void* aux,
+                      int grid, cudaStream_t s) {
+  const bool ok =
+      make_tensor_map(&p.map_a, a, p.m, p.k, kWgBM) &&
+      (kTransB ? make_tensor_map(&p.map_b, b, p.k, p.n, 64)
+               : make_tensor_map(&p.map_b, b, p.n, p.k, BN)) &&
+      make_tensor_map(&p.map_c, c, p.m, p.n, 64, kEpi == kEpiF32) &&
+      (kEpi != kEpiAct || make_tensor_map(&p.map_aux, aux, p.m, p.n, 64));
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wgmma_gemm_kernel<BN, kTransB, kEpi>;
+  constexpr int smem = WgmmaTile<BN, kEpi>::kSmemBytes;
+  static bool attribute_set = false;  // once per instantiation (and process)
+  if (!attribute_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attribute_set = true;
+  }
+  kernel<<<grid, kWgThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ffvc

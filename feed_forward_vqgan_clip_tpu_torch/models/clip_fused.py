@@ -9,7 +9,13 @@ through the sublayer kernel K11 (ops/kernels/mlp_ln.MlpLn) on the block's rows
 ln_post and the projection are the module's own submodules.
 
 Off by default, as in the JAX package, where the fused tower measured slower
-than the module path at the train shapes (its module docstring).
+than the module path at the train shapes (its module docstring). Here K11's
+sublayer beats the eager one (0.137 against 0.189 ms forward, 0.135 against
+0.407 ms backward to x at 3200 x 768 x 3072 bf16, chip_smoke.py `[time]` on an
+NVIDIA H100 80GB HBM3 at 700 W), but the flagship train step is host-bound:
+the fused and module steps were level within the host's noise there (209.02
+against 212.82 ms, medians of 3, `[train]`), so the default stays the JAX
+package's.
 FFVC_FUSED_CLIP=1 turns it on for CUDA tensors, FFVC_FUSED_CLIP=0 off whatever
 the caller asks; `fused=True` runs it on any device (a CPU tensor then takes the
 kernel's plain version). Shapes outside the JAX kernel's gate

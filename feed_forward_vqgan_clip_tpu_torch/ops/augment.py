@@ -20,7 +20,13 @@ samplers by their distributions.
 warp_adjoint.py) and their plain versions on the CPU; Af, Pe, Ro, the fused
 warp and the crops ride it, the crops with a cut_size x cut_size output frame.
 `R` (an antialiased resize), `Et` and `Ts` (per-pixel sample fields) have no
-Pallas kernel in the JAX package and run in plain PyTorch here too.
+Pallas kernel in the JAX package and run in plain PyTorch here too, with
+backwards that give the same bits on every run, as the JAX package's do: `R`
+is the contraction `jax.image.resize` computes (one weight matrix per axis,
+`resize_matrix`), so its gradient is two matrix products; `grid_sample`, which
+`Et` and `Ts` sample through, differentiates its 4-tap gather by sorting the
+taps by destination pixel and summing each pixel's run in a fixed order
+(`segment_sum_sorted`) instead of torch.gather's atomic scatter-add.
 """
 
 import functools
@@ -48,34 +54,123 @@ RE_SCALE, RE2_SCALE, RE_RATIO = (0.1, 1.0), (0.9, 1.0), (0.75, 1.333)
 # ---------------------------------------------------------------- the bilinear warp
 
 
-def grid_sample(img, gx, gy, padding_mode="zeros"):
-    """Bilinear sample img (B, H, W, C) at pixel coords gx, gy (B, Ho, Wo) float32
-    -> (B, Ho, Wo, C) float32. Zeros padding zeroes each tap outside
-    [0, W-1] x [0, H-1]; border padding clamps the tap index."""
-    b, h, w, c = img.shape
+def _taps(gx, gy, h, w, padding_mode):
+    """The 4 bilinear taps of each sample point: [(xi, yi, inside or None)] in
+    the order 00, 01, 10, 11, and the weights (wx, wy), each (B, Ho, Wo, 1).
+    `inside` marks the taps in [0, W-1] x [0, H-1] under zeros padding."""
     x0 = torch.floor(gx)
     y0 = torch.floor(gy)
     wx = (gx - x0)[..., None]
     wy = (gy - y0)[..., None]
-    flat = img.reshape(b, h * w, c)
-
-    def fetch(xi, yi):
-        xc = xi.clamp(0, w - 1).long()
-        yc = yi.clamp(0, h - 1).long()
-        idx = (yc * w + xc).reshape(b, -1, 1).expand(-1, -1, c)
-        val = torch.gather(flat, 1, idx).reshape(*xi.shape, c)
+    taps = []
+    for xi, yi in ((x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1)):
+        inside = None
         if padding_mode == "zeros":
             inside = ((xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1))[..., None]
-            val = torch.where(inside, val, torch.zeros((), dtype=val.dtype, device=val.device))
-        return val
+        taps.append((xi, yi, inside))
+    return taps, wx, wy
 
-    v00 = fetch(x0, y0)
-    v01 = fetch(x0 + 1, y0)
-    v10 = fetch(x0, y0 + 1)
-    v11 = fetch(x0 + 1, y0 + 1)
-    top = v00 * (1 - wx) + v01 * wx
-    bot = v10 * (1 - wx) + v11 * wx
-    return top * (1 - wy) + bot * wy
+
+def _tap_index(xi, yi, h, w):
+    """Flat index (B, Ho, Wo) of each tap into its image's h * w pixels, clamped."""
+    return yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+
+
+def _fetch(img, xi, yi, inside):
+    b, h, w, c = img.shape
+    idx = _tap_index(xi, yi, h, w).reshape(b, -1, 1).expand(-1, -1, c)
+    val = torch.gather(img.reshape(b, h * w, c), 1, idx).reshape(*xi.shape, c)
+    if inside is not None:
+        val = torch.where(inside, val, torch.zeros((), dtype=val.dtype, device=val.device))
+    return val
+
+
+def segment_sum_sorted(keys, vals, n):
+    """out[d] = the sum of vals[i] (N, C) over the i with keys[i] == d, for d in
+    [0, n), in a fixed order: each key's entries are ordered by a stable sort
+    (their order in `keys`), and summed as a pairwise tree over that run
+    (entries 2j and 2j+1, then pairs of pairs, ...). Every step is an
+    elementwise op or an integer scan, so the bits are the same on every run and
+    on every device: no atomics. A key outside [0, n) is dropped."""
+    # one zero entry per key, first in its run: every key then has a run, and its
+    # run starts at a known place (0 + v adds nothing to the first value)
+    keys = torch.cat([torch.arange(n, device=keys.device), keys.clamp(0, n)])
+    vals = torch.cat([vals.new_zeros(n, vals.shape[1]), vals])
+    order = torch.sort(keys, stable=True).indices
+    keys, vals = keys[order], vals[order]
+    counts = torch.bincount(keys, minlength=n + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(keys.numel(), device=keys.device) - starts[keys]
+    length = counts[keys]
+    step, longest = 1, int(counts[:n].max())
+    while step < longest:
+        take = ((rank % (2 * step) == 0) & (rank + step < length))[:, None]
+        ahead = torch.cat([vals[step:], vals.new_zeros(step, vals.shape[1])])
+        vals = torch.where(take, vals + ahead, vals)
+        step *= 2
+    return vals[starts[:n]]
+
+
+class _BilinearGather(torch.autograd.Function):
+    """`grid_sample`'s 4-tap gather with a deterministic backward. The image
+    gradient is the transpose of the gather: each tap's contribution g * wy-term
+    * wx-term (zero for a tap outside the frame under zeros padding), summed
+    per pixel by `segment_sum_sorted` over the taps in row-major order of the
+    output pixel, then taps 00, 01, 10, 11; in float32 (float64 for float64
+    inputs), rounded to the image's dtype once. torch.gather's own backward adds
+    with atomics on the card, so two runs would differ in the last bits. The
+    sample coordinates' gradients are elementwise, as autograd computes them
+    through wx and wy."""
+
+    @staticmethod
+    def forward(ctx, img, gx, gy, padding_mode):
+        _, h, w, _ = img.shape
+        taps, wx, wy = _taps(gx, gy, h, w, padding_mode)
+        v00, v01, v10, v11 = (_fetch(img, *tap) for tap in taps)
+        ctx.save_for_backward(img, gx, gy)
+        ctx.padding_mode = padding_mode
+        top = v00 * (1 - wx) + v01 * wx
+        bot = v10 * (1 - wx) + v11 * wx
+        return top * (1 - wy) + bot * wy
+
+    @staticmethod
+    def backward(ctx, gout):
+        img, gx, gy = ctx.saved_tensors
+        b, h, w, c = img.shape
+        taps, wx, wy = _taps(gx, gy, h, w, ctx.padding_mode)
+        acc = torch.promote_types(torch.promote_types(img.dtype, gx.dtype), torch.float32)
+        g = gout.to(acc)
+        g_top, g_bot = g * (1 - wy), g * wy
+        gimg = dgx = dgy = None
+        if ctx.needs_input_grad[0]:
+            frame = (torch.arange(b, device=img.device) * (h * w))[:, None, None]
+            keys, vals = [], []
+            for (xi, yi, inside), ct in zip(taps, (g_top * (1 - wx), g_top * wx,
+                                                   g_bot * (1 - wx), g_bot * wx)):
+                key = _tap_index(xi, yi, h, w) + frame
+                if inside is not None:  # a tap outside the frame goes to the dropped key
+                    key = torch.where(inside[..., 0], key, b * h * w)
+                keys.append(key)
+                vals.append(ct)
+            # (B, Ho, Wo, 4): row-major in the output pixel, then the tap
+            keys = torch.stack(keys, -1).reshape(-1)
+            vals = torch.stack(vals, -2).reshape(-1, c)
+            gimg = segment_sum_sorted(keys, vals, b * h * w).reshape(b, h, w, c).to(img.dtype)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            v00, v01, v10, v11 = (_fetch(img, *tap).to(acc) for tap in taps)
+            dgx = (g_top * (v01 - v00) + g_bot * (v11 - v10)).sum(-1).to(gx.dtype)
+            top = v00 * (1 - wx) + v01 * wx
+            bot = v10 * (1 - wx) + v11 * wx
+            dgy = (g * (bot - top)).sum(-1).to(gy.dtype)
+        return gimg, dgx, dgy, None
+
+
+def grid_sample(img, gx, gy, padding_mode="zeros"):
+    """Bilinear sample img (B, H, W, C) at pixel coords gx, gy (B, Ho, Wo) float32
+    -> (B, Ho, Wo, C) float32. Zeros padding zeroes each tap outside
+    [0, W-1] x [0, H-1]; border padding clamps the tap index. Differentiable in
+    img, gx and gy, with a deterministic image gradient (`_BilinearGather`)."""
+    return _BilinearGather.apply(img, gx, gy, padding_mode)
 
 
 def _base_grid(b, h, w, device="cpu"):
@@ -400,14 +495,39 @@ def random_resized_crop(generator, x, size, scale=RE_SCALE):
     return _crop_resize(x, *re_sample(generator, b, h, w, scale, x.device), size)
 
 
+@functools.lru_cache(maxsize=64)
+def resize_matrix(in_size: int, out_size: int, dtype, device) -> torch.Tensor:
+    """(in, out) weights of a bilinear resize along one axis, as
+    `jax.image.resize` builds them (`compute_weight_mat` with the triangle
+    kernel, antialias on, scale out / in, no translation): half-pixel centres,
+    the kernel widened by in / out when it shrinks, each output's weights
+    normalised to sum 1, and zero where its sample lies outside the input. Built
+    in float32, then cast to `dtype` (bf16 rounds the weights as JAX's cast does);
+    cached per (in, out, dtype, device)."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
+    weights = (1.0 - x / kernel_scale).clamp_min(0.0)
+    total = weights.sum(0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0).to(device=device, dtype=dtype)
+
+
 def resize_bilinear(x, size: int):
     """NHWC images -> (N, size, size, C), `jax.image.resize(..., "bilinear")`
     (the `R` code, the reference's Resize module, and the in-train eval's
-    resize): half-pixel centres and a triangle filter widened by the scale when
-    it shrinks (antialiasing)."""
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
-                        align_corners=False, antialias=True)
-    return out.permute(0, 2, 3, 1)
+    resize): one `resize_matrix` contraction per axis whose size changes, in
+    x's dtype. Forward and backward are matrix products, with no atomics: the
+    same bits on every run."""
+    _, h, w, _ = x.shape
+    if h != size:
+        x = torch.einsum("bhwc,ho->bowc", x, resize_matrix(h, size, x.dtype, x.device))
+    if w != size:
+        x = torch.einsum("bhwc,wo->bhoc", x, resize_matrix(w, size, x.dtype, x.device))
+    return x
 
 
 # ---------------------------------------------------------------- colour and erasing

@@ -1,6 +1,7 @@
-"""The pre-LN MLP sublayer of the CLIP ViT blocks on the card (K11): the
-activation GEMM of csrc/mlp_ln.cu with the LayerNorm rows, the GEMM tile, the
-LayerNorm backward rows and the fixed-order sums the Mixer kernels share.
+"""The pre-LN MLP sublayer of the CLIP ViT blocks on the card (K11): the LayerNorm
+rows and four GEMMs with fused epilogues, in bf16 on the Hopper GEMM of
+csrc/wgmma_gemm.cuh (TMA, wgmma; entry point `ffvc_wgmma_gemm` of csrc/mlp_ln.cu),
+with the LayerNorm backward rows and the fixed-order sums the Mixer kernels share.
 
 Replaces feed_forward_vqgan_clip_tpu/ops/pallas/mlp_ln.py: `mlp_ln` its
 `_fwd_kernel` (`_fwd_res`), `mlp_ln_bwd` its `_bwd_kernel` (`_bwd`), and `MlpLn`
@@ -10,28 +11,34 @@ dtype, following the JAX kernels:
     xhat, inv = (x - mean) * inv, LN statistics in f32 (var = E[x^2] - E[x]^2
                 clamped at 0, eps 1e-5), `_ln_stats`
     xn  = round(xhat * scale + bias)
-    h   = xn W1^T + b1                              f32 accumulation
+    h   = xn W1^T + b1                              f32 accumulation   (fc1)
     g, dg = act(h), act'(h), both rounded            quick_gelu or exact gelu
-    out = x + round(g W2^T + b2)
+    out = x + round(g W2^T + b2)                                        (fc2)
 
 and the backward, the statistics recomputed from the saved x:
 
-    da  = round((dy W2) * dg);  dxn = da W1;  dx = dy + LN'(dxn)
+    da  = round((dy W2) * dg)                                           (dgh)
+    dxn = da W1                                                         (dxn)
+    dx  = dy + LN'(dxn)
     dW1 = da^T xn, dW2 = dy^T g, db1 = sum(dy W2 * dg), db2 = sum(dy),
     dscale = sum(dxn * xhat), dbias = sum(dxn)
 
-Weights keep nn.Linear's (out, in) layout (the GEMM reads them K-major or
-N-major as they lie), so no transposed copy is made per step. The backward
-recomputes the LN statistics from the saved x (as the TPU kernel does; no
-`inv` is saved). The parameter grads are computed only where asked for: the
-frozen CLIP tower of the train loss needs dx alone (two GEMMs and one row
-kernel).
+Weights keep nn.Linear's (out, in) layout: fc1 and fc2 read them K-major, dgh
+and dxn MN-major (wgmma's transpose mode), so no transposed copy is made per
+step. In bf16 fc1, fc2, dgh and dxn run on the wgmma GEMM, whose tile width
+`wgmma_plan` picks per GEMM; the float32 route and the parameter-grad GEMMs (dW1,
+dW2: an M-major A) run on the WMMA tile of csrc/mixer_tile.cuh. The backward
+recomputes the LN statistics from the saved x (as the TPU kernel does; no `inv`
+is saved). The parameter grads are computed only where asked for: the frozen
+CLIP tower of the train loss needs dx alone (two GEMMs and one row kernel), and
+dx is the same bits either way.
 
 Every wrapper launches its kernels for a CUDA tensor, runs its plain PyTorch
 version (the `*_plain` function beside it) only for a CPU tensor, and counts its
 launches on `.launches`. `mlp_ln_supported` is the JAX package's shape gate,
-kept so that both packages route the same shapes through the sublayer kernel;
-the CUDA kernels themselves take any shape.
+kept so that both packages route the same shapes through the sublayer kernel.
+The float32 kernels take any shape; the bf16 ones need D and E multiples of 8
+(TMA's 16-byte row strides), which every shape of the gate has.
 """
 
 from typing import NamedTuple, Optional
@@ -50,8 +57,12 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     split_k_plan,
 )
 
-ACTIVATIONS = {"gelu": 0, "quick_gelu": 1}  # csrc/mixer_tile.cuh Activation
+ACTIVATIONS = {"gelu": 0, "quick_gelu": 1}  # csrc/common.cuh Activation
 _ROW_TILES = (512, 448, 384, 320, 256, 192, 128, 64, 32, 16)
+# csrc/wgmma_gemm.cuh: output rows of a tile, the tile widths compiled, the epilogues
+WGMMA_ROWS = 128
+WGMMA_WIDTHS = (128, 192)
+_EPILOGUES = {"act": 0, "res": 1, "mul": 2, "f32": 3}  # WgmmaEpilogue
 
 
 def mlp_ln_supported(n: int, d: int, e: int) -> bool:
@@ -64,6 +75,22 @@ def mlp_ln_supported(n: int, d: int, e: int) -> bool:
         return False
     vmem = 2 * d * e * 2 + 3 * r * d * 4 + 3 * r * e * 4 + d * e * 4 * 2
     return vmem <= 100 * 1024 * 1024
+
+
+def wgmma_plan(m: int, n: int, sms: int):
+    """(tile width, persistent CTAs) of the wgmma GEMM for an (m, n) output on `sms`
+    SMs: the width of WGMMA_WIDTHS whose tiles take the least time in whole waves,
+    waves x width (a tile's time grows with its width), the narrower on a tie. At
+    the train loss's 3200 rows: N = 3072 takes 128 (600 tiles, 5 waves on 132
+    SMs: 5 x 128 against 4 x 192), N = 768 takes 192 (100 tiles, one wave: 1 x 192
+    against 2 x 128)."""
+    best = None
+    for bn in WGMMA_WIDTHS:
+        tiles = -(-m // WGMMA_ROWS) * -(-n // bn)
+        cost = -(-tiles // sms) * bn
+        if best is None or cost < best[0]:
+            best = (cost, bn, min(tiles, sms))
+    return best[1], best[2]
 
 
 class MlpLnWeights(NamedTuple):
@@ -150,6 +177,26 @@ def _check(x, w: MlpLnWeights):
     for name, shape in shapes.items():
         want = x.dtype if name in MATRICES else torch.float32
         _check_like(f"weight {name}", getattr(w, name), shape, want, x.device)
+    if x.dtype == torch.bfloat16 and (d % 8 or e % 8):
+        raise ValueError(f"the bf16 kernels need D and E multiples of 8 (TMA's 16-byte row "
+                         f"strides), got D={d}, E={e}")
+
+
+def _wgmma(k, a, b, b_mn_major, c, m, n, kdim, epi, *, bias=None, res=None, mul=None, aux=None,
+           act=0, bn=None):
+    """One bf16 GEMM of csrc/wgmma_gemm.cuh: c (m, n) = a (m, kdim) . b, b K-major (n,
+    kdim) or MN-major (kdim, n), with epilogue `epi` of _EPILOGUES; the tile width
+    `wgmma_plan`'s, or `bn` of WGMMA_WIDTHS where given."""
+    for t in (a, b, c, res, mul, aux):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the wgmma GEMM's operands need 16-byte-aligned bases (TMA)")
+    planned, grid = wgmma_plan(m, n, k.sms)
+    if bn is not None and bn != planned:
+        grid = min(-(-m // WGMMA_ROWS) * -(-n // bn), k.sms)
+    bn = bn or planned
+    build.check(k.lib.ffvc_wgmma_gemm(
+        a.data_ptr(), b.data_ptr(), b_mn_major, c.data_ptr(), m, n, kdim, _EPILOGUES[epi],
+        _ptr(bias), _ptr(res), _ptr(mul), _ptr(aux), act, bn, grid, k.stream), "ffvc_wgmma_gemm")
 
 
 def mlp_ln(x, w: MlpLnWeights, act="quick_gelu"):
@@ -171,15 +218,19 @@ def mlp_ln(x, w: MlpLnWeights, act="quick_gelu"):
         xn = torch.empty_like(x)
         k.ln(x, w.ln_w, w.ln_b, xn, n, d, centered=1)
         g, dg = k.empty(n, e), k.empty(n, e)
-        splits, k_per_split = split_k_plan(n, e, d, 1, x.dtype, k.sms)
-        work = k.empty(splits * n * e, dtype=torch.float32) if splits > 1 else None
-        build.check(k.lib.ffvc_mlp_gemm(
-            xn.data_ptr(), d, w.w1.data_ptr(), d, g.data_ptr(), e, w.b1.data_ptr(),
-            ACTIVATIONS[act], dg.data_ptr(), n, e, d, splits, k_per_split, _ptr(work), k.code,
-            k.stream), "ffvc_mlp_gemm")
         out = torch.empty_like(x)
-        k.gemm(g, e, 0, w.w2, e, 0, out, d, 0, n, d, e, 1, b_kmajor=1, res=x, ldr=d, bias=w.b2,
-               bias_mode=2)
+        if x.dtype == torch.bfloat16:
+            _wgmma(k, xn, w.w1, 0, g, n, e, d, "act", bias=w.b1, aux=dg, act=ACTIVATIONS[act])
+            _wgmma(k, g, w.w2, 0, out, n, d, e, "res", bias=w.b2, res=x)
+        else:
+            splits, k_per_split = split_k_plan(n, e, d, 1, x.dtype, k.sms)
+            work = k.empty(splits * n * e, dtype=torch.float32) if splits > 1 else None
+            build.check(k.lib.ffvc_mlp_gemm(
+                xn.data_ptr(), d, w.w1.data_ptr(), d, g.data_ptr(), e, w.b1.data_ptr(),
+                ACTIVATIONS[act], dg.data_ptr(), n, e, d, splits, k_per_split, _ptr(work),
+                k.code, k.stream), "ffvc_mlp_gemm")
+            k.gemm(g, e, 0, w.w2, e, 0, out, d, 0, n, d, e, 1, b_kmajor=1, res=x, ldr=d,
+                   bias=w.b2, bias_mode=2)
     mlp_ln.launches += 1
     return out, g, dg
 
@@ -205,9 +256,13 @@ def mlp_ln_bwd(dy, x, g, dg, w: MlpLnWeights, params=True):
         # da = (dy W2) * act', rounded; its f32 value feeds db1
         da = k.empty(n, e)
         daf = k.empty(n, e, dtype=torch.float32) if params else None
-        k.gemm(dyd, d, 0, w.w2, e, 0, da, e, 0, n, e, d, 1, mul=dg, out_f32=daf)
         dxn = k.empty(n, d, dtype=torch.float32)
-        k.gemm(da, e, 0, w.w1, d, 0, dxn, d, 0, n, d, e, 1, c_f32=1)
+        if dt == torch.bfloat16:  # W2 (D, E) as (K=D, N=E) and W1 (E, D) as (K=E, N=D)
+            _wgmma(k, dyd, w.w2, 1, da, n, e, d, "mul", mul=dg, aux=daf)
+            _wgmma(k, da, w.w1, 1, dxn, n, d, e, "f32")
+        else:
+            k.gemm(dyd, d, 0, w.w2, e, 0, da, e, 0, n, e, d, 1, mul=dg, out_f32=daf)
+            k.gemm(da, e, 0, w.w1, d, 0, dxn, d, 0, n, d, e, 1, c_f32=1)
         # dx = dy + LN'(dxn), the statistics recomputed from x; prod = dxn * xhat
         dx, prod = torch.empty_like(dxn), torch.empty_like(dxn)
         k.ln_bwd(dxn, x, None, w.ln_w, dy, dx, prod, n, d)

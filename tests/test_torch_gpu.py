@@ -14,10 +14,10 @@ within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
 kernels f32 within 1e-4 and bf16 within 3e-2 of max |plain| (the same taps and
 weights, sums in another order, one bf16 rounding), at equal and at different
 input and output frames; the tiny slice, f32, within 1e-3 of the CPU module
-path. The pools' backward and the tiny trainer's steps must repeat bit for bit;
-the plain-PyTorch backwards of Et, Ts and R (no kernel of their own) within
-1e-5 of max |grad| between two runs, and whether they are bitwise equal is
-printed (run with -rP to read it).
+path. The pools' backward, the tiny trainer's steps and the plain-PyTorch
+backwards of Et, Ts and R (no kernel of their own: a sorted fixed-order segment
+sum and weight-matrix products) must repeat bit for bit. The dot-product test of
+K9 and K10 in float32: |<K9 x, g> - <x, K10 g>| within 1e-5 of sum |terms|.
 """
 
 import copy
@@ -300,6 +300,38 @@ def test_warp_kernels_match_plain(cuda, draw, mode, dtype):
     assert torch.equal(grad, again)
 
 
+def _af_extremes(h, w):
+    """Af maps at the ends of the code's ranges (rotation +-15 degrees,
+    translation +-10% on both axes, every sign combination), then a draw pushed
+    onto two edges at once: the border strips are at their longest."""
+    combos = [(a, x, y) for a in (15.0, -15.0) for x in (0.1, -0.1) for y in (0.1, -0.1)]
+    combos.append((15.0, 0.1, 0.1))
+    ang, tx, ty = (torch.tensor([v[i] for v in combos]) for i in range(3))
+    return augment.af_matrices(ang, tx * w, ty * h, h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_warp_adjoint_at_edge_heavy_af_draws(cuda, dtype):
+    """K10 in border mode at Af's extreme draws (224 px: full 16 x 16 tiles and
+    long edge strips) against its plain version; two runs bitwise equal; in
+    float32 <K9 x, g> = <x, K10 g>."""
+    gen = torch.Generator().manual_seed(3)
+    h = w = 224
+    m = _af_extremes(h, w).to(cuda)
+    b = m.shape[0]
+    img = torch.rand(b, h, w, 3, generator=gen).to(cuda, dtype)
+    g = torch.randn(b, h, w, 3, generator=gen).to(cuda, dtype)
+    grad = warp_adjoint(g, m, "border")
+    again = warp_adjoint(g, m, "border")
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    assert _rel(grad, warp_adjoint_plain(g, m, "border")) <= tol
+    assert torch.equal(grad, again)
+    if dtype == torch.float32:
+        terms = warp_forward(img, m, "border").double() * g.double()
+        dot = (terms.sum() - (img.double() * grad.double()).sum()).abs()
+        assert dot.item() <= 1e-5 * terms.abs().sum().item()
+
+
 @pytest.mark.parametrize("c", [1, 5])
 def test_warp_kernels_take_any_channel_count(cuda, c):
     """K10 sums channels in chunks of 4: one partial chunk, and a full one plus a
@@ -374,10 +406,10 @@ def test_pool_backward_repeats_bitwise(cuda, dtype):
 
 @pytest.mark.parametrize("code", ["Et", "Ts", "R"])
 def test_plain_code_backwards_between_runs(cuda, code):
-    """Et and Ts (a gather whose backward is a scatter-add) and R (F.interpolate
-    with antialias, whose CUDA backward adds with atomics) at fixed draws, 64
-    crops of 224 px in f32: the image gradient of two runs within 1e-5 of its
-    max; whether the two are bitwise equal is printed."""
+    """Et and Ts (the gather's backward: a stable sort of the taps by pixel and a
+    fixed-order sum of each pixel's run) and R (products with jax.image.resize's
+    weight matrices) at fixed draws, 64 crops of 224 px in f32: two runs of the
+    image gradient bitwise equal, also under torch.use_deterministic_algorithms."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.rand(64, 256 if code == "R" else 224, 256 if code == "R" else 224, 3,
                    generator=gen, device=cuda).requires_grad_()
@@ -391,9 +423,14 @@ def test_plain_code_backwards_between_runs(cuda, code):
         fn = lambda v: augment.resize_bilinear(v, 224)  # noqa: E731
     g = torch.randn(64, 224, 224, 3, generator=gen, device=cuda)
     first, second = (torch.autograd.grad(fn(x), x, g)[0] for _ in range(2))
+    torch.use_deterministic_algorithms(True)
+    try:
+        third = torch.autograd.grad(fn(x), x, g)[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
     print(f"{code}: two backward runs bitwise equal: {torch.equal(first, second)}, max |diff| "
           f"{(first - second).abs().max().item():.3e}")
-    assert _rel(first, second) <= 1e-5
+    assert torch.equal(first, second) and torch.equal(first, third)
 
 
 TINY_VQ = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
@@ -488,6 +525,32 @@ def test_mlp_ln_kernels_match_plain(cuda, dtype, n, d, e, act):
     assert (mlp_ln.launches, mlp_ln_bwd.launches) == (counts[0] + 1, counts[1] + 3)
 
 
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("n", [100, 3200], ids=["rows_100", "rows_3200"])
+def test_mlp_ln_wgmma_gemm_matches_plain(cuda, n, act):
+    """K11's bf16 GEMMs (csrc/wgmma_gemm.cuh) at ViT-B/32's widths: rows not a
+    multiple of the 128-row tile (100 = 2 crops x 50 tokens) and the train loss's
+    3200, per-column biases and a residual far from symmetric; the forward's
+    three outputs and dx against the plain versions, dx bitwise between two runs
+    and equal with the parameter grads asked for."""
+    rng = np.random.default_rng(n)
+    d, e = 768, 3072
+    w = _mlp_weights(d, e, torch.bfloat16, rng, cuda)
+    w = w._replace(b1=w.b1 + torch.linspace(-1, 1, e, device=cuda),
+                   b2=w.b2 + torch.linspace(0, 2, d, device=cuda))
+    x = torch.from_numpy((rng.normal(size=(n, d)) + np.arange(n)[:, None] / n).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    dy = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    out, g, dg = mlp_ln(x, w, act)
+    for got, ref in zip((out, g, dg), mlp_ln_plain(x, w, act)):
+        assert _rel(got, ref) <= 3e-2
+    only = mlp_ln_bwd(dy, x, g, dg, w, params=False)
+    again = mlp_ln_bwd(dy, x, g, dg, w, params=False)
+    full = mlp_ln_bwd(dy, x, g, dg, w, params=True)
+    assert _rel(only.dx, mlp_ln_bwd_plain(dy, x, g, dg, w, params=False).dx) <= 3e-2
+    assert torch.equal(only.dx, again.dx) and torch.equal(only.dx, full.dx)
+
+
 def test_mlp_ln_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     rng = np.random.default_rng(0)
     w = _mlp_weights(128, 512, torch.float32, rng, cuda)
@@ -499,6 +562,9 @@ def test_mlp_ln_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         mlp_ln(torch.zeros(16, 128, device=cuda), w, "relu")
     with pytest.raises(ValueError):
         mlp_ln(torch.zeros(16, 128, device=cuda), w._replace(w1=w.w1.to(torch.bfloat16)))
+    odd = _mlp_weights(100, 400, torch.bfloat16, rng, cuda)  # TMA needs widths % 8
+    with pytest.raises(ValueError):
+        mlp_ln(torch.zeros(16, 100, dtype=torch.bfloat16, device=cuda), odd)
 
 
 def test_fused_clip_tower_on_card_matches_cpu(cuda):
