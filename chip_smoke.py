@@ -9,15 +9,19 @@
 1. [device] Needs torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi), torch and CUDA versions, and whether triton imports.
 2. [build] Compiles csrc/*.cu with nvcc for sm_90a (ops/kernels/build.py);
-   counts the HGMMA (wgmma) instructions of K11's GEMM kernels in the
-   library's SASS (cuobjdump, where the toolkit has it).
+   counts the HGMMA (wgmma) instructions of each instantiation of the Hopper
+   GEMM (csrc/wgmma_gemm.cuh) in the library's SASS (cuobjdump, where the
+   toolkit has it), with the GEMMs of K11 and of the Mixer kernels that
+   launch it; fails if one the paths launch holds none.
 3. [vq] VQ kernel against its plain version on the card (stated near-tie rule).
 4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
-   and bf16.
+   and bf16, with its GEMMs' routes (mixer_block.mixer_gemm_route) and as many
+   wgmma launches as the routes name.
 5. [mixer-train] The train kernels (forward with residuals, channel backward,
    token backward) against their plain versions, float32 and bf16; the train
    forward's output equal to the inference block's; two backward runs bitwise
-   equal.
+   equal; the wgmma GEMMs each call launched (the wrappers' `wgmma_launches`)
+   equal to its routes', 4 in K6 and 4 in K7 at the flagship's B=8 in bf16.
 6. [warp] The warp forward (K9) and its adjoint (K10) against their plain
    versions at the train step's shape (64 crops of 224x224x3 with real Af and Pe
    draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
@@ -43,6 +47,9 @@
    square (224 -> 224) and rectangular (256 -> 224, Re draws);
    K4 beside 32 x K2 and 32 x K5 at the same batch; K11 beside the eager
    module sublayer (ln_2 -> mlp) forward and backward, each with its TFLOP/s;
+   `[time] Mixer GEMM`: each GEMM of K6 and K7 at B=8 and of K2 at B=1, 4, 16
+   alone, on the wgmma GEMM at each tile width (the planned one marked), on the
+   WMMA tile, and as one bf16 torch.matmul (cuBLAS, a yardstick on no path);
    K10 on the Af, Pe and rectangular draws beside grid_sample's input gradient.
 10. [reference] The tiny prompt->image slice, card against CPU module path;
    the tiny serving Predictor, card (K4 at 2x2, K2 at 3x3) against CPU.
@@ -94,6 +101,7 @@ import contextlib
 import gzip
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -113,6 +121,8 @@ HORIZON_END_DISP = [[20.89, 41.26], [-32.96, 4.26], [-40.97, -30.36], [0.75, -2.
 VQ_MIN_AGREEMENT = 0.999
 REQUEST_BATCHES = (1, 4, 16)
 STREAM_DEPTH = 32  # the flagship Mixer's blocks
+FORWARD_GEMMS = ("g1", "r", "g3", "out")  # K2, K5, K6 (mixer_block.MIXER_GEMMS)
+CHANNEL_BWD_GEMMS = ("da3", "drn", "dw2", "dw1")  # K7
 STREAM_BATCHES = (1, 4)
 SERVE_GRIDS = ("1x1", "2x2", "4x4")
 SERVE_REQUESTS = 3
@@ -126,6 +136,14 @@ CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per blo
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
 AB_ROUNDS = 5  # --step-ab: timed steps of each variant
+# csrc/wgmma_gemm.cuh's compiled (A M-major, B MN-major, epilogue) instantiations and the
+# GEMMs that launch them (K11: fc1, fc2, dgh, dxn; the Mixer block: MIXER_GEMMS)
+WGMMA_EPILOGUES = ("act", "res", "mul", "f32", "act_only")
+WGMMA_USERS = {
+    (0, 0, 0): "K11 fc1, K6 g3", (0, 0, 4): "K2/K5 g3", (0, 0, 1): "K11 fc2, K2/K5/K6 out",
+    (0, 1, 0): "K6 g1", (0, 1, 4): "K2/K5 g1", (0, 1, 1): "K2/K5/K6 r",
+    (0, 1, 2): "K11 dgh, K7 da3", (0, 1, 3): "K11 dxn, K7 drn", (1, 1, 3): "K7 dW2, K7 dW1",
+}
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -157,6 +175,25 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Mean milliseconds of fn's launches replayed from one CUDA graph, CUDA
+    events: the device's time without the host's enqueue (Python, ctypes, tensor
+    maps), which the eager launches of the Mixer kernels are now as long as. fn
+    runs once eagerly first (builds, attributes, the caching allocator); it must
+    launch on the current stream as it finds it at each call (the kernel
+    wrappers build their launcher per call), or its launches miss the graph."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters)
+    del graph
+    return ms
 
 
 def paired_ms(kernel_fn, plain_fn):
@@ -212,10 +249,27 @@ def phase_build():
                 counts[kernel] = counts.get(kernel, 0) + 1
         wgmma = {k: n for k, n in counts.items() if "wgmma_gemm_kernel" in k}
         log(f"[build] HGMMA (wgmma) instructions in the SASS: {sum(wgmma.values())} in "
-            f"{len(wgmma)} wgmma_gemm_kernel instantiations (K11), "
+            f"{len(wgmma)} wgmma_gemm_kernel instantiations, "
             f"{sum(counts.values()) - sum(wgmma.values())} elsewhere")
-        if not wgmma:
-            raise AssertionError("K11's GEMM kernels hold no HGMMA instruction")
+        users, found = {}, set()
+        for name, n in sorted(wgmma.items()):
+            # _ZN4ffvc17wgmma_gemm_kernelILi<BN>ELi<A M-major>ELi<B MN-major>ELi<epilogue>
+            # ELb<row bias>E...
+            bn, ta, tb, epi, rows = (int(v) for v in re.search(
+                r"ILi(\d+)ELi(\d)ELi(\d)ELi(\d)ELb(\d)E", name).groups())
+            who = WGMMA_USERS.get((ta, tb, epi), "")
+            log(f"[build]   wgmma_gemm_kernel<{bn}, A {'M' if ta else 'K'}-major, B "
+                f"{'MN' if tb else 'K'}-major, {WGMMA_EPILOGUES[epi]}"
+                f"{', row bias' if rows else ''}>: {n} HGMMA ({who})")
+            if n:
+                found.add((ta, tb, epi))
+                for u in who.split(", "):
+                    users[u] = users.get(u, 0) + n
+        log(f"[build] HGMMA by user: {users}")
+        missing = set(WGMMA_USERS) - found
+        if missing:
+            raise AssertionError(f"wgmma GEMM instantiations without HGMMA instructions: "
+                                 f"{[WGMMA_USERS[k] for k in missing]}")
     else:
         log("[build] cuobjdump not found: the SASS is not inspected")
 
@@ -299,6 +353,7 @@ def phase_mixer(gen):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block,
         mixer_block_plain,
+        mixer_gemm_routes,
     )
 
     worst_bf16 = 0.0
@@ -306,13 +361,20 @@ def phase_mixer(gen):
         for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
             w = random_block_weights(t, d, dtype, gen)
             x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
+            before = mixer_block.wgmma_launches
             got = mixer_block(x, w)
             torch.cuda.synchronize()
+            routes = mixer_gemm_routes(t, d, 4 * t, 4 * d, dtype)
+            want = sum(routes[n] == "wgmma" for n in FORWARD_GEMMS)
+            if mixer_block.wgmma_launches - before != want:
+                raise AssertionError(f"mixer_block launched {mixer_block.wgmma_launches - before} "
+                                     f"wgmma GEMMs at {(b, t, d)} {dtype}, its routes {want}")
             ref = mixer_block_plain(x, w)
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             log(f"[mixer] B={b} T={t} D={d} {str(dtype)[6:]}: max abs err {err:.3e}, "
-                f"max|ref| {scale:.3e}, ratio {err / scale:.3e} (ceiling {tol:g})")
+                f"max|ref| {scale:.3e}, ratio {err / scale:.3e} (ceiling {tol:g}); GEMM routes "
+                f"{[routes[n] for n in FORWARD_GEMMS]}")
             if not (torch.isfinite(got).all().item() and err <= tol * scale):
                 raise AssertionError(f"mixer block kernel disagrees at {(b, t, d)} {dtype}")
             if dtype == torch.bfloat16 and (b, t, d) == (4, 256, 1024):
@@ -332,6 +394,7 @@ def phase_mixer_train(gen):
         mixer_block_fwd_res_plain,
         mixer_channel_bwd,
         mixer_channel_bwd_plain,
+        mixer_gemm_routes,
         mixer_token_bwd,
         mixer_token_bwd_plain,
     )
@@ -342,11 +405,23 @@ def phase_mixer_train(gen):
             w = random_block_weights(t, d, dtype, gen)
             x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
             dout = torch.randn(b, t, d, generator=gen, device="cuda")
+            wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches)
             out, res = mixer_block_fwd_res(x, w)
+            ch = mixer_channel_bwd(dout, res, w)
+            launched = (mixer_block_fwd_res.wgmma_launches - wg[0],
+                        mixer_channel_bwd.wgmma_launches - wg[1])
+            routes = mixer_gemm_routes(t, d, 4 * t, 4 * d, dtype)
+            want = (sum(routes[n] == "wgmma" for n in FORWARD_GEMMS),
+                    sum(routes[n] == "wgmma" for n in CHANNEL_BWD_GEMMS))
+            if (b, t, d, dtype) == (8, 256, 1024, torch.bfloat16) and want != (4, 4):
+                raise AssertionError(f"the flagship's K6 / K7 GEMM routes at B=8: {routes}")
+            log(f"[mixer-train] B={b} T={t} D={d} {str(dtype)[6:]}: wgmma GEMMs launched by K6 "
+                f"{launched[0]}, by K7 {launched[1]} (routes {routes})")
+            if launched != want:
+                raise AssertionError(f"wgmma launches {launched}, the routes {want}")
             if not torch.equal(out, mixer_block(x, w)):
                 raise AssertionError(f"train forward output differs from mixer_block at "
                                      f"{(b, t, d)} {dtype}")
-            ch = mixer_channel_bwd(dout, res, w)
             tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
             ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
             pairs = {
@@ -715,11 +790,16 @@ def phase_timing(gen, smi):
         nearest_codebook_indices_plain,
     )
 
-    def record(label, k_ms, p_ms, bnd, flops=None):
+    def record(label, k_ms, p_ms, bnd, flops=None, g_ms=None):
         rate = f" ({flops / k_ms / 1e9:.1f} TFLOP/s)" if flops else ""
-        log(f"[time] {label}: kernel {k_ms:.4f} ms{rate}, plain {p_ms:.4f} ms, bound "
+        graph = ""
+        if g_ms is not None:
+            graph = (f", CUDA-graph replay {g_ms:.4f} ms"
+                     + (f" ({flops / g_ms / 1e9:.1f} TFLOP/s)" if flops else ""))
+        log(f"[time] {label}: kernel {k_ms:.4f} ms{rate}{graph}, plain {p_ms:.4f} ms, bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
-        return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        return row if g_ms is None else {**row, "graph_ms": g_ms}
 
     times = {}
     cb = torch.rand(16384, 256, generator=gen, device="cuda") * (2.0 / 16384)
@@ -740,7 +820,7 @@ def phase_timing(gen, smi):
         flops = b * 2 * t * d * (2 * et + 2 * ec)
         bnd = bound([x, *w], [x], flops, "bf16")
         row = record(f"mixer block B={b} T={t} D={d} bf16", k_ms, p_ms, bnd,
-                     flops)
+                     flops, graph_ms(lambda: mixer_block(x, w)))
         if b == 4:
             times["mixer_block"] = row
     b = 8
@@ -768,7 +848,9 @@ def phase_timing(gen, smi):
     }
     for name, (kernel_fn, plain_fn, bnd, flops) in cases.items():
         k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
-        times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops)
+        times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops,
+                             graph_ms(kernel_fn))
+    mixer_gemm_timing(gen, smi)
     times.update(stream_timing(gen, smi, record))
     times.update(warp_timing(gen, smi, record))
     times.update(mlp_ln_timing(gen, smi, record))
@@ -811,11 +893,13 @@ def stream_timing(gen, smi, record):
 
         k_ms, p_ms = paired_ms(lambda: mixer_stream(x, sp), lambda: mixer_stream_plain(x, sp))
         k5_ms, k2_ms = paired_ms(k5_stack, k2_stack)
+        k2_graph = graph_ms(k2_stack, iters=5)
         flops = b * 2 * t * d * (2 * et + 2 * ec) * STREAM_DEPTH
         row = record(f"mixer_stream (K4) B={b} T={t} D={d} L={STREAM_DEPTH} bf16", k_ms, p_ms,
                      bound([x, *sp], [x], flops, "bf16"), flops)
         log(f"[time] mixer stack B={b} bf16: K4 (one launch) {k_ms:.4f} ms, 32 x K2 {k2_ms:.4f} "
-            f"ms, 32 x K5 {k5_ms:.4f} ms ({smi})")
+            f"ms, 32 x K5 {k5_ms:.4f} ms, 32 x K2 replayed from one CUDA graph {k2_graph:.4f} ms "
+            f"({smi})")
         if b == 4:
             rows["mixer_stream"] = row
     x = torch.randn(4, t, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -824,7 +908,8 @@ def stream_timing(gen, smi, record):
                            lambda: mixer_block_stacked_plain(x, sp, 0))
     views = [getattr(sp, name)[0] for name in StackedMixerWeights._fields]
     rows["mixer_block_stacked"] = record(f"mixer_block_stacked (K5) B=4 T={t} D={d} bf16", k_ms,
-                                         p_ms, bound([x, *views], [x], flops, "bf16"), flops)
+                                         p_ms, bound([x, *views], [x], flops, "bf16"), flops,
+                                         graph_ms(lambda: mixer_block_stacked(x, sp, 0)))
     return rows
 
 
@@ -995,32 +1080,122 @@ def gemm_widths(x, dy, g, dg, w, smi):
     marked."""
     import torch
 
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mlp_ln as k11
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import _Launcher
 
     n, d = x.shape
     e = w.w1.shape[0]
-    k = k11._Launcher(x.device, x.dtype)
+    k = _Launcher(x.device, x.dtype)
     g2, dg2, da = (torch.empty_like(g) for _ in range(3))
     out, dxn = torch.empty_like(x), torch.empty(n, d, device=x.device)
     dyd = dy.to(x.dtype)
     gemms = (  # name, (M, N, K), launch at a width
-        ("fc1", (n, e, d), lambda bn: k11._wgmma(k, x, w.w1, 0, g2, n, e, d, "act", bias=w.b1,
+        ("fc1", (n, e, d), lambda bn: wgmma.gemm(k, x, w.w1, g2, n, e, d, "act", bias=w.b1,
                                                  aux=dg2, act=1, bn=bn)),
-        ("fc2", (n, d, e), lambda bn: k11._wgmma(k, g, w.w2, 0, out, n, d, e, "res", bias=w.b2,
+        ("fc2", (n, d, e), lambda bn: wgmma.gemm(k, g, w.w2, out, n, d, e, "res", bias=w.b2,
                                                  res=x, bn=bn)),
-        ("dgh", (n, e, d), lambda bn: k11._wgmma(k, dyd, w.w2, 1, da, n, e, d, "mul", mul=dg,
-                                                 bn=bn)),
-        ("dxn", (n, d, e), lambda bn: k11._wgmma(k, da, w.w1, 1, dxn, n, d, e, "f32", bn=bn)),
+        ("dgh", (n, e, d), lambda bn: wgmma.gemm(k, dyd, w.w2, da, n, e, d, "mul",
+                                                 b_mn_major=True, mul=dg, bn=bn)),
+        ("dxn", (n, d, e), lambda bn: wgmma.gemm(k, da, w.w1, dxn, n, d, e, "f32",
+                                                 b_mn_major=True, bn=bn)),
     )
     for name, (mm, nn, kk), launch in gemms:
-        pick = k11.wgmma_plan(mm, nn, k.sms)[0]
+        pick = wgmma.wgmma_plan(mm, nn, k.sms)[0]
         cells = []
-        for bn in k11.WGMMA_WIDTHS:
+        for bn in wgmma.WGMMA_WIDTHS:
             ms = cuda_ms(lambda: launch(bn))
             cells.append(f"{bn}: {ms:.4f} ms {2 * mm * nn * kk / ms / 1e9:.1f} TFLOP/s"
                          f"{' (planned)' if bn == pick else ''}")
         log(f"[time] K11 GEMM {name} M={mm} N={nn} K={kk} by tile width: {'; '.join(cells)} "
             f"({smi})")
+
+
+def mixer_gemm_timing(gen, smi):
+    """The Mixer block's GEMMs alone at the flagship widths (T=256, D=1024, Et=1024,
+    Ec=4096), bf16, CUDA events: K6's four and K7's four at B=8 and K2's four at
+    B=1, 4 and 16, each on the wgmma GEMM at every compiled tile width (the
+    planner's pick marked), on the WMMA tile of csrc/mixer_tile.cuh (split-K
+    where its plan splits), and as one torch.matmul of the same bf16 product
+    (cuBLAS: a yardstick only, on no path), with TFLOP/s; the route's pick marked.
+    Device times: each launch replayed from a CUDA graph (`graph_ms`).
+    -> {(chain, name, B): {"wgmma": ms at the planned width, "wmma": ms}}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        _Launcher,
+        mixer_gemm_route,
+    )
+
+    t, d, et, ec = 256, 1024, 1024, 4096
+    dt = torch.bfloat16
+
+    def launcher():  # per call: it takes the current stream, the graph's while capturing
+        return _Launcher(torch.device("cuda"), dt)
+
+    k = launcher()
+    w = random_block_weights(t, d, dt, gen)
+
+    def act(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(dt)
+
+    def empty(*shape, dtype=dt):
+        return torch.empty(*shape, dtype=dtype, device="cuda")
+
+    rows = {}
+    for chain, b in (("K6", 8), ("K7", 8), ("K2", 1), ("K2", 4), ("K2", 16)):
+        bt = b * t
+        xn, x, g1, r = act(b, t, d), act(b, t, d), act(b, et, d), act(b, t, d)
+        rn, g3, dout, da3 = act(bt, d), act(bt, ec), act(bt, d), act(bt, ec, std=0.1)
+        save = chain == "K6"
+        a_ = "act" if save else "act_only"
+        aux = (lambda *s: empty(*s)) if save else (lambda *s: None)
+        if chain == "K7":
+            gemms = (  # name, a, b, c, (m, n, k), wgmma kwargs, cuBLAS product
+                ("da3", dout, w.w2, empty(bt, ec), (bt, ec, d), "mul",
+                 dict(b_mn_major=True, mul=g3, aux=empty(bt, ec, dtype=torch.float32)),
+                 lambda: dout @ w.w2),
+                ("drn", da3, w.w1, empty(bt, d, dtype=torch.float32), (bt, d, ec), "f32",
+                 dict(b_mn_major=True), lambda: da3 @ w.w1),
+                ("dw2", dout, g3, empty(d, ec, dtype=torch.float32), (d, ec, bt), "f32",
+                 dict(a_m_major=True, b_mn_major=True), lambda: dout.T @ g3),
+                ("dw1", da3, rn, empty(ec, d, dtype=torch.float32), (ec, d, bt), "f32",
+                 dict(a_m_major=True, b_mn_major=True), lambda: da3.T @ rn),
+            )
+        else:
+            gemms = (
+                ("g1", w.t1, xn, empty(b, et, d), (et, d, t), a_,
+                 dict(b_mn_major=True, batch=b, sb=t * d, sc=et * d, bias=w.t1b, bias_rows=True,
+                      aux=aux(b, et, d)), lambda: torch.matmul(w.t1, xn)),
+                ("r", w.t2, g1, empty(b, t, d), (t, d, et), "res",
+                 dict(b_mn_major=True, batch=b, sb=et * d, sc=t * d, bias=w.t2b, bias_rows=True,
+                      res=x), lambda: torch.matmul(w.t2, g1)),
+                ("g3", rn, w.w1, empty(bt, ec), (bt, ec, d), a_,
+                 dict(bias=w.b1, aux=aux(bt, ec)), lambda: rn @ w.w1.T),
+                ("out", g3, w.w2, empty(bt, d), (bt, d, ec), "res", dict(bias=w.b2, res=r.view(bt, d)),
+                 lambda: g3 @ w.w2.T),
+            )
+        for name, a, bm, c, (m, n, kk), epi, kw, cublas in gemms:
+            batch = kw.get("batch", 1)
+            flops = 2 * m * n * kk * batch
+            pick = wgmma.wgmma_plan(m, n, k.sms, batch)[0]
+            route = mixer_gemm_route(name, t, d, et, ec, dt, (a, bm, c))
+            cells, row = [], {}
+            for bn in wgmma.WGMMA_WIDTHS:
+                ms = graph_ms(lambda: wgmma.gemm(launcher(), a, bm, c, m, n, kk, epi, bn=bn,
+                                                 **kw))
+                cells.append(f"{bn}: {ms:.4f} ms {flops / ms / 1e9:.1f} TFLOP/s"
+                             f"{' (planned)' if bn == pick else ''}")
+                if bn == pick:
+                    row["wgmma"] = ms
+            row["wmma"] = graph_ms(lambda: launcher().mm("wmma", a, bm, c, m, n, kk, epi, **kw))
+            lib_ms = graph_ms(cublas)
+            log(f"[time] Mixer GEMM {chain} {name} B={b} M={m} N={n} K={kk}"
+                f"{f' x{batch}' if batch > 1 else ''} ({route} routed): wgmma {'; '.join(cells)}; "
+                f"WMMA tile {row['wmma']:.4f} ms {flops / row['wmma'] / 1e9:.1f} TFLOP/s; "
+                f"torch.matmul bf16 {lib_ms:.4f} ms {flops / lib_ms / 1e9:.1f} TFLOP/s ({smi})")
+            rows[(chain, name, b)] = row
+    return rows
 
 
 def warp_against(parent):

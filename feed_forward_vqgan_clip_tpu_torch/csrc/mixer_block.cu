@@ -30,15 +30,18 @@
 //
 // What bounds it on an H100: 2*T*D*(2*Et + 2*Ec) = 5.4 GFLOP per batch element per
 // block at the flagship (T=256, D=1024, Et=1024, Ec=4096) against about 60 MB of
-// bf16 activation traffic per element: compute-bound, so the bf16 GEMM runs on the
-// tensor cores (WMMA m16n16k16, f32 accumulators). The float32 GEMM, used by the
-// parity checks, is a shared-memory FMA tile. At batch 1 the output tiles of
-// some GEMMs are fewer than the 132 SMs (16 for the second channel GEMM), so K
+// bf16 activation traffic per element: compute-bound, so the bf16 GEMMs run on the
+// tensor cores. Wherever TMA can read the operands (rows of multiples of 8 elements,
+// 16-byte-aligned bases: every flagship shape) the wrapper sends them to the Hopper
+// GEMM of wgmma_gemm.cuh (wgmma_gemm.cu's entry point: TMA ring, wgmma, persistent
+// tiles, the same epilogues); the GEMM here is the WMMA tile (m16n16k16, f32
+// accumulators) for the other bf16 shapes, and for the float32 route, used by the
+// parity checks, a shared-memory FMA tile. At batch 1 the WMMA tile's output tiles
+// of some GEMMs are fewer than the 132 SMs (16 for the second channel GEMM), so K
 // is split across blocks there (split-K below). The train forward does the same
 // 43 GFLOP at B=8 (0.044 ms at 989 TFLOP/s) and also writes about 70 MB of bf16
 // residuals (0.021 ms at 3.35 TB/s): still compute-bound; it writes them from the
-// GEMM epilogues, so no extra pass reads the activations. wgmma/TMA pipelines are
-// later work.
+// GEMM epilogues, so no extra pass reads the activations.
 
 #include <algorithm>
 #include <type_traits>

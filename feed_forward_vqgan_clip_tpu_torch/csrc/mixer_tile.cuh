@@ -1,8 +1,10 @@
 // The Mixer kernels' device code: one LayerNorm row, one GEMM output tile with its
 // fused epilogue, and the in-order sum of split-K partial tiles. csrc/mixer_block.cu
-// launches each as its own kernel (one tile per block, K2 and the train kernels), as
-// does the CLIP MLP sublayer (K11) for its float32 route and its parameter-grad GEMMs
-// (its bf16 path GEMMs run on csrc/wgmma_gemm.cuh);
+// launches each as its own kernel (one tile per block: the float32 route, the token
+// backward (K8), and the bf16 GEMMs of K2, K5, K6, K7 at shapes TMA cannot read; at
+// the others those run on csrc/wgmma_gemm.cuh), as does the CLIP MLP sublayer (K11)
+// for its float32 route and its parameter-grad GEMMs (its bf16 path GEMMs run on
+// csrc/wgmma_gemm.cuh);
 // csrc/mixer_stream.cu runs the same functions inside one persistent kernel over the
 // whole depth (K4). They therefore compute every tile with the same code.
 //

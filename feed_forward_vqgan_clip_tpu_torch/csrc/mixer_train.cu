@@ -15,7 +15,9 @@
 // a fixed range of rows, a second pass adds the ranges in order. No float atomics,
 // so two runs of the same step give bitwise-equal gradients.
 //
-// What bounds the backward on an H100 is its GEMMs (mixer_block.cu): at the
+// What bounds the backward on an H100 is its GEMMs (mixer_block.cu; the channel
+// half's four on wgmma_gemm.cuh wherever TMA can read them, the weight grads with an
+// M-major A and K = B*T summed in one wgmma chain): at the
 // flagship (B=8, T=256, D=1024, Et=1024, Ec=4096) the channel half is four
 // products of 2*2048*4096*1024 = 69 GFLOP (0.069 ms at 989 TFLOP/s bf16), the
 // token half four of 2*8*1024*256*1024 = 17 GFLOP (0.017 ms), against about 105

@@ -31,15 +31,14 @@
 // (0.031 ms at 989 TFLOP/s) against about 46 MB of inputs and outputs (0.014 ms at
 // 3.35 TB/s): compute-bound. In bf16 the four path GEMMs (fc1, fc2, dgh, dxn) run on
 // the Hopper GEMM of wgmma_gemm.cuh (TMA ring, wgmma, persistent tiles; the weights
-// read in nn.Linear's layout, dgh's and dxn's MN-major through wgmma's transpose mode);
-// `ffvc_wgmma_gemm` below is their entry point. The tile width (128 or 192 columns) is
-// chosen per GEMM by the wrapper's `wgmma_plan` against the wave count. The float32
-// route and the parameter-grad GEMMs (an M-major A) stay on the WMMA tile of
-// mixer_tile.cuh. The dx-only backward is the same 30.2 GFLOP; with the parameter
+// read in nn.Linear's layout, dgh's and dxn's MN-major through wgmma's transpose mode),
+// through the entry point `ffvc_wgmma_gemm` of wgmma_gemm.cu that the Mixer kernels
+// share (ops/kernels/wgmma.py); the tile width (128 or 192 columns) is chosen per GEMM
+// by `wgmma_plan` against the wave count. The float32 route and the parameter-grad
+// GEMMs stay on the WMMA tile of mixer_tile.cuh. The dx-only backward is the same 30.2 GFLOP; with the parameter
 // grads, 60.4. The activation is exact here (expf, erff), not the TPU's polynomial.
 
 #include "mixer_tile.cuh"
-#include "wgmma_gemm.cuh"
 
 using namespace ffvc;
 
@@ -57,52 +56,4 @@ extern "C" int ffvc_mlp_gemm(const void* a, long long lda, const void* b, long l
   p.gelu_grad = gelu_grad;
   p.act = act;
   return launch_gemm<float, GemmMlpArgs, false, true>(p, 1, static_cast<cudaStream_t>(stream));
-}
-
-namespace {
-
-// The path's pairs: K-major B with the forward's epilogues (fc1, fc2), MN-major B
-// with the backward's (dgh, dxn); only those are compiled.
-template <int BN, int kTransB>
-int dispatch_epilogue(const WgmmaParams& p, const void* a, const void* b, void* c, void* aux,
-                      int epi, int grid, cudaStream_t s) {
-  if constexpr (kTransB) {
-    if (epi == kEpiMul) return launch_wgmma_gemm<BN, 1, kEpiMul>(p, a, b, c, aux, grid, s);
-    if (epi == kEpiF32) return launch_wgmma_gemm<BN, 1, kEpiF32>(p, a, b, c, aux, grid, s);
-  } else {
-    if (epi == kEpiAct) return launch_wgmma_gemm<BN, 0, kEpiAct>(p, a, b, c, aux, grid, s);
-    if (epi == kEpiRes) return launch_wgmma_gemm<BN, 0, kEpiRes>(p, a, b, c, aux, grid, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
-
-// bf16 C (m x n) = A (m x k, row-major) . B, B K-major ((n, k) row-major, b_mn_major 0)
-// or MN-major ((k, n) row-major, 1), with epilogue `epi` (WgmmaEpilogue; kEpiAct and
-// kEpiRes with a K-major B, kEpiMul and kEpiF32 with an MN-major one): bias (n,) f32,
-// res / mul (m, n) bf16, aux (kEpiAct: act' bf16; kEpiMul: an optional f32 copy), act
-// (Activation). bn: the tile width, 128 or 192; grid: the persistent CTAs. k and n
-// multiples of 8, every pointer 16-byte aligned (checked by the wrapper).
-extern "C" int ffvc_wgmma_gemm(const void* a, const void* b, int b_mn_major, void* c, int m,
-                               int n, int k, int epi, const float* bias, const void* res,
-                               const void* mul, void* aux, int act, int bn, int grid,
-                               void* stream) {
-  WgmmaParams p{};
-  p.m = m;
-  p.n = n;
-  p.k = k;
-  p.bias = bias;
-  p.res = static_cast<const bf16*>(res);
-  p.mul = static_cast<const bf16*>(mul);
-  p.aux_f32 = epi == kEpiMul ? static_cast<float*>(aux) : nullptr;
-  p.act = act;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 128)
-    return b_mn_major ? dispatch_epilogue<128, 1>(p, a, b, c, aux, epi, grid, s)
-                      : dispatch_epilogue<128, 0>(p, a, b, c, aux, epi, grid, s);
-  if (bn == 192)
-    return b_mn_major ? dispatch_epilogue<192, 1>(p, a, b, c, aux, epi, grid, s)
-                      : dispatch_epilogue<192, 0>(p, a, b, c, aux, epi, grid, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

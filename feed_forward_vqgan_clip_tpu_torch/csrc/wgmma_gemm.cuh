@@ -1,47 +1,60 @@
 // A Hopper GEMM for bf16 operands with f32 accumulation: TMA loads into a ring of
 // 128-byte-swizzled shared-memory stages, one producer warp, two consumer warpgroups
 // issuing wgmma.mma_async, a persistent tile loop, and TMA stores. It carries the CLIP
-// MLP sublayer's four GEMMs (K11, csrc/mlp_ln.cu) with their epilogues:
+// MLP sublayer's four GEMMs (K11, csrc/mlp_ln.cu) and the Mixer block's (K2, K5, K6,
+// K7; ops/kernels/mixer_block.py) with their epilogues, through one entry point,
+// `ffvc_wgmma_gemm` (csrc/wgmma_gemm.cu):
 //
-//   C (M x N) = A (M x K) . B,  A row-major (K-major),
+//   C[z] (M x N) = A[z] (M x K) . B[z],  z = 0 .. batch - 1,
+//   A K-major: stored (M, K), element (m, k) at m*K + k, or M-major: stored (K, M), at
+//              k*M + m (a matrix read as its transpose: the weight grads' activations),
 //   B K-major: stored (N, K), element (k, n) at n*K + k (an nn.Linear weight read as
 //              its transpose), or MN-major: stored (K, N), at k*N + n (a weight read
-//              as it lies), through wgmma's transpose mode for 16-bit types, with no
-//              transposed copy.
+//              as it lies),
+// the transposed layouts through wgmma's transpose modes for 16-bit types, with no
+// transposed copy. A batched operand steps by its batch stride; one with stride 0
+// (a weight shared by the batch, the token GEMMs' t1 and t2) is read at every z.
 //
 // Block: 3 warpgroups (384 threads). Warpgroup 0 gives up registers (setmaxnreg) and
 // its first thread issues every TMA load; warpgroups 1 and 2 take 64 rows each of a
-// 128 x BN output tile. Per K step of 64: A's box (128 x 64) and B's (BN x 64
-// K-major, or BN/64 boxes of 64 x 64 MN-major) land in one of kStages stages; the
-// producer arms the stage's `full` barrier with the bytes it expects, the consumers
-// wait on it, issue four m64nBNk16 wgmma (K 16 each), keep one group in flight, and
-// arrive on the stage's `empty` barrier (one arrival per consumer warp) once the
-// group that read it has retired, so that the producer may refill it. The CTAs walk
-// the output tiles tile = blockIdx.x, + gridDim.x, ... (grid = min(tiles, SMs), row
-// blocks outer), the same sequence in the producer and the consumers, so the loads
-// of the next tile overlap a tile's epilogue.
+// 128 x BN output tile. Per K step of 64: A's box (128 x 64 K-major, or two boxes of
+// 64 x 64 M-major, one per consumer) and B's (BN x 64 K-major, or BN/64 boxes of
+// 64 x 64 MN-major) land in one of kStages stages; the producer arms the stage's
+// `full` barrier with the bytes it expects, the consumers wait on it, issue four
+// m64nBNk16 wgmma (K 16 each), keep one group in flight, and arrive on the stage's
+// `empty` barrier (one arrival per consumer warp) once the group that read it has
+// retired, so that the producer may refill it. The CTAs walk the output tiles tile =
+// blockIdx.x, + gridDim.x, ... (grid = min(tiles, SMs); batch innermost, so that
+// neighbouring CTAs read the same tile of a shared weight while it sits in L2, then
+// columns, then row blocks), the same sequence in the producer and the consumers, so
+// the loads of the next tile overlap a tile's epilogue.
 //
 // Epilogue: each consumer warpgroup takes its 64 x BN accumulator through the
-// per-element arithmetic in registers (res or mul, read at the start of the tile so
-// that the loads overlap the K loop), writes the outputs into its own buffer in the
-// layout of 128-byte-swizzled TMA boxes (64 rows x 128 bytes: conflict-free for the
-// fragment's writes), and one thread stores the boxes with TMA and goes on: the
-// stores drain during the next tile's K loop; the buffer is reused only once they
-// have read it. Ragged M and N edges are zero-filled by the loads and clipped by the
-// stores. Numerics: each output's K sum is one chain of wgmma in K order, the same on
-// every run (no split-K, no atomics); the epilogues keep the rounding points of the
-// WMMA tile's (csrc/mixer_tile.cuh, `epilogue_store`):
-//   kEpiAct  v += bias[n]; dg = round(act'(v)) into aux, C = round(act(v))   (fc1)
-//   kEpiRes  v += bias[n]; C = round(round(v) + res)                         (fc2)
-//   kEpiMul  v *= mul; aux (f32, where given) = v; C = round(v)              (dgh)
-//   kEpiF32  C = v in float32                                                (dxn)
+// per-element arithmetic in registers (res or mul and a per-row bias, read at the
+// start of the tile so that the loads overlap the K loop), writes the outputs into
+// its own buffer in the layout of 128-byte-swizzled TMA boxes (64 rows x 128 bytes:
+// conflict-free for the fragment's writes), and one thread stores the boxes with TMA
+// and goes on: the stores drain during the next tile's K loop; the buffer is reused
+// only once they have read it. Ragged M and N edges are zero-filled by the loads and
+// clipped by the stores. Numerics: each output's K sum is one chain of wgmma in K
+// order, the same on every run (no split-K, no atomics); the epilogues keep the
+// rounding points of the WMMA tile's (csrc/mixer_tile.cuh, `epilogue_store`), with
+// bias[m] (kRowBias, a template argument: each instantiation has one bias mode, so the
+// epilogue tests none per element) or bias[n]:
+//   kEpiAct      v += bias; dg = round(act'(v)) into aux, C = round(act(v))  (fc1, g1, g3)
+//   kEpiActOnly  v += bias; C = round(act(v)): one output plane, so the stage
+//                ring takes the bytes of the derivative's buffer      (K2, K5: g1, g3)
+//   kEpiRes      v += bias; C = round(round(v) + res)                   (fc2, r, out)
+//   kEpiMul      v *= mul; aux (f32, where given) = v; C = round(v)     (dgh, da3)
+//   kEpiF32      C = v in float32                             (dxn, drn, dW1, dW2)
 //
 // The accumulator fragment of m64nNk16: thread t of a warpgroup (warp w = t / 32,
 // lane l) holds, for each 8-column group j, d[4j], d[4j + 1] at row 16w + l/4,
 // columns 8j + 2(l % 4) and + 1, and d[4j + 2], d[4j + 3] eight rows below.
 //
-// Requirements, checked by the caller: K and N multiples of 8 and 16-byte-aligned
-// bases (TMA's strides and addresses).
+// Requirements, checked by the caller (ops/kernels/wgmma.py `tma_ok`): every operand's
+// row length (K or M for A, K or N for B, N for C) a multiple of 8, batch strides
+// multiples of 8 elements, 16-byte-aligned bases (TMA's strides and addresses).
 #pragma once
 
 #include <cuda.h>
@@ -56,20 +69,33 @@ namespace ffvc {
 constexpr int kWgBM = 128;  // output rows of a tile: two consumer warpgroups x 64
 constexpr int kWgBK = 64;   // K per stage: one 128-byte swizzle row of bf16
 constexpr int kWgThreads = 384;
+constexpr int kWgBox = 64 * 64 * 2;  // one 64 x 64 bf16 box: 8 KB
 
-enum WgmmaEpilogue : int { kEpiAct = 0, kEpiRes = 1, kEpiMul = 2, kEpiF32 = 3 };
+enum WgmmaEpilogue : int { kEpiAct = 0, kEpiRes = 1, kEpiMul = 2, kEpiF32 = 3, kEpiActOnly = 4 };
 
 struct WgmmaParams {
-  CUtensorMap map_a;    // A (M, K): box 64 x 128
-  CUtensorMap map_b;    // B (N, K): box 64 x BN; or (K, N): box 64 x 64
-  CUtensorMap map_c;    // C (M, N): boxes of 64 rows x 128 bytes
-  CUtensorMap map_aux;  // kEpiAct: act' (M, N) bf16, as C
-  int m, n, k;
-  const float* bias;  // (N,) float32: kEpiAct, kEpiRes
-  const bf16* res;    // (M, N): kEpiRes
-  const bf16* mul;    // (M, N): kEpiMul
-  float* aux_f32;     // kEpiMul: an optional f32 copy of v (M, N), stored directly
-  int act;            // kEpiAct: Activation
+  CUtensorMap map_a;    // A (batch, M, K): box 128 x 64; or (batch, K, M): box 64 x 64
+  CUtensorMap map_b;    // B (batch, N, K): box BN x 64; or (batch, K, N): box 64 x 64
+  CUtensorMap map_c;    // C (batch, M, N): boxes of 64 rows x 128 bytes
+  CUtensorMap map_aux;  // kEpiAct: act' (batch, M, N) bf16, as C
+  int m, n, k, batch;
+  int a_batched, b_batched;  // 0: the operand is shared by the batch (stride 0)
+  long long sc;              // batch stride (elements) of C, res, mul, aux_f32
+  const float* bias;         // (N,) or, kRowBias, (M,) float32: kEpiAct*, kEpiRes
+  const bf16* res;  // (batch, M, N): kEpiRes
+  const bf16* mul;  // (batch, M, N): kEpiMul
+  float* aux_f32;   // kEpiMul: an optional f32 copy of v (batch, M, N), stored directly
+  int act;          // kEpiAct*: Activation
+};
+
+// The operands' addresses and batch strides (elements; 0: shared by the batch).
+struct WgmmaOperands {
+  const void* a;
+  long long sa;
+  const void* b;
+  long long sb;
+  void* c;
+  void* aux;
 };
 
 // C's element type and the columns of one 128-byte store box.
@@ -131,24 +157,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-// One 2-D box of `map` at coordinates (c0 innermost, c1) into shared memory; its
-// bytes complete on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
+// One box of the rank-3 `map` at coordinates (c0 innermost, c1, batch c2) into shared
+// memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
-// One 2-D box from shared memory to `map` at (c0, c1), in this thread's bulk group.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1) {
+// One box from shared memory to `map` at (c0, c1, c2), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -200,8 +226,9 @@ __device__ __forceinline__ void fence_regs(float* d) {
 }
 
 // d (64 x 128, f32) += A (64 x 16) . B (16 x 128), bf16 from shared memory; A
-// K-major, B K-major (kTransB 0) or MN-major (1); scale_d 0 drops d's old value.
-template <int kTransB>
+// K-major (kTransA 0) or M-major (1), B K-major (kTransB 0) or MN-major (1); scale_d
+// 0 drops d's old value.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -213,7 +240,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -225,12 +252,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a, uint
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
         "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-// d (64 x 192, f32) += A (64 x 16) . B (16 x 192), bf16 from shared memory; A
-// K-major, B K-major (kTransB 0) or MN-major (1); scale_d 0 drops d's old value.
-template <int kTransB>
+// d (64 x 192, f32) += A (64 x 16) . B (16 x 192), as wgmma_m64n128k16.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -244,7 +270,7 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
       "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, p, 1, 1, 0, %99;\n"
+      "%96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
@@ -260,17 +286,28 @@ __device__ __forceinline__ void wgmma_m64n192k16(float* d, uint64_t desc_a, uint
         "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
         "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
-template <int BN, int kTransB>
+template <int BN, int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_k16(float* d, uint64_t desc_a, uint64_t desc_b,
                                           int scale_d) {
   if constexpr (BN == 128)
-    wgmma_m64n128k16<kTransB>(d, desc_a, desc_b, scale_d);
+    wgmma_m64n128k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
   else
-    wgmma_m64n192k16<kTransB>(d, desc_a, desc_b, scale_d);
+    wgmma_m64n192k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
 }
+
+// Output tile `t` of the walk: batch innermost, then column blocks, then row blocks.
+struct WgTile {
+  int m0, n0, z;
+  __device__ WgTile(int t, int tiles_n, int batch, int bn) {
+    z = t % batch;
+    const int mn = t / batch;
+    m0 = mn / tiles_n * kWgBM;
+    n0 = mn % tiles_n * bn;
+  }
+};
 
 // Byte offset of (row r, column lc) of a plane of 64 x BN elements of `bytes` each,
 // laid out as 128-byte-swizzled TMA boxes of 64 rows x 128 bytes, box after box.
@@ -280,14 +317,22 @@ __device__ __forceinline__ int swizzled(int r, int lc, int bytes) {
   return lc / box_cols * 8192 + r * 128 + ((chunk ^ (r % 8)) << 4) + cc * bytes % 16;
 }
 
-// res (kEpiRes) or mul (kEpiMul) at the fragment's places, read at the start of the
-// tile: e[2j + half] holds columns (8j + 2(l % 4), + 1) of row 16w + l/4 + 8 half.
-template <int BN, int kEpi>
+// What the epilogue reads besides the accumulator, at the fragment's places, read at
+// the start of the tile: e[2j + half] holds res (kEpiRes) or mul (kEpiMul) at columns
+// (8j + 2(l % 4), + 1) of row 16w + l/4 + 8 half, rb[half] that row's bias (kRowBias).
+template <int BN, int kEpi, bool kRowBias>
 __device__ __forceinline__ void epilogue_prefetch(const WgmmaParams& p, __nv_bfloat162* e,
-                                                  int m0, int n0) {
+                                                  float* rb, int m0, int n0, int z) {
+  const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+  if constexpr (kRowBias) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + warp * 16 + lane / 4 + half * 8;
+      rb[half] = row < p.m ? p.bias[row] : 0.f;
+    }
+  }
   if constexpr (kEpi == kEpiRes || kEpi == kEpiMul) {
-    const bf16* src = kEpi == kEpiRes ? p.res : p.mul;
-    const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+    const bf16* src = (kEpi == kEpiRes ? p.res : p.mul) + z * p.sc;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
@@ -302,13 +347,15 @@ __device__ __forceinline__ void epilogue_prefetch(const WgmmaParams& p, __nv_bfl
 }
 
 // One consumer warpgroup's epilogue of its 64 x BN accumulator (rows m0 .., columns
-// n0 ..) into `buf` and out through TMA stores issued by its first thread.
-template <int BN, int kEpi>
+// n0 .. of batch element z) into `buf` and out through TMA stores issued by its first
+// thread.
+template <int BN, int kEpi, bool kRowBias>
 __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
-                                         const __nv_bfloat162* e, unsigned char* buf, int m0,
-                                         int n0, int bar_id) {
+                                         const __nv_bfloat162* e, const float* rb,
+                                         unsigned char* buf, int m0, int n0, int z, int bar_id) {
   using Out = EpiOut<kEpi>;
   constexpr int kPlane = 64 * BN * Out::kBytes;
+  constexpr bool kAct = kEpi == kEpiAct || kEpi == kEpiActOnly;
   const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
   if (lt == 0) bulk_wait<true>();  // the previous tile's stores have read the buffer
   warpgroup_sync(bar_id);
@@ -316,7 +363,7 @@ __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
   for (int j = 0; j < BN / 8; ++j) {
     const int lc = j * 8 + (lane % 4) * 2, col = n0 + lc;
     float b0 = 0.f, b1 = 0.f;
-    if constexpr (kEpi == kEpiAct || kEpi == kEpiRes) {
+    if constexpr ((kAct || kEpi == kEpiRes) && !kRowBias) {
       if (col < p.n) {
         b0 = p.bias[col];
         b1 = p.bias[col + 1];
@@ -326,29 +373,34 @@ __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
     for (int half = 0; half < 2; ++half) {
       const int r = warp * 16 + lane / 4 + half * 8;
       float v0 = d[4 * j + 2 * half], v1 = d[4 * j + 2 * half + 1];
-      if constexpr (kEpi == kEpiAct || kEpi == kEpiRes) {
-        v0 += b0;
-        v1 += b1;
+      if constexpr (kAct || kEpi == kEpiRes) {
+        v0 += kRowBias ? rb[half] : b0;
+        v1 += kRowBias ? rb[half] : b1;
       }
       const int o = swizzled(r, lc, Out::kBytes);
-      if constexpr (kEpi == kEpiAct) {
-        // quick_gelu: s = sigmoid(1.702 v), value v s, derivative s + 1.702 (v s) (1 - s)
-        float g[2] = {v0, v1}, dg[2];
+      if constexpr (kAct) {
+        // quick_gelu: s = sigmoid(1.702 v), value v s, derivative s + 1.702 (v s) (1 - s);
+        // or exact GELU. Kept as one loop over the pair: fc1, bound by this epilogue, ran
+        // slower with a helper called once per element.
+        float g[2] = {v0, v1};
+        [[maybe_unused]] float dg[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const float v = g[i];
           if (p.act == kActQuickGelu) {
             // the correctly rounded reciprocal: 1.f / x to the bit, without a division
             const float s = __frcp_rn(1.f + expf(-1.702f * v));
-            dg[i] = s + 1.702f * (v * s) * (1.f - s);
+            if constexpr (kEpi == kEpiAct) dg[i] = s + 1.702f * (v * s) * (1.f - s);
             g[i] = v * s;
           } else {
-            dg[i] = gelu_grad_f(v);
+            if constexpr (kEpi == kEpiAct) dg[i] = gelu_grad_f(v);
             g[i] = gelu_f(v);
           }
         }
         *reinterpret_cast<__nv_bfloat162*>(buf + o) = __floats2bfloat162_rn(g[0], g[1]);
-        *reinterpret_cast<__nv_bfloat162*>(buf + kPlane + o) = __floats2bfloat162_rn(dg[0], dg[1]);
+        if constexpr (kEpi == kEpiAct)
+          *reinterpret_cast<__nv_bfloat162*>(buf + kPlane + o) =
+              __floats2bfloat162_rn(dg[0], dg[1]);
       } else if constexpr (kEpi == kEpiRes) {
         const __nv_bfloat162 r2 = e[2 * j + half];
         v0 = to_f(from_f<bf16>(v0)) + __low2float(r2);
@@ -360,8 +412,8 @@ __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
         v1 *= __high2float(m2);
         const int row = m0 + r;
         if (p.aux_f32 && row < p.m && col < p.n)
-          *reinterpret_cast<float2*>(p.aux_f32 + static_cast<long long>(row) * p.n + col) =
-              make_float2(v0, v1);
+          *reinterpret_cast<float2*>(p.aux_f32 + z * p.sc + static_cast<long long>(row) * p.n +
+                                     col) = make_float2(v0, v1);
         *reinterpret_cast<__nv_bfloat162*>(buf + o) = __floats2bfloat162_rn(v0, v1);
       } else {
         *reinterpret_cast<float2*>(buf + o) = make_float2(v0, v1);
@@ -377,13 +429,13 @@ __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
 #pragma unroll
       for (int bx = 0; bx < BN / Out::kBoxCols; ++bx)
         if (n0 + bx * Out::kBoxCols < p.n)
-          tma_store_2d(plane ? &p.map_aux : &p.map_c, buf + plane * kPlane + bx * 8192,
-                       n0 + bx * Out::kBoxCols, m0);
+          tma_store_3d(plane ? &p.map_aux : &p.map_c, buf + plane * kPlane + bx * 8192,
+                       n0 + bx * Out::kBoxCols, m0, z);
     bulk_commit();
   }
 }
 
-template <int BN, int kTransB, int kEpi>
+template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias>
 __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_gemm_kernel(const __grid_constant__ WgmmaParams p) {
   using Tile = WgmmaTile<BN, kEpi>;
@@ -407,7 +459,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   __syncthreads();
 
   const int tiles_n = (p.n + BN - 1) / BN;
-  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n;
+  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n * p.batch;
   const int k_tiles = (p.k + kWgBK - 1) / kWgBK;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
 
@@ -416,20 +468,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (threadIdx.x == 0) {
       int stage = 0, phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int m0 = t / tiles_n * kWgBM, n0 = t % tiles_n * BN;
-        // an MN-major box wholly right of N is not loaded: its columns are never stored
-        const int b_boxes = kTransB ? min(BN / 64, (p.n - n0 + 63) / 64) : 1;
-        const unsigned bytes = Tile::kABytes + (kTransB ? b_boxes * 64 * 64 * 2 : Tile::kBBytes);
+        const WgTile at(t, tiles_n, p.batch, BN);
+        const int za = p.a_batched ? at.z : 0, zb = p.b_batched ? at.z : 0;
+        // an M-major (MN-major) box wholly below M (right of N) is not loaded: its rows
+        // (columns) are never stored
+        const int a_boxes = kTransA ? min(2, (p.m - at.m0 + 63) / 64) : 1;
+        const int b_boxes = kTransB ? min(BN / 64, (p.n - at.n0 + 63) / 64) : 1;
+        const unsigned bytes = (kTransA ? a_boxes * kWgBox : Tile::kABytes) +
+                               (kTransB ? b_boxes * kWgBox : Tile::kBBytes);
         for (int kt = 0; kt < k_tiles; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], bytes);
-          tma_load_2d(sa + stage * Tile::kABytes, &p.map_a, &full[stage], kt * kWgBK, m0);
+          unsigned char* a = sa + stage * Tile::kABytes;
+          if constexpr (kTransA) {
+            for (int j = 0; j < a_boxes; ++j)
+              tma_load_3d(a + j * kWgBox, &p.map_a, &full[stage], at.m0 + 64 * j, kt * kWgBK, za);
+          } else {
+            tma_load_3d(a, &p.map_a, &full[stage], kt * kWgBK, at.m0, za);
+          }
           unsigned char* b = sb + stage * Tile::kBBytes;
           if constexpr (kTransB) {
             for (int j = 0; j < b_boxes; ++j)
-              tma_load_2d(b + j * 64 * 64 * 2, &p.map_b, &full[stage], n0 + 64 * j, kt * kWgBK);
+              tma_load_3d(b + j * kWgBox, &p.map_b, &full[stage], at.n0 + 64 * j, kt * kWgBK, zb);
           } else {
-            tma_load_2d(b, &p.map_b, &full[stage], kt * kWgBK, n0);
+            tma_load_3d(b, &p.map_b, &full[stage], kt * kWgBK, at.n0, zb);
           }
           if (++stage == kStages) {
             stage = 0;
@@ -445,25 +507,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
     __nv_bfloat162 e[BN / 4];  // res or mul at the fragment's places
+    float rb[2] = {0.f, 0.f};  // the rows' biases (kRowBias)
     int stage = 0, phase = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int m0 = t / tiles_n * kWgBM + c * 64, n0 = t % tiles_n * BN;
-      epilogue_prefetch<BN, kEpi>(p, e, m0, n0);
+      const WgTile at(t, tiles_n, p.batch, BN);
+      const int m0 = at.m0 + c * 64;
+      epilogue_prefetch<BN, kEpi, kRowBias>(p, e, rb, m0, at.n0, at.z);
       int prev = 0;
       for (int kt = 0; kt < k_tiles; ++kt) {
         mbar_wait(&full[stage], phase);
         wgmma_fence();
-        const unsigned char* a = sa + stage * Tile::kABytes + c * 64 * 128;
+        // this consumer's 64 rows of A: the second half of a K-major box (64 rows of
+        // 128 bytes) or the second M-major box, 8 KB in either layout
+        const unsigned char* a = sa + stage * Tile::kABytes + c * kWgBox;
         const unsigned char* b = sb + stage * Tile::kBBytes;
 #pragma unroll
         for (int kk = 0; kk < kWgBK / 16; ++kk) {
-          // A: 128-byte rows, 8-row groups 1024 bytes apart; K steps of 16 = 32 bytes.
-          // B K-major likewise; MN-major: 64-wide N chunks 8 KB apart (LBO), 8-deep
-          // K groups 1024 bytes apart (SBO), K steps of 16 rows = 2048 bytes.
-          const uint64_t da = wgmma_desc(a + kk * 32, 16, 1024);
-          const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, 64 * 64 * 2, 1024)
+          // K-major: 128-byte rows, 8-row groups 1024 bytes apart; K steps of 16 = 32
+          // bytes. M- or MN-major: 64-wide M (N) chunks 8 KB apart (LBO), 8-deep K groups
+          // 1024 bytes apart (SBO), K steps of 16 rows = 2048 bytes.
+          const uint64_t da = kTransA ? wgmma_desc(a + kk * 2048, kWgBox, 1024)
+                                      : wgmma_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, kWgBox, 1024)
                                       : wgmma_desc(b + kk * 32, 16, 1024);
-          wgmma_k16<BN, kTransB>(d, da, db, (kt | kk) != 0);
+          wgmma_k16<BN, kTransA, kTransB>(d, da, db, (kt | kk) != 0);
         }
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's group has retired: release that stage
@@ -477,7 +544,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       wgmma_wait<0>();
       fence_regs<BN / 2>(d);
       if (lane == 0) mbar_arrive(&empty[prev]);
-      epilogue<BN, kEpi>(p, d, e, out + c * Tile::kEpiBytes, m0, n0, 1 + c);
+      epilogue<BN, kEpi, kRowBias>(p, d, e, rb, out + c * Tile::kEpiBytes, m0, at.n0, at.z,
+                                   1 + c);
     }
     if (threadIdx.x % 128 == 0) bulk_wait<false>();  // the last stores are complete
   }
@@ -504,40 +572,47 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The TMA map of a row-major (rows, cols) matrix of bf16 (f32: float32), boxes of
-// box_rows x 128 bytes, 128-byte swizzle, zeros outside. False where the encoder
-// refuses it.
+// The TMA map of `batch` row-major (rows, cols) matrices of bf16 (f32: float32),
+// `batch_stride` elements apart (0: one matrix, read at every batch coordinate),
+// boxes of box_rows x 128 bytes, 128-byte swizzle, zeros outside. False where the
+// encoder refuses it.
 inline bool make_tensor_map(CUtensorMap* map, const void* base, long long rows, long long cols,
-                            int box_rows, bool f32 = false) {
+                            int batch, long long batch_stride, int box_rows, bool f32 = false) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return false;
   const int bytes = f32 ? 4 : 2;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elems[2] = {1, 1};
-  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const bool batched = batch_stride != 0 && batch > 1;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batched ? batch : 1)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * bytes,
+      static_cast<cuuint64_t>(batched ? batch_stride : rows * cols) * bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elems[3] = {1, 1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elems,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Fills the maps of A (m, k), B (K-major (n, k), or MN-major (k, n)), C (m, n) and, for
-// kEpiAct, aux (m, n), and launches `grid` persistent CTAs of the BN-wide tile.
-// Returns a cudaError_t as int.
-template <int BN, int kTransB, int kEpi>
-int launch_wgmma_gemm(WgmmaParams p, const void* a, const void* b, void* c, void* aux,
-                      int grid, cudaStream_t s) {
+// Fills the maps of A (K-major (m, k), or M-major (k, m)), B (K-major (n, k), or
+// MN-major (k, n)), C (m, n) and, for kEpiAct, aux (m, n), each of p.batch matrices,
+// and launches `grid` persistent CTAs of the BN-wide tile. Returns a cudaError_t as int.
+template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias = false>
+int launch_wgmma_gemm(WgmmaParams p, const WgmmaOperands& o, int grid, cudaStream_t s) {
+  p.a_batched = o.sa != 0 && p.batch > 1;
+  p.b_batched = o.sb != 0 && p.batch > 1;
   const bool ok =
-      make_tensor_map(&p.map_a, a, p.m, p.k, kWgBM) &&
-      (kTransB ? make_tensor_map(&p.map_b, b, p.k, p.n, 64)
-               : make_tensor_map(&p.map_b, b, p.n, p.k, BN)) &&
-      make_tensor_map(&p.map_c, c, p.m, p.n, 64, kEpi == kEpiF32) &&
-      (kEpi != kEpiAct || make_tensor_map(&p.map_aux, aux, p.m, p.n, 64));
+      (kTransA ? make_tensor_map(&p.map_a, o.a, p.k, p.m, p.batch, o.sa, 64)
+               : make_tensor_map(&p.map_a, o.a, p.m, p.k, p.batch, o.sa, kWgBM)) &&
+      (kTransB ? make_tensor_map(&p.map_b, o.b, p.k, p.n, p.batch, o.sb, 64)
+               : make_tensor_map(&p.map_b, o.b, p.n, p.k, p.batch, o.sb, BN)) &&
+      make_tensor_map(&p.map_c, o.c, p.m, p.n, p.batch, p.sc, 64, kEpi == kEpiF32) &&
+      (kEpi != kEpiAct || make_tensor_map(&p.map_aux, o.aux, p.m, p.n, p.batch, p.sc, 64));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wgmma_gemm_kernel<BN, kTransB, kEpi>;
+  auto kernel = wgmma_gemm_kernel<BN, kTransA, kTransB, kEpi, kRowBias>;
   constexpr int smem = WgmmaTile<BN, kEpi>::kSmemBytes;
   static bool attribute_set = false;  // once per instantiation (and process)
   if (!attribute_set) {
@@ -549,5 +624,20 @@ int launch_wgmma_gemm(WgmmaParams p, const void* a, const void* b, void* c, void
   kernel<<<grid, kWgThreads, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The compiled (layout, epilogue) pairs, one family per source so that nvcc builds
+// them in parallel; each returns cudaErrorInvalidValue for a pair it does not hold.
+//   wgmma_gemm.cu     A K-major, B K-major: kEpiAct, kEpiActOnly, kEpiRes with a
+//                     column bias (fc1, fc2; the channel forward g3, out)
+//   wgmma_gemm_mn.cu  A K-major, B MN-major: kEpiAct, kEpiActOnly, kEpiRes with a
+//                     row bias (the token forward g1, r)
+//   wgmma_gemm_bwd.cu A K-major, B MN-major: kEpiMul, kEpiF32 (dgh, dxn, da3, drn);
+//                     A M-major, B MN-major: kEpiF32 (dW2, dW1)
+int wgmma_launch_kk(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,
+                    cudaStream_t s);
+int wgmma_launch_kmn(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,
+                     cudaStream_t s);
+int wgmma_launch_bwd(const WgmmaParams& p, const WgmmaOperands& o, int a_m_major, int epi,
+                     int bn, int grid, cudaStream_t s);
 
 }  // namespace ffvc

@@ -75,8 +75,10 @@ _SIGNATURES = {
     # a, lda, b, ldb, c, ldc, bias, act, gelu_grad, m, n, k, splits, k_per_split,
     # workspace, dtype, stream
     "ffvc_mlp_gemm": [_P, _L, _P, _L, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
-    # a, b, b_mn_major, c, m, n, k, epi, bias, res, mul, aux, act, bn, grid, stream
-    "ffvc_wgmma_gemm": [_P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, sa, a_m_major, b, sb, b_mn_major, c, sc, m, n, k, batch, epi, bias, bias_rows,
+    # res, mul, aux, act, bn, grid, stream
+    "ffvc_wgmma_gemm": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _I, _P, _I,
+                        _P, _P, _P, _I, _I, _I, _P],
     # img, mats, out, b, h, w, ho, wo, c, border, dtype, stream
     "ffvc_warp_forward": [_P, _P, _P] + [_I] * 8 + [_P],
     # g, mats, grad, b, h, w, ho, wo, c, border, dtype, stream

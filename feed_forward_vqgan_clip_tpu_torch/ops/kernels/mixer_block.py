@@ -30,18 +30,24 @@ channel LayerNorm there is LN-hat, (r - mean) * inv without an affine.
 The block launches LayerNorm-rows kernels and GEMMs with fused bias /
 exact-GELU (and gelu') / multiply / residual epilogues: the token GEMMs batched
 over B with the weights shared (batch stride 0), the channel GEMMs with the batch
-folded into M = B*T rows. Where a GEMM's output tiles would leave SMs idle,
-`split_k_plan` cuts K across blocks and an f32 workspace collects the ranges.
-Parameter gradients are sums over the batch taken in a fixed order, never with
-atomics: the channel weight grads fold B*T into K, the token weight grads add
-the batch's partial products in order (`batch_sum`), the bias and norm grads go
-through a two-pass column sum. The TPU-only parts of the Pallas kernels
+folded into M = B*T rows. `mixer_gemm_route` picks each GEMM's tile: in bf16 the
+Hopper GEMM of csrc/wgmma_gemm.cuh (ops/kernels/wgmma.py: TMA, wgmma, persistent
+tiles) wherever TMA can read the operands, else the WMMA tile of
+csrc/mixer_tile.cuh, where `split_k_plan` cuts K across blocks while its output
+tiles would leave SMs idle; in float32 the FMA tile. The forward's four GEMMs
+(K2, K5, K6) and the channel backward's four (K7) take the route; the token
+backward's (K8) stay on the WMMA tile. Parameter gradients are sums over the
+batch taken in a fixed order, never with atomics: the channel weight grads fold
+B*T into K (one wgmma chain in K order), the token weight grads add the batch's
+partial products in order (`batch_sum`), the bias and norm grads go through a
+two-pass column sum. The TPU-only parts of the Pallas kernels
 (polynomial erf and gelu', pair and diagnostic knobs, VMEM gates) have no
 counterpart: gelu and gelu' use `erff` / `expf`.
 
 Every wrapper launches its kernels for a CUDA tensor, runs its plain PyTorch
 version (the `*_plain` function beside it) only for a CPU tensor, and counts its
-launches on `.launches`.
+launches on `.launches`; those of the forward and the channel backward also count
+the wgmma GEMMs their calls launched on `.wgmma_launches`.
 """
 
 from typing import NamedTuple
@@ -49,15 +55,14 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build, wgmma
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.wgmma import ACTIVATIONS, gelu_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh DType
 # (BM, BN, BK) of gemm_f32_kernel / gemm_bf16_kernel in csrc/mixer_block.cu
 _TILES = {torch.float32: (64, 64, 16), torch.bfloat16: (128, 128, 32)}
 _MAX_SPLITS = 16
 _COL_SUM_ROWS_PER_CHUNK = 32
-_SQRT_HALF = 0.7071067811865476
-_INV_SQRT_2PI = 0.3989422804014327
 
 
 def split_k_plan(m, n, k, batch, dtype, sms):
@@ -70,6 +75,48 @@ def split_k_plan(m, n, k, batch, dtype, sms):
         splits *= 2
     k_per_split = -(-k // (splits * bk)) * bk
     return -(-k // k_per_split), k_per_split
+
+
+# The bf16 GEMMs of the block's chains and the row lengths (elements) TMA reads and
+# writes at (t, d, et, ec): A's, B's and C's. The forward (K2, K5, K6): g1 = act(t1 .
+# xn + t1b[row]) and r = x + (t2 . g1 + t2b[row]) batched over B with the weight
+# shared, xn and g1 read MN-major; g3 = act(rn W1^T + b1) and out = r + (g3 W2^T + b2)
+# with the batch folded into rows, W1 and W2 read K-major. The channel backward (K7):
+# da3 = (dout W2) * gelu'(a3) and drn = da3 W1 with the weights read MN-major, dW2 =
+# dout^T g3 and dW1 = da3^T rn with an M-major A. (K8's GEMMs stay on the WMMA tile.)
+MIXER_GEMMS = {
+    "g1": lambda t, d, et, ec: (t, d, d),
+    "r": lambda t, d, et, ec: (et, d, d),
+    "g3": lambda t, d, et, ec: (d, d, ec),
+    "out": lambda t, d, et, ec: (ec, ec, d),
+    "da3": lambda t, d, et, ec: (d, ec, ec),
+    "drn": lambda t, d, et, ec: (ec, d, d),
+    "dw2": lambda t, d, et, ec: (d, ec, ec),
+    "dw1": lambda t, d, et, ec: (ec, d, d),
+}
+
+
+def mixer_gemm_route(name, t, d, et, ec, dtype, tensors=()):
+    """The tile GEMM `name` of MIXER_GEMMS takes: "fma" in float32 (the
+    FMA tile of csrc/mixer_tile.cuh), "wgmma" in bf16 where TMA can read and write
+    its operands (`wgmma.tma_ok` on the row lengths and the `tensors`' bases: the
+    Hopper GEMM of csrc/wgmma_gemm.cuh), else "wmma" (the WMMA tile, with split-K
+    where its tiles are few). A function of dtype, shape and alignment only.
+
+    The batch size takes no part: on an H100 (chip_smoke.py `[time] Mixer GEMM`,
+    PERF.md) the wgmma GEMM without split-K beat the WMMA tile with it at every
+    flagship GEMM and batch measured, B = 1, 4, 8 and 16, the batched token GEMMs
+    and the 16-tile ones at B=1 (out: 0.026 against 0.073 ms) included."""
+    if dtype == torch.float32:
+        return "fma"
+    if not wgmma.tma_ok(MIXER_GEMMS[name](t, d, et, ec), tensors):
+        return "wmma"
+    return "wgmma"
+
+
+def mixer_gemm_routes(t, d, et, ec, dtype):
+    """{GEMM name: its route} for aligned operands at one shape."""
+    return {name: mixer_gemm_route(name, t, d, et, ec, dtype) for name in MIXER_GEMMS}
 
 
 class MixerBlockWeights(NamedTuple):
@@ -219,11 +266,6 @@ def _ln_bwd_plain(dy, xhat, inv, scale):
     return inv * ((g - m1) - xhat * m2)
 
 
-def _gelu_grad(v):
-    """d/dv gelu(v) = Phi(v) + v phi(v), exact erf and exp."""
-    return 0.5 * (1.0 + torch.erf(v * _SQRT_HALF)) + v * torch.exp(-0.5 * v * v) * _INV_SQRT_2PI
-
-
 def mixer_block_plain(x, w: MixerBlockWeights):
     """The block in plain PyTorch ops, for x (B, T, D) float32 or bfloat16."""
     dt = x.dtype
@@ -242,12 +284,12 @@ def mixer_block_fwd_res_plain(x, w: MixerBlockWeights):
     f = lambda t: t.float()  # noqa: E731
     xn = _layer_norm_plain(x, w.ln1_w, w.ln1_b)
     a1 = torch.matmul(f(w.t1), f(xn)) + w.t1b[:, None]
-    g1, dg1 = F.gelu(a1).to(dt), _gelu_grad(a1).to(dt)
+    g1, dg1 = F.gelu(a1).to(dt), gelu_grad(a1).to(dt)
     r = x + (torch.matmul(f(w.t2), f(g1)) + w.t2b[:, None]).to(dt)
     rhat, inv2 = _ln_rhat(r)
     rn = (rhat * w.ln2_w + w.ln2_b).to(dt)
     a3 = torch.matmul(f(rn), f(w.w1).T) + w.b1
-    g3, dg3 = F.gelu(a3).to(dt), _gelu_grad(a3).to(dt)
+    g3, dg3 = F.gelu(a3).to(dt), gelu_grad(a3).to(dt)
     out = r + (torch.matmul(f(g3), f(w.w2).T) + w.b2).to(dt)
     return out, MixerResiduals(g1, dg1, rhat.to(dt), inv2, g3, dg3)
 
@@ -359,6 +401,7 @@ class _Launcher:
         self.code = _DTYPE_CODE[dtype]
         self.stream = build.stream_handle(device)
         self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+        self.wgmma_launches = 0
 
     def empty(self, *shape, dtype=None):
         return torch.empty(*shape, dtype=dtype or self.dtype, device=self.device)
@@ -400,6 +443,25 @@ class _Launcher:
             )
         build.check(err, "ffvc_gemm")
 
+    def mm(self, route, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False,
+           batch=1, sa=0, sb=0, sc=0, bias=None, bias_rows=False, res=None, mul=None,
+           aux=None):
+        """One GEMM of the block in `wgmma.gemm`'s terms (exact GELU), on the tile
+        `route` names: the wgmma GEMM, or the WMMA / FMA tile through `gemm`."""
+        if route == "wgmma":
+            wgmma.gemm(self, a, b, c, m, n, kdim, epi, a_m_major=a_m_major,
+                       b_mn_major=b_mn_major, batch=batch, sa=sa, sb=sb, sc=sc, bias=bias,
+                       bias_rows=bias_rows, res=res, mul=mul, aux=aux, act=ACTIVATIONS["gelu"])
+            self.wgmma_launches += 1
+            return
+        self.gemm(a, m if a_m_major else kdim, sa, b, n if b_mn_major else kdim, sb, c, n, sc,
+                  m, n, kdim, batch, a_mmajor=int(a_m_major), b_kmajor=int(not b_mn_major),
+                  c_f32=int(epi == "f32"), res=res, ldr=n, sr=sc, bias=bias,
+                  bias_mode=0 if bias is None else 1 if bias_rows else 2,
+                  gelu=int(epi in ("act", "act_only")),
+                  gelu_grad=aux if epi == "act" else None, mul=mul,
+                  out_f32=aux if epi == "mul" else None)
+
     def affine(self, x, scale, bias, out, d):
         err = self.lib.ffvc_affine_rows(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                                         out.data_ptr(), x.numel(), d, self.code, self.stream)
@@ -429,23 +491,29 @@ class _Launcher:
 
 
 def _block_forward(x, w, save):
-    """The block's launches; with `save`, the train forward's residuals too."""
+    """The block's launches; with `save`, the train forward's residuals too. ->
+    (out, residuals or None, the wgmma GEMMs launched)."""
     _check(x, w)
     x = x.contiguous()
     b, t, d = x.shape
     et, ec = w.t1.shape[0], w.w1.shape[0]
     k = _Launcher(x.device, x.dtype)
+
+    def route(name, *tensors):
+        return mixer_gemm_route(name, t, d, et, ec, x.dtype, tensors)
+
+    act = "act" if save else "act_only"
     with torch.cuda.device(x.device):
         xn = torch.empty_like(x)
         k.ln(x, w.ln1_w, w.ln1_b, xn, b * t, d)
         # token mixing, batched over B; weights shared (batch stride 0)
         g1 = k.empty(b, et, d)
         dg1 = k.empty(b, et, d) if save else None
-        k.gemm(w.t1, t, 0, xn, d, t * d, g1, d, et * d, et, d, t, b, bias=w.t1b, bias_mode=1,
-               gelu=1, gelu_grad=dg1)
+        k.mm(route("g1", w.t1, xn, g1, dg1), w.t1, xn, g1, et, d, t, act, b_mn_major=True,
+             batch=b, sb=t * d, sc=et * d, bias=w.t1b, bias_rows=True, aux=dg1)
         r = torch.empty_like(x)
-        k.gemm(w.t2, et, 0, g1, d, et * d, r, d, t * d, t, d, et, b, res=x, ldr=d, sr=t * d,
-               bias=w.t2b, bias_mode=1)
+        k.mm(route("r", w.t2, g1, r, x), w.t2, g1, r, t, d, et, "res", b_mn_major=True,
+             batch=b, sb=et * d, sc=t * d, bias=w.t2b, bias_rows=True, res=x)
         # channel mixing, batch folded into M = B*T rows; xn's buffer is reused.
         # The stacked layout's LN-hat (no affine) takes the centered order.
         rhat = torch.empty_like(x) if save else None
@@ -454,12 +522,13 @@ def _block_forward(x, w, save):
              centered=int(w.ln2_w is None))
         g3 = k.empty(b, t, ec)
         dg3 = k.empty(b, t, ec) if save else None
-        k.gemm(xn, d, 0, w.w1, d, 0, g3, ec, 0, b * t, ec, d, 1, b_kmajor=1, bias=w.b1,
-               bias_mode=2, gelu=1, gelu_grad=dg3)
+        k.mm(route("g3", xn, w.w1, g3, dg3), xn, w.w1, g3, b * t, ec, d, act, bias=w.b1,
+             aux=dg3)
         out = torch.empty_like(x)
-        k.gemm(g3, ec, 0, w.w2, ec, 0, out, d, 0, b * t, d, ec, 1, b_kmajor=1, res=r, ldr=d,
-               bias=w.b2, bias_mode=2)
-    return out, (MixerResiduals(g1, dg1, rhat, inv2, g3, dg3) if save else None)
+        k.mm(route("out", g3, w.w2, out, r), g3, w.w2, out, b * t, d, ec, "res", bias=w.b2,
+             res=r)
+    res = MixerResiduals(g1, dg1, rhat, inv2, g3, dg3) if save else None
+    return out, res, k.wgmma_launches
 
 
 def mixer_block(x, w: MixerBlockWeights):
@@ -468,8 +537,9 @@ def mixer_block(x, w: MixerBlockWeights):
     A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
     if x.device.type == "cpu":
         return mixer_block_plain(x, w)
-    out, _ = _block_forward(x, w, save=False)
+    out, _, wg = _block_forward(x, w, save=False)
     mixer_block.launches += 1
+    mixer_block.wgmma_launches += wg
     return out
 
 
@@ -483,8 +553,9 @@ def mixer_block_stacked(x, sp: StackedMixerWeights, block_idx: int):
         return mixer_block_stacked_plain(x, sp, block_idx)
     if not 0 <= block_idx < sp.t1.shape[0]:
         raise IndexError(f"block_idx {block_idx} outside the stack's {sp.t1.shape[0]} blocks")
-    out, _ = _block_forward(x, stacked_block_weights(sp, block_idx), save=False)
+    out, _, wg = _block_forward(x, stacked_block_weights(sp, block_idx), save=False)
     mixer_block_stacked.launches += 1
+    mixer_block_stacked.wgmma_launches += wg
     return out
 
 
@@ -495,8 +566,9 @@ def mixer_block_fwd_res(x, w: MixerBlockWeights):
     A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
     if x.device.type == "cpu":
         return mixer_block_fwd_res_plain(x, w)
-    out, res = _block_forward(x, w, save=True)
+    out, res, wg = _block_forward(x, w, save=True)
     mixer_block_fwd_res.launches += 1
+    mixer_block_fwd_res.wgmma_launches += wg
     return out, res
 
 
@@ -516,22 +588,28 @@ def mixer_channel_bwd(dout, res: MixerResiduals, w: MixerBlockWeights):
     _check_like("inv2", res.inv2, (b, t, 1), torch.float32, dev)
     bt = b * t
     k = _Launcher(dev, dt)
+
+    def route(name, *tensors):
+        return mixer_gemm_route(name, t, d, w.t1.shape[0], ec, dt, tensors)
+
     with torch.cuda.device(dev):
         doutd = dout.to(dt)
         # da3 = (dout W2) * gelu'(a3), rounded; its f32 value feeds db1
         da3, da3f = k.empty(bt, ec), k.empty(bt, ec, dtype=torch.float32)
-        k.gemm(doutd, d, 0, w.w2, ec, 0, da3, ec, 0, bt, ec, d, 1, mul=res.dg3,
-               out_f32=da3f)
+        k.mm(route("da3", doutd, w.w2, da3, res.dg3, da3f), doutd, w.w2, da3, bt, ec, d, "mul",
+             b_mn_major=True, mul=res.dg3, aux=da3f)
         # dW2 = dout^T g3 and dW1 = da3^T rn: the batch folded into K = B*T
         dw2 = k.empty(d, ec, dtype=torch.float32)
-        k.gemm(doutd, d, 0, res.g3, ec, 0, dw2, ec, 0, d, ec, bt, 1, a_mmajor=1, c_f32=1)
+        k.mm(route("dw2", doutd, res.g3, dw2), doutd, res.g3, dw2, d, ec, bt, "f32",
+             a_m_major=True, b_mn_major=True)
         rn = k.empty(bt, d)
         k.affine(res.rhat, w.ln2_w, w.ln2_b, rn, d)
         dw1 = k.empty(ec, d, dtype=torch.float32)
-        k.gemm(da3, ec, 0, rn, d, 0, dw1, d, 0, ec, d, bt, 1, a_mmajor=1, c_f32=1)
+        k.mm(route("dw1", da3, rn, dw1), da3, rn, dw1, ec, d, bt, "f32", a_m_major=True,
+             b_mn_major=True)
         # drn = da3 W1, then LN2's backward from the saved rhat and inverse std
         drn = k.empty(b, t, d, dtype=torch.float32)
-        k.gemm(da3, ec, 0, w.w1, d, 0, drn, d, 0, bt, d, ec, 1, c_f32=1)
+        k.mm(route("drn", da3, w.w1, drn), da3, w.w1, drn, bt, d, ec, "f32", b_mn_major=True)
         dr, prod = torch.empty_like(drn), torch.empty_like(drn)
         k.ln_bwd(drn, res.rhat, res.inv2, w.ln2_w, dout, dr, prod, bt, d)
         grads = ChannelGrads(
@@ -539,6 +617,7 @@ def mixer_channel_bwd(dout, res: MixerResiduals, w: MixerBlockWeights):
             w1=dw1, b1=k.col_sum(da3f, bt, ec), w2=dw2, b2=k.col_sum(dout, bt, d),
         )
     mixer_channel_bwd.launches += 1
+    mixer_channel_bwd.wgmma_launches += k.wgmma_launches
     return grads
 
 
@@ -592,6 +671,11 @@ mixer_block_stacked.launches = 0
 mixer_block_fwd_res.launches = 0
 mixer_channel_bwd.launches = 0
 mixer_token_bwd.launches = 0
+# the wgmma GEMMs launched inside the calls (mixer_gemm_route)
+mixer_block.wgmma_launches = 0
+mixer_block_stacked.wgmma_launches = 0
+mixer_block_fwd_res.wgmma_launches = 0
+mixer_channel_bwd.wgmma_launches = 0
 
 
 class MixerBlockTrain(torch.autograd.Function):

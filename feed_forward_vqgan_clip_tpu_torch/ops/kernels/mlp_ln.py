@@ -1,6 +1,6 @@
 """The pre-LN MLP sublayer of the CLIP ViT blocks on the card (K11): the LayerNorm
 rows and four GEMMs with fused epilogues, in bf16 on the Hopper GEMM of
-csrc/wgmma_gemm.cuh (TMA, wgmma; entry point `ffvc_wgmma_gemm` of csrc/mlp_ln.cu),
+csrc/wgmma_gemm.cuh (TMA, wgmma; ops/kernels/wgmma.py, shared with the Mixer block),
 with the LayerNorm backward rows and the fixed-order sums the Mixer kernels share.
 
 Replaces feed_forward_vqgan_clip_tpu/ops/pallas/mlp_ln.py: `mlp_ln` its
@@ -26,7 +26,7 @@ and the backward, the statistics recomputed from the saved x:
 Weights keep nn.Linear's (out, in) layout: fc1 and fc2 read them K-major, dgh
 and dxn MN-major (wgmma's transpose mode), so no transposed copy is made per
 step. In bf16 fc1, fc2, dgh and dxn run on the wgmma GEMM, whose tile width
-`wgmma_plan` picks per GEMM; the float32 route and the parameter-grad GEMMs (dW1,
+`wgmma.wgmma_plan` picks per GEMM; the float32 route and the parameter-grad GEMMs (dW1,
 dW2: an M-major A) run on the WMMA tile of csrc/mixer_tile.cuh. The backward
 recomputes the LN statistics from the saved x (as the TPU kernel does; no `inv`
 is saved). The parameter grads are computed only where asked for: the frozen
@@ -44,25 +44,19 @@ The float32 kernels take any shape; the bf16 ones need D and E multiples of 8
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
-from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build, wgmma
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     _check_like,
-    _gelu_grad,
     _Launcher,
     _ln_bwd_plain,
     _ln_stats,
     _ptr,
     split_k_plan,
 )
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.wgmma import ACTIVATIONS, act_val_grad
 
-ACTIVATIONS = {"gelu": 0, "quick_gelu": 1}  # csrc/common.cuh Activation
 _ROW_TILES = (512, 448, 384, 320, 256, 192, 128, 64, 32, 16)
-# csrc/wgmma_gemm.cuh: output rows of a tile, the tile widths compiled, the epilogues
-WGMMA_ROWS = 128
-WGMMA_WIDTHS = (128, 192)
-_EPILOGUES = {"act": 0, "res": 1, "mul": 2, "f32": 3}  # WgmmaEpilogue
 
 
 def mlp_ln_supported(n: int, d: int, e: int) -> bool:
@@ -75,22 +69,6 @@ def mlp_ln_supported(n: int, d: int, e: int) -> bool:
         return False
     vmem = 2 * d * e * 2 + 3 * r * d * 4 + 3 * r * e * 4 + d * e * 4 * 2
     return vmem <= 100 * 1024 * 1024
-
-
-def wgmma_plan(m: int, n: int, sms: int):
-    """(tile width, persistent CTAs) of the wgmma GEMM for an (m, n) output on `sms`
-    SMs: the width of WGMMA_WIDTHS whose tiles take the least time in whole waves,
-    waves x width (a tile's time grows with its width), the narrower on a tie. At
-    the train loss's 3200 rows: N = 3072 takes 128 (600 tiles, 5 waves on 132
-    SMs: 5 x 128 against 4 x 192), N = 768 takes 192 (100 tiles, one wave: 1 x 192
-    against 2 x 128)."""
-    best = None
-    for bn in WGMMA_WIDTHS:
-        tiles = -(-m // WGMMA_ROWS) * -(-n // bn)
-        cost = -(-tiles // sms) * bn
-        if best is None or cost < best[0]:
-            best = (cost, bn, min(tiles, sms))
-    return best[1], best[2]
 
 
 class MlpLnWeights(NamedTuple):
@@ -124,16 +102,6 @@ class MlpLnGrads(NamedTuple):
 # ---------------------------------------------------------------- plain versions
 
 
-def _act_val_grad(h, act):
-    """(act(h), act'(h)) in f32: quick_gelu's s = sigmoid(1.702 h), h s and
-    s + 1.702 h s (1 - s) (`_quick_gelu_val_grad`), or exact gelu and its derivative."""
-    if act == "quick_gelu":
-        s = torch.sigmoid(1.702 * h)
-        val = h * s
-        return val, s + 1.702 * val * (1.0 - s)
-    return F.gelu(h), _gelu_grad(h)
-
-
 def mlp_ln_plain(x, w: MlpLnWeights, act="quick_gelu"):
     """`_fwd_kernel` in plain PyTorch: x (rows, D) -> (out, g, dg) in x's dtype.
     Products in float32 (exact for bf16 operands), rounded where the kernel rounds."""
@@ -141,7 +109,7 @@ def mlp_ln_plain(x, w: MlpLnWeights, act="quick_gelu"):
     xhat, _ = _ln_stats(x)
     xn = (xhat * w.ln_w + w.ln_b).to(dt)
     h = xn.float() @ w.w1.float().T + w.b1
-    g, dg = (v.to(dt) for v in _act_val_grad(h, act))
+    g, dg = (v.to(dt) for v in act_val_grad(h, act))
     return x + (g.float() @ w.w2.float().T + w.b2).to(dt), g, dg
 
 
@@ -182,23 +150,6 @@ def _check(x, w: MlpLnWeights):
                          f"strides), got D={d}, E={e}")
 
 
-def _wgmma(k, a, b, b_mn_major, c, m, n, kdim, epi, *, bias=None, res=None, mul=None, aux=None,
-           act=0, bn=None):
-    """One bf16 GEMM of csrc/wgmma_gemm.cuh: c (m, n) = a (m, kdim) . b, b K-major (n,
-    kdim) or MN-major (kdim, n), with epilogue `epi` of _EPILOGUES; the tile width
-    `wgmma_plan`'s, or `bn` of WGMMA_WIDTHS where given."""
-    for t in (a, b, c, res, mul, aux):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError("the wgmma GEMM's operands need 16-byte-aligned bases (TMA)")
-    planned, grid = wgmma_plan(m, n, k.sms)
-    if bn is not None and bn != planned:
-        grid = min(-(-m // WGMMA_ROWS) * -(-n // bn), k.sms)
-    bn = bn or planned
-    build.check(k.lib.ffvc_wgmma_gemm(
-        a.data_ptr(), b.data_ptr(), b_mn_major, c.data_ptr(), m, n, kdim, _EPILOGUES[epi],
-        _ptr(bias), _ptr(res), _ptr(mul), _ptr(aux), act, bn, grid, k.stream), "ffvc_wgmma_gemm")
-
-
 def mlp_ln(x, w: MlpLnWeights, act="quick_gelu"):
     """The sublayer forward, x (rows, D) -> (out, g, dg) in x's dtype: out the
     sublayer's output, g and dg the activation's value and derivative (E wide)
@@ -220,8 +171,8 @@ def mlp_ln(x, w: MlpLnWeights, act="quick_gelu"):
         g, dg = k.empty(n, e), k.empty(n, e)
         out = torch.empty_like(x)
         if x.dtype == torch.bfloat16:
-            _wgmma(k, xn, w.w1, 0, g, n, e, d, "act", bias=w.b1, aux=dg, act=ACTIVATIONS[act])
-            _wgmma(k, g, w.w2, 0, out, n, d, e, "res", bias=w.b2, res=x)
+            wgmma.gemm(k, xn, w.w1, g, n, e, d, "act", bias=w.b1, aux=dg, act=ACTIVATIONS[act])
+            wgmma.gemm(k, g, w.w2, out, n, d, e, "res", bias=w.b2, res=x)
         else:
             splits, k_per_split = split_k_plan(n, e, d, 1, x.dtype, k.sms)
             work = k.empty(splits * n * e, dtype=torch.float32) if splits > 1 else None
@@ -258,8 +209,8 @@ def mlp_ln_bwd(dy, x, g, dg, w: MlpLnWeights, params=True):
         daf = k.empty(n, e, dtype=torch.float32) if params else None
         dxn = k.empty(n, d, dtype=torch.float32)
         if dt == torch.bfloat16:  # W2 (D, E) as (K=D, N=E) and W1 (E, D) as (K=E, N=D)
-            _wgmma(k, dyd, w.w2, 1, da, n, e, d, "mul", mul=dg, aux=daf)
-            _wgmma(k, da, w.w1, 1, dxn, n, d, e, "f32")
+            wgmma.gemm(k, dyd, w.w2, da, n, e, d, "mul", b_mn_major=True, mul=dg, aux=daf)
+            wgmma.gemm(k, da, w.w1, dxn, n, d, e, "f32", b_mn_major=True)
         else:
             k.gemm(dyd, d, 0, w.w2, e, 0, da, e, 0, n, e, d, 1, mul=dg, out_f32=daf)
             k.gemm(da, e, 0, w.w1, d, 0, dxn, d, 0, n, d, e, 1, c_f32=1)

@@ -14,7 +14,11 @@ within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
 kernels f32 within 1e-4 and bf16 within 3e-2 of max |plain| (the same taps and
 weights, sums in another order, one bf16 rounding), at equal and at different
 input and output frames; the tiny slice, f32, within 1e-3 of the CPU module
-path. The pools' backward, the tiny trainer's steps and the plain-PyTorch
+path. The wgmma GEMM alone (ops/kernels/wgmma.py) against `gemm_reference`:
+float32 outputs within 1e-5 of max |reference| (the same bf16 products summed
+in another order), bf16 outputs within 8e-3 (a rounding or two of the largest
+value); the GELU epilogue without its derivative equal to the one with it, bit
+for bit. The pools' backward, the tiny trainer's steps and the plain-PyTorch
 backwards of Et, Ts and R (no kernel of their own: a sorted fixed-order segment
 sum and weight-matrix products) must repeat bit for bit. The dot-product test of
 K9 and K10 in float32: |<K9 x, g> - <x, K10 g>| within 1e-5 of sum |terms|.
@@ -34,10 +38,12 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.ops import augment, pooling
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     ChannelGrads,
     MixerResiduals,
     TokenGrads,
+    _Launcher,
     mixer_block,
     mixer_block_fwd_res,
     mixer_block_fwd_res_plain,
@@ -48,6 +54,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     mixer_channel_bwd_plain,
     mixer_token_bwd,
     mixer_token_bwd_plain,
+    mixer_gemm_routes,
     stack_mixer_params,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
@@ -156,6 +163,7 @@ def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
     x = torch.from_numpy(rng.normal(size=(b, s * s, d)).astype(np.float32)).to(cuda, dtype)
     tol = 1e-3 if dtype == torch.float32 else 3e-2
     counts = (mixer_block_fwd_res.launches, mixer_channel_bwd.launches, mixer_token_bwd.launches)
+    wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches)
     out, res = mixer_block_fwd_res(x, w)
     assert torch.equal(out, mixer_block(x, w))
     ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
@@ -176,6 +184,97 @@ def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
         assert torch.equal(getattr(tok, name), getattr(again, name)), name
     assert (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
             mixer_token_bwd.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
+    # each GEMM on the tile its route names: the forward's four, K7's four (twice)
+    routes = mixer_gemm_routes(s * s, d, w.t1.shape[0], w.w1.shape[0], dtype)
+    on_wgmma = [routes[n] == "wgmma" for n in ("g1", "r", "g3", "out", "da3", "drn", "dw2", "dw1")]
+    assert (mixer_block_fwd_res.wgmma_launches - wg[0],
+            mixer_channel_bwd.wgmma_launches - wg[1]) == (sum(on_wgmma[:4]), 2 * sum(on_wgmma[4:]))
+
+
+def _bf16(rng, *shape, std=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * std).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+
+
+@pytest.mark.parametrize("bn", wgmma.WGMMA_WIDTHS)
+@pytest.mark.parametrize("m", [56, 104, 304])
+def test_wgmma_transposed_a_matches_reference(cuda, m, bn):
+    """The weight grads' GEMM (A M-major, B MN-major, f32 out; K7's dW2 and dW1)
+    at ragged M (56: the second consumer's box wholly outside, 104, 304), N = 136
+    and K = 200 (ragged against 128 / 192 and 64) against `gemm_reference`, the
+    same bits on a second run."""
+    rng = np.random.default_rng(m + bn)
+    n, kk = 136, 200
+    a, b = _bf16(rng, kk, m), _bf16(rng, kk, n)
+    k = _Launcher(cuda, torch.bfloat16)
+    c, again = (torch.empty(m, n, device=cuda) for _ in range(2))
+    for out in (c, again):
+        wgmma.gemm(k, a, b, out, m, n, kk, "f32", a_m_major=True, b_mn_major=True, bn=bn)
+    ref, _ = wgmma.gemm_reference(a, b, "f32", a_m_major=True, b_mn_major=True)
+    assert _rel(c, ref) <= 1e-5 and torch.equal(c, again)
+
+
+@pytest.mark.parametrize("bn", wgmma.WGMMA_WIDTHS)
+@pytest.mark.parametrize("epi", ["act", "act_only", "res"])
+def test_wgmma_batched_row_bias_matches_reference(cuda, epi, bn):
+    """The token GEMMs' form: a weight shared by the batch (stride 0), a batched
+    MN-major B, a per-row bias (far from symmetric), B = 3, M = 200, N = 136, K = 72
+    (all ragged against the tiles); GELU with its derivative (K6), without it (K2:
+    the same output bits) and the residual epilogue, against `gemm_reference`."""
+    rng = np.random.default_rng(3 + bn)
+    batch, m, n, kk = 3, 200, 136, 72
+    a, b = _bf16(rng, m, kk, std=kk ** -0.5), _bf16(rng, batch, kk, n)
+    bias = torch.linspace(-2, 1, m, device=cuda)
+    res = _bf16(rng, batch, m, n)
+    k = _Launcher(cuda, torch.bfloat16)
+    c, aux = (torch.empty(batch, m, n, dtype=torch.bfloat16, device=cuda) for _ in range(2))
+    kw = dict(b_mn_major=True, batch=batch, sb=kk * n, sc=m * n, bias=bias, bias_rows=True)
+    wgmma.gemm(k, a, b, c, m, n, kk, epi, res=res if epi == "res" else None,
+               aux=aux if epi == "act" else None, bn=bn, **kw)
+    ref, ref_aux = wgmma.gemm_reference(a, b, epi, res=res, **{
+        key: v for key, v in kw.items() if key in ("b_mn_major", "bias", "bias_rows")})
+    assert _rel(c, ref) <= 8e-3
+    if epi == "act":
+        assert _rel(aux, ref_aux) <= 8e-3
+        only = torch.empty_like(c)
+        wgmma.gemm(k, a, b, only, m, n, kk, "act_only", bn=bn, **kw)
+        assert torch.equal(only, c)
+
+
+@pytest.mark.parametrize("bn", wgmma.WGMMA_WIDTHS)
+def test_wgmma_column_epilogues_at_ragged_edges(cuda, bn):
+    """The channel GEMMs' forms at M = 100, N = 200: K-major B with GELU (and
+    without its derivative) and the residual; MN-major B with the mul epilogue
+    and its f32 copy (da3) and the f32 output (drn)."""
+    rng = np.random.default_rng(bn)
+    m, n, kk = 100, 200, 96
+    a = _bf16(rng, m, kk, std=kk ** -0.5)
+    wk, wn = _bf16(rng, n, kk), _bf16(rng, kk, n)
+    bias = torch.linspace(-1, 1, n, device=cuda)
+    res, mul = _bf16(rng, m, n), _bf16(rng, m, n)
+    k = _Launcher(cuda, torch.bfloat16)
+    new = lambda dt=torch.bfloat16: torch.empty(m, n, dtype=dt, device=cuda)  # noqa: E731
+    c, aux, only, out = new(), new(), new(), new()
+    wgmma.gemm(k, a, wk, c, m, n, kk, "act", bias=bias, aux=aux, bn=bn)
+    wgmma.gemm(k, a, wk, only, m, n, kk, "act_only", bias=bias, bn=bn)
+    wgmma.gemm(k, a, wk, out, m, n, kk, "res", bias=bias, res=res, bn=bn)
+    ref, ref_aux = wgmma.gemm_reference(a, wk, "act", bias=bias)
+    assert _rel(c, ref) <= 8e-3 and _rel(aux, ref_aux) <= 8e-3 and torch.equal(only, c)
+    assert _rel(out, wgmma.gemm_reference(a, wk, "res", bias=bias, res=res)[0]) <= 8e-3
+    prod, vf, f32 = new(), new(torch.float32), new(torch.float32)
+    wgmma.gemm(k, a, wn, prod, m, n, kk, "mul", b_mn_major=True, mul=mul, aux=vf, bn=bn)
+    wgmma.gemm(k, a, wn, f32, m, n, kk, "f32", b_mn_major=True, bn=bn)
+    ref, ref_vf = wgmma.gemm_reference(a, wn, "mul", b_mn_major=True, mul=mul)
+    assert _rel(prod, ref) <= 8e-3 and _rel(vf, ref_vf) <= 1e-5
+    assert _rel(f32, wgmma.gemm_reference(a, wn, "f32", b_mn_major=True)[0]) <= 1e-5
+
+
+def test_wgmma_gemm_raises_on_a_misaligned_base(cuda):
+    k = _Launcher(cuda, torch.bfloat16)
+    a = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(64, 64)
+    b = torch.zeros(64, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        wgmma.gemm(k, a, b, torch.empty(64, 64, device=cuda), 64, 64, 64, "f32")
 
 
 def _random_mapper(s, d, depth, dtype, seed):
