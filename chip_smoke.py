@@ -12,7 +12,8 @@
    counts the HGMMA (wgmma) instructions of each instantiation of the Hopper
    GEMM (csrc/wgmma_gemm.cuh) in the library's SASS (cuobjdump, where the
    toolkit has it), with the GEMMs of K11 and of the Mixer kernels that
-   launch it; fails if one the paths launch holds none.
+   launch it, and in K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu);
+   fails if one the paths launch holds none.
 3. [vq] VQ kernel against its plain version on the card (stated near-tie rule).
 4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
    and bf16, with its GEMMs' routes (mixer_block.mixer_gemm_route) and as many
@@ -21,7 +22,8 @@
    token backward) against their plain versions, float32 and bf16; the train
    forward's output equal to the inference block's; two backward runs bitwise
    equal; the wgmma GEMMs each call launched (the wrappers' `wgmma_launches`)
-   equal to its routes', 4 in K6 and 4 in K7 at the flagship's B=8 in bf16.
+   equal to its routes', 4 in K6, 4 in K7 and 4 in K8 at the flagship's B=8 in
+   bf16.
 6. [warp] The warp forward (K9) and its adjoint (K10) against their plain
    versions at the train step's shape (64 crops of 224x224x3 with real Af and Pe
    draws), bf16 and float32, and on a horizon-crossing and a far-overshoot draw
@@ -33,8 +35,14 @@
    = <x, K10 g> in float32.
 7. [stream] The whole-stack Mixer kernel (K4, one launch for 32 blocks)
    against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
-   at B=1 and 4, float32 and bf16; two K4 launches bitwise equal; the
-   stacked-layout block (K5) against its plain version at B=4, blocks 0 and 31.
+   at B=1 and 4, float32 and bf16, with its route and launch plan (bf16: one
+   persistent wgmma CTA per SM, the GEMM phases' tiles and K splits, the grid
+   barriers); bf16 also at T=49 on the WMMA-tile route (rows TMA cannot read);
+   bf16 within a ceiling of ||err||/||plain|| too, which a planted fault (one
+   block's bias dropped) exceeds, over three more draws for every bf16 way to
+   the stack (K4 under three plans, the tile-route K4, 32 x K2); two K4
+   launches bitwise equal; the stacked-layout block (K5) against its plain
+   version at B=4, blocks 0 and 31.
 8. [mlp-ln] The CLIP MLP sublayer (K11) forward, and its backward with dx
    alone and with the six parameter grads, against their plain versions at the
    train loss's shape (3200 x 768 x 3072, quick_gelu), at 100 rows of the same
@@ -45,9 +53,11 @@
 9. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
    each kernel's bound; for the warps also grid_sample's forward and backward,
    square (224 -> 224) and rectangular (256 -> 224, Re draws);
-   K4 beside 32 x K2 and 32 x K5 at the same batch; K11 beside the eager
-   module sublayer (ln_2 -> mlp) forward and backward, each with its TFLOP/s;
-   `[time] Mixer GEMM`: each GEMM of K6 and K7 at B=8 and of K2 at B=1, 4, 16
+   K4 (eager and from a CUDA graph; its plan against the plan without
+   split-K) beside 32 x K2 (eager and from one CUDA graph) and 32 x K5 at the
+   same batch; K11 beside the eager module sublayer (ln_2 -> mlp) forward and
+   backward, each with its TFLOP/s;
+   `[time] Mixer GEMM`: each GEMM of K6, K7 and K8 at B=8 and of K2 at B=1, 4, 16
    alone, on the wgmma GEMM at each tile width (the planned one marked), on the
    WMMA tile, and as one bf16 torch.matmul (cuBLAS, a yardstick on no path);
    K10 on the Af, Pe and rectangular draws beside grid_sample's input gradient.
@@ -111,6 +121,13 @@ import time
 # f32 tolerances are ceilings relative to the reference's largest magnitude
 MIXER_F32_TOL = 1e-3
 MIXER_BF16_TOL = 3e-2
+# K4 in bf16 (32 blocks): ||err|| / ||plain|| beside the max-abs ceiling, a limit
+# between every bf16 way to the stack (1.90-2.08e-2 on an H100) and a planted fault
+# (the plain version with one of these blocks' b2 dropped: from 2.69e-2) (PERF.md);
+# fresh draws of the error study
+MIXER_BF16_REL_L2 = 2.4e-2
+STREAM_CONTROL_BLOCKS = (0, 31)
+STREAM_ERROR_DRAWS = 3
 # the warps: the same taps and weights as the plain versions, sums in another order
 WARP_F32_TOL = 1e-4
 WARP_BF16_TOL = 3e-2
@@ -123,6 +140,7 @@ REQUEST_BATCHES = (1, 4, 16)
 STREAM_DEPTH = 32  # the flagship Mixer's blocks
 FORWARD_GEMMS = ("g1", "r", "g3", "out")  # K2, K5, K6 (mixer_block.MIXER_GEMMS)
 CHANNEL_BWD_GEMMS = ("da3", "drn", "dw2", "dw1")  # K7
+TOKEN_BWD_GEMMS = ("da1", "dxn", "dt2", "dt1")  # K8
 STREAM_BATCHES = (1, 4)
 SERVE_GRIDS = ("1x1", "2x2", "4x4")
 SERVE_REQUESTS = 3
@@ -142,8 +160,12 @@ WGMMA_EPILOGUES = ("act", "res", "mul", "f32", "act_only")
 WGMMA_USERS = {
     (0, 0, 0): "K11 fc1, K6 g3", (0, 0, 4): "K2/K5 g3", (0, 0, 1): "K11 fc2, K2/K5/K6 out",
     (0, 1, 0): "K6 g1", (0, 1, 4): "K2/K5 g1", (0, 1, 1): "K2/K5/K6 r",
-    (0, 1, 2): "K11 dgh, K7 da3", (0, 1, 3): "K11 dxn, K7 drn", (1, 1, 3): "K7 dW2, K7 dW1",
+    (0, 1, 2): "K11 dgh, K7 da3", (0, 1, 3): "K11 dxn, K7 drn",
+    (1, 1, 3): "K7 dW2, K7 dW1, K8 dxn", (1, 1, 2): "K8 da1", (0, 0, 3): "K8 dt2, K8 dt1",
 }
+# K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu), which runs the GEMM's tile
+# walk inside itself
+STREAM_WGMMA_KERNEL = "mixer_stream_wgmma_kernel"
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -270,6 +292,10 @@ def phase_build():
         if missing:
             raise AssertionError(f"wgmma GEMM instantiations without HGMMA instructions: "
                                  f"{[WGMMA_USERS[k] for k in missing]}")
+        stream = sum(n for k, n in counts.items() if STREAM_WGMMA_KERNEL in k)
+        log(f"[build] {STREAM_WGMMA_KERNEL} (K4, bf16): {stream} HGMMA")
+        if not stream:
+            raise AssertionError("K4's bf16 kernel holds no HGMMA instruction")
     else:
         log("[build] cuobjdump not found: the SASS is not inspected")
 
@@ -405,24 +431,26 @@ def phase_mixer_train(gen):
             w = random_block_weights(t, d, dtype, gen)
             x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
             dout = torch.randn(b, t, d, generator=gen, device="cuda")
-            wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches)
+            wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches,
+                  mixer_token_bwd.wgmma_launches)
             out, res = mixer_block_fwd_res(x, w)
             ch = mixer_channel_bwd(dout, res, w)
+            tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
             launched = (mixer_block_fwd_res.wgmma_launches - wg[0],
-                        mixer_channel_bwd.wgmma_launches - wg[1])
+                        mixer_channel_bwd.wgmma_launches - wg[1],
+                        mixer_token_bwd.wgmma_launches - wg[2])
             routes = mixer_gemm_routes(t, d, 4 * t, 4 * d, dtype)
-            want = (sum(routes[n] == "wgmma" for n in FORWARD_GEMMS),
-                    sum(routes[n] == "wgmma" for n in CHANNEL_BWD_GEMMS))
-            if (b, t, d, dtype) == (8, 256, 1024, torch.bfloat16) and want != (4, 4):
-                raise AssertionError(f"the flagship's K6 / K7 GEMM routes at B=8: {routes}")
+            want = tuple(sum(routes[n] == "wgmma" for n in names)
+                         for names in (FORWARD_GEMMS, CHANNEL_BWD_GEMMS, TOKEN_BWD_GEMMS))
+            if (b, t, d, dtype) == (8, 256, 1024, torch.bfloat16) and want != (4, 4, 4):
+                raise AssertionError(f"the flagship's K6 / K7 / K8 GEMM routes at B=8: {routes}")
             log(f"[mixer-train] B={b} T={t} D={d} {str(dtype)[6:]}: wgmma GEMMs launched by K6 "
-                f"{launched[0]}, by K7 {launched[1]} (routes {routes})")
+                f"{launched[0]}, by K7 {launched[1]}, by K8 {launched[2]} (routes {routes})")
             if launched != want:
                 raise AssertionError(f"wgmma launches {launched}, the routes {want}")
             if not torch.equal(out, mixer_block(x, w)):
                 raise AssertionError(f"train forward output differs from mixer_block at "
                                      f"{(b, t, d)} {dtype}")
-            tok = mixer_token_bwd(ch.dr, x, res.g1, res.dg1, w)
             ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
             pairs = {
                 "mixer_fwd_res": [(out, ref_out)] + list(zip(res, ref_res)),
@@ -598,10 +626,68 @@ def flagship_stack(gen, dtype):
     return per_block, stack_mixer_params(blocks, dtype)
 
 
+def stream_err(got, ref):
+    """(max abs err, max abs err / max|plain|, ||err|| / ||plain||) of `got`
+    against the plain version's `ref`."""
+    diff = got.float() - ref.float()
+    err = diff.abs().max().item()
+    return err, err / ref.float().abs().max().item(), (diff.norm() / ref.float().norm()).item()
+
+
+def stream_error_study(gen, per_block, sp, b):
+    """Every bf16 way to the flagship stack on one input x (B=b): the wgmma K4
+    under its planner's plan, under the plan of half the SMs and with every K
+    whole, the tile-route K4 (csrc/mixer_stream.cu) and 32 x K2 on the
+    per-block weights (LN2 unfolded), each against the plain version ->
+    {way: stream_err}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mixer_stream as stream_module
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+
+    t, d = 256, 1024
+    et, ec = sp.t1.shape[1], sp.w1f.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    x = torch.randn(b, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    ref = stream_module.mixer_stream_plain(x, sp)
+    plans = {}
+    for label, n in (("planner's", sms), ("half the SMs'", sms // 2), ("K whole", 1)):
+        plan = stream_module.stream_plan(b, t, d, et, ec, n)
+        if plan not in plans.values():
+            plans[label] = plan
+    readings = {}
+    with torch.cuda.device(x.device):
+        for label, plan in plans.items():
+            readings[f"wgmma K4, {label} plan {plan.splits}"] = stream_err(
+                stream_module._launch_wgmma(x, sp, plan), ref)
+        readings["tile-route K4"] = stream_err(stream_module._launch_tile(x, sp), ref)
+    h = x
+    for w in per_block:
+        h = mixer_block(h, w)
+    readings["32 x K2"] = stream_err(h, ref)
+    return readings
+
+
+def dropped_bias_control(x, got, sp, block):
+    """The planted fault the error measure must catch: the plain version with
+    block `block`'s channel bias b2 dropped, against the kernel's `got` on the
+    whole weights -> stream_err."""
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream_plain
+
+    b2 = sp.b2.clone()
+    b2[block] = 0
+    return stream_err(got, mixer_stream_plain(x, sp._replace(b2=b2)))
+
+
 def phase_stream(gen):
     """K4 against its plain version (K5's plain version over the depth) at the
     flagship shape, full depth, B=1 and 4, float32 and bf16, each within its
-    ceiling of max |plain|; two K4 launches bitwise equal; K5 against its plain
+    ceiling of max |plain|, bf16 also within MIXER_BF16_REL_L2 of ||plain||;
+    two K4 launches bitwise equal; a planted fault (one block's b2 dropped)
+    beyond MIXER_BF16_REL_L2. bf16 at T=49 (a 7 x 7 token grid, rows TMA cannot
+    read) on the WMMA-tile route, the same checks. The error of every bf16 way
+    to the flagship stack (stream_error_study) on STREAM_ERROR_DRAWS draws of
+    weights and input, each within MIXER_BF16_REL_L2. K5 against its plain
     version at B=4 for the first and last block. -> {kernel name: max abs err at
     B=4 in bf16}."""
     import torch
@@ -609,23 +695,43 @@ def phase_stream(gen):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block_stacked,
         mixer_block_stacked_plain,
+        stack_mixer_params,
     )
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+        STREAM_GEMMS,
         barriers_per_launch,
         gemm_plans,
         mixer_stream,
         mixer_stream_plain,
         stream_grid,
+        stream_plan,
+        stream_route,
     )
 
     def check(label, got, ref, tol):
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        log(f"[stream] {label}: max abs err {err:.3e}, max|plain| {scale:.3e}, ratio "
-            f"{err / scale:.3e} (ceiling {tol:g})")
-        if not (torch.isfinite(got).all().item() and err <= tol * scale):
+        err, ratio, rel = stream_err(got, ref)
+        bf16 = got.dtype == torch.bfloat16
+        log(f"[stream] {label}: max abs err {err:.3e}, max|plain| {err / ratio:.3e}, ratio "
+            f"{ratio:.3e} (ceiling {tol:g}), ||err||/||plain|| {rel:.3e}"
+            + (f" (limit {MIXER_BF16_REL_L2:g})" if bf16 else ""))
+        if not (torch.isfinite(got).all().item() and ratio <= tol
+                and (not bf16 or rel <= MIXER_BF16_REL_L2)):
             raise AssertionError(f"{label} disagrees with its plain version")
         return err
+
+    def k4_twice(label, x, sp, tol, route):
+        before = mixer_stream.launches
+        got = mixer_stream(x, sp)
+        again = mixer_stream(x, sp)
+        torch.cuda.synchronize()
+        if mixer_stream.launches - before != 2:
+            raise AssertionError("mixer_stream did not launch once per call")
+        if stream_route(x, sp) != route:
+            raise AssertionError(f"{label} took route {stream_route(x, sp)}, not {route}")
+        err = check(label, got, mixer_stream_plain(x, sp), tol)
+        if not torch.equal(got, again):
+            raise AssertionError(f"two K4 launches differ at {label}")
+        return got, err
 
     worst = {"mixer_stream": 0.0, "mixer_block_stacked": 0.0}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -634,29 +740,59 @@ def phase_stream(gen):
         _, sp = flagship_stack(gen, dtype)
         for b in STREAM_BATCHES:
             x = torch.randn(b, 256, 1024, generator=gen, device="cuda").to(dtype)
-            before = mixer_stream.launches
-            got = mixer_stream(x, sp)
-            again = mixer_stream(x, sp)
-            torch.cuda.synchronize()
-            if mixer_stream.launches - before != 2:
-                raise AssertionError("mixer_stream did not launch once per call")
-            plans = gemm_plans(b, 256, 1024, 1024, 4096, dtype, sms)
-            log(f"[stream] K4 B={b} {name}: one launch of {stream_grid(x.device, dtype)} blocks, "
-                f"{barriers_per_launch(STREAM_DEPTH, plans)} grid barriers, split-K plans "
-                f"{plans}")
-            err = check(f"K4 B={b} T=256 D=1024 L={STREAM_DEPTH} {name}", got,
-                        mixer_stream_plain(x, sp), tol)
-            if not torch.equal(got, again):
-                raise AssertionError(f"two K4 launches differ at B={b} {name}")
+            route = stream_route(x, sp)
+            if route == "wgmma":
+                plan = stream_plan(b, 256, 1024, 1024, 4096, sms)
+                log(f"[stream] K4 B={b} {name}: route wgmma, one launch of "
+                    f"{stream_grid(x.device, dtype, route)} persistent CTAs (384 threads), per "
+                    f"block LN1 -> g1 -> r -> LN-hat -> g3 -> out; 128 x 128 tiles "
+                    f"{dict(zip(STREAM_GEMMS, plan.tiles))}, split-K "
+                    f"{dict(zip(STREAM_GEMMS, plan.splits))} of "
+                    f"{dict(zip(STREAM_GEMMS, plan.k_split))} K steps of 64; "
+                    f"{plan.barriers(STREAM_DEPTH)} grid barriers")
+            else:
+                plans = gemm_plans(b, 256, 1024, 1024, 4096, dtype, sms)
+                log(f"[stream] K4 B={b} {name}: route {route}, one launch of "
+                    f"{stream_grid(x.device, dtype)} blocks, "
+                    f"{barriers_per_launch(STREAM_DEPTH, plans)} grid barriers, split-K plans "
+                    f"{plans}")
+            got, err = k4_twice(f"K4 B={b} T=256 D=1024 L={STREAM_DEPTH} {name}", x, sp, tol,
+                                route)
             if dtype == torch.bfloat16 and b == 4:
                 worst["mixer_stream"] = err
+            if dtype == torch.bfloat16 and b == 1:
+                for block in STREAM_CONTROL_BLOCKS:
+                    _, c_ratio, c_rel = dropped_bias_control(x, got, sp, block)
+                    log(f"[stream] planted fault, block {block}'s b2 dropped from the plain "
+                        f"version, B={b}: max abs err / max|plain| {c_ratio:.3e}, "
+                        f"||err||/||plain|| {c_rel:.3e} (must exceed {MIXER_BF16_REL_L2:g})")
+                    if not c_rel > MIXER_BF16_REL_L2:
+                        raise AssertionError("the bf16 error limit misses a dropped bias")
         x = torch.randn(4, 256, 1024, generator=gen, device="cuda").to(dtype)
         for idx in (0, STREAM_DEPTH - 1):
             err = check(f"K5 B=4 block {idx} {name}", mixer_block_stacked(x, sp, idx),
                         mixer_block_stacked_plain(x, sp, idx), tol)
             if dtype == torch.bfloat16:
                 worst["mixer_block_stacked"] = max(worst["mixer_block_stacked"], err)
-    log("[stream] two K4 launches bitwise equal at every batch and dtype")
+    # bf16 at a shape TMA cannot read (T=49: t1's rows of 49): the WMMA-tile K4
+    blocks = [random_block_weights(49, 1024, torch.float32, gen) for _ in range(STREAM_DEPTH)]
+    sp = stack_mixer_params(blocks, torch.bfloat16)
+    del blocks
+    for b in STREAM_BATCHES:
+        x = torch.randn(b, 49, 1024, generator=gen, device="cuda").to(torch.bfloat16)
+        log(f"[stream] K4 B={b} T=49 bf16: route wmma, split-K plans "
+            f"{gemm_plans(b, 49, 1024, 196, 4096, torch.bfloat16, sms)}")
+        k4_twice(f"K4 B={b} T=49 D=1024 L={STREAM_DEPTH} bf16", x, sp, MIXER_BF16_TOL, "wmma")
+    # the bf16 error of every way to the flagship stack, over fresh draws
+    for draw in range(STREAM_ERROR_DRAWS):
+        per_block, sp = flagship_stack(gen, torch.bfloat16)
+        for b in STREAM_BATCHES:
+            for way, (_, ratio, rel) in stream_error_study(gen, per_block, sp, b).items():
+                log(f"[stream] bf16 error, draw {draw}, B={b}, {way}: max abs err / max|plain| "
+                    f"{ratio:.3e}, ||err||/||plain|| {rel:.3e} (limit {MIXER_BF16_REL_L2:g})")
+                if not rel <= MIXER_BF16_REL_L2:
+                    raise AssertionError(f"{way} disagrees with the plain version, draw {draw}")
+    log("[stream] two K4 launches bitwise equal at every batch, dtype and route")
     return worst
 
 
@@ -858,10 +994,13 @@ def phase_timing(gen, smi):
 
 
 def stream_timing(gen, smi, record):
-    """K4 at B=1 and 4 (beside 32 x K2 and 32 x K5 on the same weights) and K5 at
-    B=4, bf16, full depth; -> {kernel name: row} at B=4."""
+    """K4 at B=1 and 4 (eager and from a CUDA graph, and its plan against the
+    plan without split-K in turns; beside 32 x K2, eager and from one CUDA
+    graph, and 32 x K5 on the same weights) and K5 at B=4, bf16, full depth;
+    -> {kernel name: row} at B=4."""
     import torch
 
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mixer_stream as stream_module
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         StackedMixerWeights,
         mixer_block,
@@ -871,9 +1010,11 @@ def stream_timing(gen, smi, record):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
         mixer_stream,
         mixer_stream_plain,
+        stream_plan,
     )
 
     t, d, et, ec = 256, 1024, 1024, 4096
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     per_block, sp = flagship_stack(gen, torch.bfloat16)
     rows = {}
     for b in STREAM_BATCHES:
@@ -894,12 +1035,20 @@ def stream_timing(gen, smi, record):
         k_ms, p_ms = paired_ms(lambda: mixer_stream(x, sp), lambda: mixer_stream_plain(x, sp))
         k5_ms, k2_ms = paired_ms(k5_stack, k2_stack)
         k2_graph = graph_ms(k2_stack, iters=5)
+        k4_graph = graph_ms(lambda: mixer_stream(x, sp), iters=5)
+        # the plan against the plan of one SM (every K whole), in turns
+        plan, whole = stream_plan(b, t, d, et, ec, sms), stream_plan(b, t, d, et, ec, 1)
+        with torch.cuda.device(x.device):
+            whole_ms, plan_ms = paired_ms(lambda: stream_module._launch_wgmma(x, sp, whole),
+                                          lambda: stream_module._launch_wgmma(x, sp, plan))
         flops = b * 2 * t * d * (2 * et + 2 * ec) * STREAM_DEPTH
         row = record(f"mixer_stream (K4) B={b} T={t} D={d} L={STREAM_DEPTH} bf16", k_ms, p_ms,
-                     bound([x, *sp], [x], flops, "bf16"), flops)
-        log(f"[time] mixer stack B={b} bf16: K4 (one launch) {k_ms:.4f} ms, 32 x K2 {k2_ms:.4f} "
-            f"ms, 32 x K5 {k5_ms:.4f} ms, 32 x K2 replayed from one CUDA graph {k2_graph:.4f} ms "
-            f"({smi})")
+                     bound([x, *sp], [x], flops, "bf16"), flops, k4_graph)
+        log(f"[time] mixer stack B={b} bf16: K4 (one launch) {k_ms:.4f} ms, from a CUDA graph "
+            f"{k4_graph:.4f} ms; 32 x K2 {k2_ms:.4f} ms, 32 x K5 {k5_ms:.4f} ms, 32 x K2 "
+            f"replayed from one CUDA graph {k2_graph:.4f} ms ({smi})")
+        log(f"[time] mixer stack B={b} bf16: K4 without split-K {whole_ms:.4f} ms against "
+            f"its plan {plan_ms:.4f} ms (splits {plan.splits}) ({smi})")
         if b == 4:
             rows["mixer_stream"] = row
     x = torch.randn(4, t, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1112,8 +1261,8 @@ def gemm_widths(x, dy, g, dg, w, smi):
 
 def mixer_gemm_timing(gen, smi):
     """The Mixer block's GEMMs alone at the flagship widths (T=256, D=1024, Et=1024,
-    Ec=4096), bf16, CUDA events: K6's four and K7's four at B=8 and K2's four at
-    B=1, 4 and 16, each on the wgmma GEMM at every compiled tile width (the
+    Ec=4096), bf16, CUDA events: K6's, K7's and K8's four at B=8 and K2's four at
+    B=1, 4 and 16 (K8's dt2 and dt1 with their ordered batch sum), each on the wgmma GEMM at every compiled tile width (the
     planner's pick marked), on the WMMA tile of csrc/mixer_tile.cuh (split-K
     where its plan splits), and as one torch.matmul of the same bf16 product
     (cuBLAS: a yardstick only, on no path), with TFLOP/s; the route's pick marked.
@@ -1143,7 +1292,7 @@ def mixer_gemm_timing(gen, smi):
         return torch.empty(*shape, dtype=dtype, device="cuda")
 
     rows = {}
-    for chain, b in (("K6", 8), ("K7", 8), ("K2", 1), ("K2", 4), ("K2", 16)):
+    for chain, b in (("K6", 8), ("K7", 8), ("K8", 8), ("K2", 1), ("K2", 4), ("K2", 16)):
         bt = b * t
         xn, x, g1, r = act(b, t, d), act(b, t, d), act(b, et, d), act(b, t, d)
         rn, g3, dout, da3 = act(bt, d), act(bt, ec), act(bt, d), act(bt, ec, std=0.1)
@@ -1161,6 +1310,23 @@ def mixer_gemm_timing(gen, smi):
                  dict(a_m_major=True, b_mn_major=True), lambda: dout.T @ g3),
                 ("dw1", da3, rn, empty(ec, d, dtype=torch.float32), (ec, d, bt), "f32",
                  dict(a_m_major=True, b_mn_major=True), lambda: da3.T @ rn),
+            )
+        elif chain == "K8":  # cuBLAS: the batch's products, without K8's ordered sum
+            drd, da1, dg1 = act(b, t, d), act(b, et, d, std=0.1), act(b, et, d)
+            gemms = (
+                ("da1", w.t2, drd, empty(b, et, d), (et, d, t), "mul",
+                 dict(a_m_major=True, b_mn_major=True, batch=b, sb=t * d, sc=et * d, mul=dg1,
+                      aux=empty(b, et, d, dtype=torch.float32)),
+                 lambda: torch.matmul(w.t2.T, drd)),
+                ("dxn", w.t1, da1, empty(b, t, d, dtype=torch.float32), (t, d, et), "f32",
+                 dict(a_m_major=True, b_mn_major=True, batch=b, sb=et * d, sc=t * d),
+                 lambda: torch.matmul(w.t1.T, da1)),
+                ("dt2", drd, g1, empty(t, et, dtype=torch.float32), (t, et, d), "f32",
+                 dict(batch=b, sa=t * d, sb=et * d, batch_sum=True),
+                 lambda: torch.bmm(drd, g1.transpose(1, 2))),
+                ("dt1", da1, xn, empty(et, t, dtype=torch.float32), (et, t, d), "f32",
+                 dict(batch=b, sa=et * d, sb=t * d, batch_sum=True),
+                 lambda: torch.bmm(da1, xn.transpose(1, 2))),
             )
         else:
             gemms = (
@@ -2293,7 +2459,7 @@ def main():
         ("vq_argmin", "vq_lookup.cu", "vq_lookup.py:33", launches["vq"], vq_err),
         ("mixer_block", "mixer_block.cu", "mixer_block.py:225", launches["mixer_block"],
          mixer_err),
-        ("mixer_stream", "mixer_stream.cu", "mixer_block.py:530", launches["mixer_stream"],
+        ("mixer_stream", "mixer_stream_wgmma.cu", "mixer_block.py:530", launches["mixer_stream"],
          errs["mixer_stream"]),
         ("mixer_block_stacked", "mixer_block.cu", "mixer_block.py:614",
          launches["mixer_block_stacked"], errs["mixer_block_stacked"]),

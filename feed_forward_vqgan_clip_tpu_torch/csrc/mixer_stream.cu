@@ -1,5 +1,7 @@
-// The whole MLP-Mixer block stack in one kernel launch (K4), over the stacked
-// layout of ops/kernels/mixer_block.py `stack_mixer_params`: per block l, with the
+// The whole MLP-Mixer block stack in one kernel launch (K4) on the tiles of
+// mixer_tile.cuh: the float32 route and the bf16 shapes TMA cannot read (the others
+// take csrc/mixer_stream_wgmma.cu, ops/kernels/mixer_stream.py `stream_route`). Over
+// the stacked layout of ops/kernels/mixer_block.py `stack_mixer_params`: per block l, with the
 // channel LayerNorm's affine folded into w1f and b1f,
 //
 //   (a) xn = LN1(x)                          rows,  one warp per row
@@ -23,8 +25,7 @@
 // barrier separates the phases (6 to 10 per block). The activation ping-pongs
 // between two (B, T, D) buffers, with r, xn and the g1 (B, Et, D) and g3 (B, T, Ec)
 // workspaces beside them: about 4.5 MB per batch element in bf16, L2-resident at
-// B <= 8. The weights stream from HBM block by block; prefetching block l+1 into
-// L2 and wgmma/TMA tiles are later work.
+// B <= 8. The weights stream from HBM block by block.
 //
 // What bounds it on an H100: the weights are read once per launch, 32 x 17.8 MB =
 // 570 MB bf16 (0.170 ms at 3.35 TB/s), and the work is 2*T*D*(2*Et + 2*Ec) * L =

@@ -1,12 +1,12 @@
 // The Mixer kernels' device code: one LayerNorm row, one GEMM output tile with its
 // fused epilogue, and the in-order sum of split-K partial tiles. csrc/mixer_block.cu
-// launches each as its own kernel (one tile per block: the float32 route, the token
-// backward (K8), and the bf16 GEMMs of K2, K5, K6, K7 at shapes TMA cannot read; at
-// the others those run on csrc/wgmma_gemm.cuh), as does the CLIP MLP sublayer (K11)
-// for its float32 route and its parameter-grad GEMMs (its bf16 path GEMMs run on
-// csrc/wgmma_gemm.cuh);
+// launches each as its own kernel (one tile per block: the float32 route, and the
+// bf16 GEMMs of K2, K5, K6, K7, K8 at shapes TMA cannot read; at the others those run
+// on csrc/wgmma_gemm.cuh), as does the CLIP MLP sublayer (K11) for its float32 route
+// and its parameter-grad GEMMs (its bf16 path GEMMs run on csrc/wgmma_gemm.cuh);
 // csrc/mixer_stream.cu runs the same functions inside one persistent kernel over the
-// whole depth (K4). They therefore compute every tile with the same code.
+// whole depth (K4 in float32 and at bf16 shapes TMA cannot read; the others take
+// csrc/mixer_stream_wgmma.cu). They therefore compute every tile with the same code.
 //
 // Numerics follow `_block_math`: f32 LN statistics with var = E[x^2] - E[x]^2
 // clamped at 0 and eps 1e-5, f32 accumulation kept through bias and exact GELU

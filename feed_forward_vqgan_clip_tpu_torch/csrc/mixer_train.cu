@@ -10,14 +10,16 @@
 // gradient in a VMEM accumulator from one element to the next (`_accum`). Blocks of
 // a Hopper grid run in no order, so here every sum over the batch is either the K
 // dimension of a GEMM (the channel weight grads fold B*T into K), a GEMM over the
-// batch whose partial products are added in batch order (the token weight grads,
-// `batch_sum` in mixer_block.cu), or the two-pass column sum below: each block sums
-// a fixed range of rows, a second pass adds the ranges in order. No float atomics,
-// so two runs of the same step give bitwise-equal gradients.
+// batch whose partial products are added in batch order (the token weight grads: on
+// wgmma_gemm.cuh each element's product as an f32 partial, then the batch sum below;
+// on the WMMA tile `batch_sum` in mixer_block.cu), or the two-pass column sum below:
+// each block sums a fixed range of rows, a second pass adds the ranges in order. No
+// float atomics, so two runs of the same step give bitwise-equal gradients.
 //
-// What bounds the backward on an H100 is its GEMMs (mixer_block.cu; the channel
-// half's four on wgmma_gemm.cuh wherever TMA can read them, the weight grads with an
-// M-major A and K = B*T summed in one wgmma chain): at the
+// What bounds the backward on an H100 is its GEMMs (mixer_block.cu; all eight on
+// wgmma_gemm.cuh wherever TMA can read them, the channel weight grads with an M-major
+// A and K = B*T summed in one wgmma chain, the token weight grads as 8 batched
+// partials of one wave of 128 tiles, 8 MB of f32 each, added in order): at the
 // flagship (B=8, T=256, D=1024, Et=1024, Ec=4096) the channel half is four
 // products of 2*2048*4096*1024 = 69 GFLOP (0.069 ms at 989 TFLOP/s bf16), the
 // token half four of 2*8*1024*256*1024 = 17 GFLOP (0.017 ms), against about 105
@@ -146,7 +148,38 @@ col_sum_finish_kernel(const float* __restrict__ partial, float* __restrict__ out
   out[col] = s;
 }
 
+// out[i] = partial[0][i] + partial[1][i] + ... + partial[batch - 1][i], in that
+// order, one thread per output (4 adjacent ones, 16-byte loads): the token weight
+// grads dt2 and dt1 from their batch elements' f32 products. n % 4 == 0.
+__global__ void __launch_bounds__(256)
+batch_sum_kernel(const float4* __restrict__ partial, float4* __restrict__ out, int batch,
+                 long long n4) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += gridDim.x * 256LL) {
+    float4 s = partial[i];
+    for (int b = 1; b < batch; ++b) {
+      const float4 v = partial[b * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
 }  // namespace
+
+// out (n,) = the sum over b < batch of partial (batch, n), in batch order. n a
+// multiple of 4 and both bases 16-byte aligned (the wrapper's wgmma route has both).
+extern "C" int ffvc_batch_sum(const float* partial, float* out, int batch, long long n,
+                              void* stream) {
+  if (n % 4 || batch < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n4 = n / 4;
+  const int blocks = static_cast<int>(std::min<long long>((n4 + 255) / 256, 4096));
+  batch_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(out), batch, n4);
+  FFVC_RETURN_LAST_ERROR();
+}
 
 extern "C" int ffvc_affine_rows(const void* x, const float* scale, const float* bias,
                                 void* out, long long total, int d, int dtype, void* stream) {

@@ -1,9 +1,10 @@
 // The entry point of the Hopper GEMM of wgmma_gemm.cuh, shared by K11 (the CLIP MLP
-// sublayer: ops/kernels/mlp_ln.py) and the Mixer block (K2, K5, K6, K7:
+// sublayer: ops/kernels/mlp_ln.py) and the Mixer block (K2, K5, K6, K7, K8:
 // ops/kernels/mixer_block.py), through ops/kernels/wgmma.py, and the family of its
 // instantiations with both operands K-major: the forward's first and second channel
-// GEMMs (K11's fc1 and fc2, the Mixer's g3 and out). wgmma_gemm_mn.cu and
-// wgmma_gemm_bwd.cu hold the other families, so that three nvcc processes build them.
+// GEMMs (K11's fc1 and fc2, the Mixer's g3 and out). wgmma_gemm_mn.cu,
+// wgmma_gemm_bwd.cu and wgmma_gemm_tok.cu hold the other families, so that four nvcc
+// processes build them.
 // What bounds each GEMM is written beside the kernel that launches it.
 
 #include "wgmma_gemm.cuh"
@@ -57,7 +58,12 @@ extern "C" int ffvc_wgmma_gemm(const void* a, long long sa, int a_m_major, const
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (a_m_major || epi == kEpiMul || epi == kEpiF32) {  // no bias
-    if (!b_mn_major || bias_rows) return static_cast<int>(cudaErrorInvalidValue);
+    if (bias_rows) return static_cast<int>(cudaErrorInvalidValue);
+    // the token backward's: da1 (A M-major, mul) and the weight grads' partials (both
+    // operands K-major, f32)
+    if ((a_m_major && epi == kEpiMul) || (!a_m_major && !b_mn_major))
+      return wgmma_launch_tok(p, o, a_m_major, epi, bn, grid, s);
+    if (!b_mn_major) return static_cast<int>(cudaErrorInvalidValue);
     return wgmma_launch_bwd(p, o, a_m_major, epi, bn, grid, s);
   }
   // the forward's epilogues add a bias: per column with a K-major B, per row with an

@@ -2,8 +2,9 @@
 // 128-byte-swizzled shared-memory stages, one producer warp, two consumer warpgroups
 // issuing wgmma.mma_async, a persistent tile loop, and TMA stores. It carries the CLIP
 // MLP sublayer's four GEMMs (K11, csrc/mlp_ln.cu) and the Mixer block's (K2, K5, K6,
-// K7; ops/kernels/mixer_block.py) with their epilogues, through one entry point,
-// `ffvc_wgmma_gemm` (csrc/wgmma_gemm.cu):
+// K7, K8; ops/kernels/mixer_block.py) with their epilogues, through one entry point,
+// `ffvc_wgmma_gemm` (csrc/wgmma_gemm.cu), and, through its tile walk, the Mixer stack
+// (K4, csrc/mixer_stream_wgmma.cu):
 //
 //   C[z] (M x N) = A[z] (M x K) . B[z],  z = 0 .. batch - 1,
 //   A K-major: stored (M, K), element (m, k) at m*K + k, or M-major: stored (K, M), at
@@ -27,7 +28,12 @@
 // blockIdx.x, + gridDim.x, ... (grid = min(tiles, SMs); batch innermost, so that
 // neighbouring CTAs read the same tile of a shared weight while it sits in L2, then
 // columns, then row blocks), the same sequence in the producer and the consumers, so
-// the loads of the next tile overlap a tile's epilogue.
+// the loads of the next tile overlap a tile's epilogue. The walk over one GEMM's tiles
+// is a pair of device functions, `wg_produce` and `wg_consume`, over a `WgmmaPhase`
+// (tensor maps by pointer, sizes, epilogue operands) and a ring whose stage and parity
+// (`WgRing`) carry over from one call to the next: `wgmma_gemm_kernel` calls them once,
+// the persistent Mixer stack (K4, csrc/mixer_stream_wgmma.cu) once per GEMM phase of
+// every block, with a split-K walk (kSplitK) whose tiles store f32 partials.
 //
 // Epilogue: each consumer warpgroup takes its 64 x BN accumulator through the
 // per-element arithmetic in registers (res or mul and a per-row bias, read at the
@@ -87,6 +93,36 @@ struct WgmmaParams {
   float* aux_f32;   // kEpiMul: an optional f32 copy of v (batch, M, N), stored directly
   int act;          // kEpiAct*: Activation
 };
+
+// One GEMM as the tile walk reads it: WgmmaParams with the tensor maps by pointer (they
+// stay in the kernel's parameter space: TMA reads a map from there), the batch
+// coordinate of a shared operand (0; K4: the layer of a stacked weight), and K4's
+// split-K plan.
+struct WgmmaPhase {
+  const CUtensorMap* map_a;
+  const CUtensorMap* map_b;
+  const CUtensorMap* map_c;
+  const CUtensorMap* map_aux;
+  int m, n, k, batch;
+  int a_batched, b_batched;
+  int za, zb;  // the batch coordinate of A / B where it is shared by the batch
+  long long sc;
+  const float* bias;
+  const bf16* res;
+  const bf16* mul;
+  float* aux_f32;
+  int act;
+  // kSplitK: K cut into `splits` ranges of k_split K steps; with splits > 1 a tile
+  // stores its f32 sum into partial (splits, batch, M, N) and no epilogue runs
+  int splits, k_split;
+  float* partial;
+};
+
+__device__ __forceinline__ WgmmaPhase phase_of(const WgmmaParams& p) {
+  return WgmmaPhase{&p.map_a, &p.map_b, &p.map_c, &p.map_aux, p.m, p.n, p.k, p.batch,
+                    p.a_batched, p.b_batched, 0, 0, p.sc, p.bias, p.res, p.mul, p.aux_f32,
+                    p.act, 1, 0, nullptr};
+}
 
 // The operands' addresses and batch strides (elements; 0: shared by the batch).
 struct WgmmaOperands {
@@ -298,14 +334,66 @@ __device__ __forceinline__ void wgmma_k16(float* d, uint64_t desc_a, uint64_t de
     wgmma_m64n192k16<kTransA, kTransB>(d, desc_a, desc_b, scale_d);
 }
 
-// Output tile `t` of the walk: batch innermost, then column blocks, then row blocks.
+// Output tile `t` of the walk: batch innermost, then column blocks, then row blocks;
+// with kSplitK the K range (split) outside the batch, inside the columns.
+template <bool kSplitK>
 struct WgTile {
-  int m0, n0, z;
-  __device__ WgTile(int t, int tiles_n, int batch, int bn) {
-    z = t % batch;
-    const int mn = t / batch;
+  int m0, n0, z, split;
+  __device__ WgTile(int t, int tiles_n, int batch, int bn, int splits) {
+    int mn;
+    if constexpr (kSplitK) {
+      const int zs = t % (batch * splits);
+      z = zs % batch;
+      split = zs / batch;
+      mn = t / (batch * splits);
+    } else {
+      z = t % batch;
+      split = 0;
+      mn = t / batch;
+    }
     m0 = mn / tiles_n * kWgBM;
     n0 = mn % tiles_n * bn;
+  }
+};
+
+// The ring's next stage to fill (producer) or read (consumers) and its parity; carried
+// from one phase to the next, since both sides walk the same stages in the same order.
+struct WgRing {
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// The shared memory of a tile walk: kStages ring stages of A and B boxes, one output
+// buffer per consumer warpgroup, the stages' full and empty barriers; the base aligned
+// to 1024 bytes (the 128-byte swizzle's atom).
+template <class Tile>
+struct WgSmem {
+  unsigned char* sa;
+  unsigned char* sb;
+  unsigned char* out;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ explicit WgSmem(unsigned char* raw) {
+    unsigned char* base = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+    sa = base;
+    sb = base + Tile::kStages * Tile::kABytes;
+    out = sb + Tile::kStages * Tile::kBBytes;
+    full = reinterpret_cast<uint64_t*>(out + 2 * Tile::kEpiBytes);
+    empty = full + Tile::kStages;
+  }
+  // by one thread, before a __syncthreads
+  __device__ void init() const {
+    for (int s = 0; s < Tile::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 };
 
@@ -321,7 +409,7 @@ __device__ __forceinline__ int swizzled(int r, int lc, int bytes) {
 // the start of the tile: e[2j + half] holds res (kEpiRes) or mul (kEpiMul) at columns
 // (8j + 2(l % 4), + 1) of row 16w + l/4 + 8 half, rb[half] that row's bias (kRowBias).
 template <int BN, int kEpi, bool kRowBias>
-__device__ __forceinline__ void epilogue_prefetch(const WgmmaParams& p, __nv_bfloat162* e,
+__device__ __forceinline__ void epilogue_prefetch(const WgmmaPhase& p, __nv_bfloat162* e,
                                                   float* rb, int m0, int n0, int z) {
   const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
   if constexpr (kRowBias) {
@@ -350,7 +438,7 @@ __device__ __forceinline__ void epilogue_prefetch(const WgmmaParams& p, __nv_bfl
 // n0 .. of batch element z) into `buf` and out through TMA stores issued by its first
 // thread.
 template <int BN, int kEpi, bool kRowBias>
-__device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
+__device__ __forceinline__ void epilogue(const WgmmaPhase& p, const float* d,
                                          const __nv_bfloat162* e, const float* rb,
                                          unsigned char* buf, int m0, int n0, int z, int bar_id) {
   using Out = EpiOut<kEpi>;
@@ -429,9 +517,142 @@ __device__ __forceinline__ void epilogue(const WgmmaParams& p, const float* d,
 #pragma unroll
       for (int bx = 0; bx < BN / Out::kBoxCols; ++bx)
         if (n0 + bx * Out::kBoxCols < p.n)
-          tma_store_3d(plane ? &p.map_aux : &p.map_c, buf + plane * kPlane + bx * 8192,
+          tma_store_3d(plane ? p.map_aux : p.map_c, buf + plane * kPlane + bx * 8192,
                        n0 + bx * Out::kBoxCols, m0, z);
     bulk_commit();
+  }
+}
+
+// A split tile's 64 x BN accumulator (rows m0 .., columns n0 .. of batch element z,
+// K range `split`) into the f32 partials, straight from the fragment.
+template <int BN>
+__device__ __forceinline__ void store_partial(const WgmmaPhase& p, const float* d, int m0,
+                                              int n0, int z, int split) {
+  const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+  float* dst = p.partial + (static_cast<long long>(split) * p.batch + z) * p.m * p.n;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + warp * 16 + lane / 4 + half * 8, col = n0 + j * 8 + (lane % 4) * 2;
+      if (row < p.m && col < p.n)
+        *reinterpret_cast<float2*>(dst + static_cast<long long>(row) * p.n + col) =
+            make_float2(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+    }
+}
+
+// The K steps of tile `at`: [kb, ke).
+template <bool kSplitK>
+__device__ __forceinline__ void k_range(const WgmmaPhase& p, int split, int& kb, int& ke) {
+  const int k_tiles = (p.k + kWgBK - 1) / kWgBK;
+  if constexpr (kSplitK) {
+    if (p.splits > 1) {
+      kb = split * p.k_split;
+      ke = min(k_tiles, kb + p.k_split);
+      return;
+    }
+  }
+  kb = 0;
+  ke = k_tiles;
+}
+
+// The producer's walk over one phase's tiles (one thread): per K step, wait for the
+// stage to be free, arm its full barrier with the bytes it expects, issue the loads.
+template <class Tile, int BN, int kTransA, int kTransB, bool kSplitK>
+__device__ __forceinline__ void wg_produce(const WgmmaPhase& p, const WgSmem<Tile>& sm,
+                                           WgRing& ring) {
+  const int splits = kSplitK ? p.splits : 1;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n * p.batch * splits;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WgTile<kSplitK> at(t, tiles_n, p.batch, BN, splits);
+    const int za = p.a_batched ? at.z : p.za, zb = p.b_batched ? at.z : p.zb;
+    // an M-major (MN-major) box wholly below M (right of N) is not loaded: its rows
+    // (columns) are never stored
+    const int a_boxes = kTransA ? min(2, (p.m - at.m0 + 63) / 64) : 1;
+    const int b_boxes = kTransB ? min(BN / 64, (p.n - at.n0 + 63) / 64) : 1;
+    const unsigned bytes = (kTransA ? a_boxes * kWgBox : Tile::kABytes) +
+                           (kTransB ? b_boxes * kWgBox : Tile::kBBytes);
+    int kb, ke;
+    k_range<kSplitK>(p, at.split, kb, ke);
+    for (int kt = kb; kt < ke; ++kt) {
+      mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1);
+      mbar_expect_tx(&sm.full[ring.stage], bytes);
+      unsigned char* a = sm.sa + ring.stage * Tile::kABytes;
+      if constexpr (kTransA) {
+        for (int j = 0; j < a_boxes; ++j)
+          tma_load_3d(a + j * kWgBox, p.map_a, &sm.full[ring.stage], at.m0 + 64 * j, kt * kWgBK,
+                      za);
+      } else {
+        tma_load_3d(a, p.map_a, &sm.full[ring.stage], kt * kWgBK, at.m0, za);
+      }
+      unsigned char* b = sm.sb + ring.stage * Tile::kBBytes;
+      if constexpr (kTransB) {
+        for (int j = 0; j < b_boxes; ++j)
+          tma_load_3d(b + j * kWgBox, p.map_b, &sm.full[ring.stage], at.n0 + 64 * j, kt * kWgBK,
+                      zb);
+      } else {
+        tma_load_3d(b, p.map_b, &sm.full[ring.stage], kt * kWgBK, at.n0, zb);
+      }
+      ring.advance(Tile::kStages);
+    }
+  }
+}
+
+// A consumer warpgroup's walk over the same tiles: rows 64 c .. of each, c = 0, 1 (the
+// warpgroup after the producer's). Its TMA stores may still be in flight on return.
+template <class Tile, int BN, int kTransA, int kTransB, int kEpi, bool kRowBias, bool kSplitK>
+__device__ __forceinline__ void wg_consume(const WgmmaPhase& p, const WgSmem<Tile>& sm,
+                                           WgRing& ring) {
+  const int splits = kSplitK ? p.splits : 1;
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n * p.batch * splits;
+  const int c = threadIdx.x / 128 - 1, lane = threadIdx.x % 32;
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+  __nv_bfloat162 e[BN / 4];  // res or mul at the fragment's places
+  float rb[2] = {0.f, 0.f};  // the rows' biases (kRowBias)
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const WgTile<kSplitK> at(t, tiles_n, p.batch, BN, splits);
+    const int m0 = at.m0 + c * 64;
+    const bool to_partial = kSplitK && splits > 1;
+    if (!to_partial) epilogue_prefetch<BN, kEpi, kRowBias>(p, e, rb, m0, at.n0, at.z);
+    int kb, ke;
+    k_range<kSplitK>(p, at.split, kb, ke);
+    int prev = 0;
+    for (int kt = kb; kt < ke; ++kt) {
+      mbar_wait(&sm.full[ring.stage], ring.phase);
+      wgmma_fence();
+      // this consumer's 64 rows of A: the second half of a K-major box (64 rows of
+      // 128 bytes) or the second M-major box, 8 KB in either layout
+      const unsigned char* a = sm.sa + ring.stage * Tile::kABytes + c * kWgBox;
+      const unsigned char* b = sm.sb + ring.stage * Tile::kBBytes;
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        // K-major: 128-byte rows, 8-row groups 1024 bytes apart; K steps of 16 = 32
+        // bytes. M- or MN-major: 64-wide M (N) chunks 8 KB apart (LBO), 8-deep K groups
+        // 1024 bytes apart (SBO), K steps of 16 rows = 2048 bytes.
+        const uint64_t da = kTransA ? wgmma_desc(a + kk * 2048, kWgBox, 1024)
+                                    : wgmma_desc(a + kk * 32, 16, 1024);
+        const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, kWgBox, 1024)
+                                    : wgmma_desc(b + kk * 32, 16, 1024);
+        wgmma_k16<BN, kTransA, kTransB>(d, da, db, ((kt - kb) | kk) != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's group has retired: release that stage
+      if (kt > kb && lane == 0) mbar_arrive(&sm.empty[prev]);
+      prev = ring.stage;
+      ring.advance(Tile::kStages);
+    }
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(d);
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    if (to_partial)
+      store_partial<BN>(p, d, m0, at.n0, at.z, at.split);
+    else
+      epilogue<BN, kEpi, kRowBias>(p, d, e, rb, sm.out + c * Tile::kEpiBytes, m0, at.n0, at.z,
+                                   1 + c);
   }
 }
 
@@ -439,114 +660,18 @@ template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias>
 __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_gemm_kernel(const __grid_constant__ WgmmaParams p) {
   using Tile = WgmmaTile<BN, kEpi>;
-  constexpr int kStages = Tile::kStages;
   extern __shared__ unsigned char wg_smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* sa = smem;
-  unsigned char* sb = smem + kStages * Tile::kABytes;
-  unsigned char* out = sb + kStages * Tile::kBBytes;  // one buffer per consumer warpgroup
-  uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * Tile::kEpiBytes);
-  uint64_t* empty = full + kStages;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  const WgSmem<Tile> sm(wg_smem_raw);
+  if (threadIdx.x == 0) sm.init();
   __syncthreads();
-
-  const int tiles_n = (p.n + BN - 1) / BN;
-  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n * p.batch;
-  const int k_tiles = (p.k + kWgBK - 1) / kWgBK;
-  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-
-  if (wg == 0) {  // producer: registers to the consumers, one thread issues the loads
+  const WgmmaPhase ph = phase_of(p);
+  WgRing ring;
+  if (threadIdx.x / 128 == 0) {  // producer: registers to the consumers, one thread loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) {
-      int stage = 0, phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const WgTile at(t, tiles_n, p.batch, BN);
-        const int za = p.a_batched ? at.z : 0, zb = p.b_batched ? at.z : 0;
-        // an M-major (MN-major) box wholly below M (right of N) is not loaded: its rows
-        // (columns) are never stored
-        const int a_boxes = kTransA ? min(2, (p.m - at.m0 + 63) / 64) : 1;
-        const int b_boxes = kTransB ? min(BN / 64, (p.n - at.n0 + 63) / 64) : 1;
-        const unsigned bytes = (kTransA ? a_boxes * kWgBox : Tile::kABytes) +
-                               (kTransB ? b_boxes * kWgBox : Tile::kBBytes);
-        for (int kt = 0; kt < k_tiles; ++kt) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], bytes);
-          unsigned char* a = sa + stage * Tile::kABytes;
-          if constexpr (kTransA) {
-            for (int j = 0; j < a_boxes; ++j)
-              tma_load_3d(a + j * kWgBox, &p.map_a, &full[stage], at.m0 + 64 * j, kt * kWgBK, za);
-          } else {
-            tma_load_3d(a, &p.map_a, &full[stage], kt * kWgBK, at.m0, za);
-          }
-          unsigned char* b = sb + stage * Tile::kBBytes;
-          if constexpr (kTransB) {
-            for (int j = 0; j < b_boxes; ++j)
-              tma_load_3d(b + j * kWgBox, &p.map_b, &full[stage], at.n0 + 64 * j, kt * kWgBK, zb);
-          } else {
-            tma_load_3d(b, &p.map_b, &full[stage], kt * kWgBK, at.n0, zb);
-          }
-          if (++stage == kStages) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-  } else {  // consumers: rows 64 (wg - 1) .. of each tile
+    if (threadIdx.x == 0) wg_produce<Tile, BN, kTransA, kTransB, false>(ph, sm, ring);
+  } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    const int c = wg - 1;
-    float d[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
-    __nv_bfloat162 e[BN / 4];  // res or mul at the fragment's places
-    float rb[2] = {0.f, 0.f};  // the rows' biases (kRowBias)
-    int stage = 0, phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const WgTile at(t, tiles_n, p.batch, BN);
-      const int m0 = at.m0 + c * 64;
-      epilogue_prefetch<BN, kEpi, kRowBias>(p, e, rb, m0, at.n0, at.z);
-      int prev = 0;
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        mbar_wait(&full[stage], phase);
-        wgmma_fence();
-        // this consumer's 64 rows of A: the second half of a K-major box (64 rows of
-        // 128 bytes) or the second M-major box, 8 KB in either layout
-        const unsigned char* a = sa + stage * Tile::kABytes + c * kWgBox;
-        const unsigned char* b = sb + stage * Tile::kBBytes;
-#pragma unroll
-        for (int kk = 0; kk < kWgBK / 16; ++kk) {
-          // K-major: 128-byte rows, 8-row groups 1024 bytes apart; K steps of 16 = 32
-          // bytes. M- or MN-major: 64-wide M (N) chunks 8 KB apart (LBO), 8-deep K groups
-          // 1024 bytes apart (SBO), K steps of 16 rows = 2048 bytes.
-          const uint64_t da = kTransA ? wgmma_desc(a + kk * 2048, kWgBox, 1024)
-                                      : wgmma_desc(a + kk * 32, 16, 1024);
-          const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, kWgBox, 1024)
-                                      : wgmma_desc(b + kk * 32, 16, 1024);
-          wgmma_k16<BN, kTransA, kTransB>(d, da, db, (kt | kk) != 0);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's group has retired: release that stage
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[prev]);
-        prev = stage;
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs<BN / 2>(d);
-      if (lane == 0) mbar_arrive(&empty[prev]);
-      epilogue<BN, kEpi, kRowBias>(p, d, e, rb, out + c * Tile::kEpiBytes, m0, at.n0, at.z,
-                                   1 + c);
-    }
+    wg_consume<Tile, BN, kTransA, kTransB, kEpi, kRowBias, false>(ph, sm, ring);
     if (threadIdx.x % 128 == 0) bulk_wait<false>();  // the last stores are complete
   }
 }
@@ -632,12 +757,16 @@ int launch_wgmma_gemm(WgmmaParams p, const WgmmaOperands& o, int grid, cudaStrea
 //   wgmma_gemm_mn.cu  A K-major, B MN-major: kEpiAct, kEpiActOnly, kEpiRes with a
 //                     row bias (the token forward g1, r)
 //   wgmma_gemm_bwd.cu A K-major, B MN-major: kEpiMul, kEpiF32 (dgh, dxn, da3, drn);
-//                     A M-major, B MN-major: kEpiF32 (dW2, dW1)
+//                     A M-major, B MN-major: kEpiF32 (dW2, dW1; the token dxn)
+//   wgmma_gemm_tok.cu A M-major, B MN-major: kEpiMul (the token da1); A K-major, B
+//                     K-major: kEpiF32 (the token weight grads' per-element partials)
 int wgmma_launch_kk(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,
                     cudaStream_t s);
 int wgmma_launch_kmn(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,
                      cudaStream_t s);
 int wgmma_launch_bwd(const WgmmaParams& p, const WgmmaOperands& o, int a_m_major, int epi,
+                     int bn, int grid, cudaStream_t s);
+int wgmma_launch_tok(const WgmmaParams& p, const WgmmaOperands& o, int a_m_major, int epi,
                      int bn, int grid, cudaStream_t s);
 
 }  // namespace ffvc

@@ -2,7 +2,8 @@
 // read as it lies, or an activation (rows, N)) with A K-major (K11's dgh and dxn, the
 // Mixer channel backward's da3 = (dout W2) * gelu' and drn = da3 W1) or A M-major (the
 // weight grads dW2 = dout^T g3 and dW1 = da3^T rn, K = B*T summed in one wgmma chain
-// in K order: the same bits on every run). Launched through `ffvc_wgmma_gemm`
+// in K order: the same bits on every run; and the token backward's dxn = t1^T da1 of K8,
+// batched with the weight shared). Launched through `ffvc_wgmma_gemm`
 // (wgmma_gemm.cu).
 
 #include "wgmma_gemm.cuh"

@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ffvc_ln_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # a, out, rows, d, stream
     "ffvc_row_sum": [_P, _P, _I, _I, _P],
+    # partial, out, batch, n, stream
+    "ffvc_batch_sum": [_P, _P, _I, _L, _P],
     # a, out, partial, rows, cols, rows_per_chunk, stream
     "ffvc_col_sum": [_P, _P, _P, _I, _I, _I, _P],
     # dtype, out (int*)
@@ -72,6 +74,12 @@ _SIGNATURES = {
     # w1f, b1f, w2, b2, batch, layers, t, d, et, ec, (splits, k_per_split) x 4,
     # grid, dtype, stream
     "ffvc_mixer_stream": [_P] * 19 + [_I] * 6 + [_I] * 8 + [_I, _I, _P],
+    # out (int*)
+    "ffvc_mixer_stream_wgmma_blocks_per_sm": [_P],
+    # x, out, buf, r, xn, g1, g3, partial, barrier, ln1_w, ln1_b, t1, t1b, t2, t2b,
+    # w1f, b1f, w2, b2, batch, layers, t, d, et, ec, splits (int[4]), k_split (int[4]),
+    # grid, stream
+    "ffvc_mixer_stream_wgmma": [_P] * 19 + [_I] * 6 + [_P, _P, _I, _P],
     # a, lda, b, ldb, c, ldc, bias, act, gelu_grad, m, n, k, splits, k_per_split,
     # workspace, dtype, stream
     "ffvc_mlp_gemm": [_P, _L, _P, _L, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],

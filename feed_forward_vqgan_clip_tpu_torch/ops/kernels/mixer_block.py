@@ -35,19 +35,20 @@ Hopper GEMM of csrc/wgmma_gemm.cuh (ops/kernels/wgmma.py: TMA, wgmma, persistent
 tiles) wherever TMA can read the operands, else the WMMA tile of
 csrc/mixer_tile.cuh, where `split_k_plan` cuts K across blocks while its output
 tiles would leave SMs idle; in float32 the FMA tile. The forward's four GEMMs
-(K2, K5, K6) and the channel backward's four (K7) take the route; the token
-backward's (K8) stay on the WMMA tile. Parameter gradients are sums over the
-batch taken in a fixed order, never with atomics: the channel weight grads fold
-B*T into K (one wgmma chain in K order), the token weight grads add the batch's
-partial products in order (`batch_sum`), the bias and norm grads go through a
-two-pass column sum. The TPU-only parts of the Pallas kernels
+(K2, K5, K6), the channel backward's four (K7) and the token backward's four
+(K8) take the route. Parameter gradients are sums over the batch taken in a
+fixed order, never with atomics: the channel weight grads fold B*T into K (one
+wgmma chain in K order), the token weight grads add the batch's products in
+batch order (`batch_sum`: f32 partials and an ordered sum on the wgmma route, a
+sum of partial tiles on the WMMA and FMA tiles), the bias and norm grads go
+through a two-pass column sum. The TPU-only parts of the Pallas kernels
 (polynomial erf and gelu', pair and diagnostic knobs, VMEM gates) have no
 counterpart: gelu and gelu' use `erff` / `expf`.
 
 Every wrapper launches its kernels for a CUDA tensor, runs its plain PyTorch
 version (the `*_plain` function beside it) only for a CPU tensor, and counts its
-launches on `.launches`; those of the forward and the channel backward also count
-the wgmma GEMMs their calls launched on `.wgmma_launches`.
+launches on `.launches`; those of the forward and the backward also count the
+wgmma GEMMs their calls launched on `.wgmma_launches`.
 """
 
 from typing import NamedTuple
@@ -83,7 +84,10 @@ def split_k_plan(m, n, k, batch, dtype, sms):
 # shared, xn and g1 read MN-major; g3 = act(rn W1^T + b1) and out = r + (g3 W2^T + b2)
 # with the batch folded into rows, W1 and W2 read K-major. The channel backward (K7):
 # da3 = (dout W2) * gelu'(a3) and drn = da3 W1 with the weights read MN-major, dW2 =
-# dout^T g3 and dW1 = da3^T rn with an M-major A. (K8's GEMMs stay on the WMMA tile.)
+# dout^T g3 and dW1 = da3^T rn with an M-major A. The token backward (K8), batched
+# with the weight shared: da1 = (t2^T dr) * gelu'(a1) and dxn = t1^T da1 with the
+# weight read M-major and the activation MN-major; the weight grads dt2 = sum_b dr
+# g1^T and dt1 = sum_b da1 xn^T with both operands K-major, summed over the batch.
 MIXER_GEMMS = {
     "g1": lambda t, d, et, ec: (t, d, d),
     "r": lambda t, d, et, ec: (et, d, d),
@@ -93,6 +97,10 @@ MIXER_GEMMS = {
     "drn": lambda t, d, et, ec: (ec, d, d),
     "dw2": lambda t, d, et, ec: (d, ec, ec),
     "dw1": lambda t, d, et, ec: (ec, d, d),
+    "da1": lambda t, d, et, ec: (et, d, d),
+    "dxn": lambda t, d, et, ec: (t, d, d),
+    "dt2": lambda t, d, et, ec: (d, d, et),
+    "dt1": lambda t, d, et, ec: (d, d, t),
 }
 
 
@@ -445,22 +453,24 @@ class _Launcher:
 
     def mm(self, route, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False,
            batch=1, sa=0, sb=0, sc=0, bias=None, bias_rows=False, res=None, mul=None,
-           aux=None):
-        """One GEMM of the block in `wgmma.gemm`'s terms (exact GELU), on the tile
-        `route` names: the wgmma GEMM, or the WMMA / FMA tile through `gemm`."""
+           aux=None, batch_sum=False):
+        """One GEMM of the block in `wgmma.gemm`'s terms (exact GELU; `batch_sum`:
+        one f32 C, the batch's products added in batch order), on the tile `route`
+        names: the wgmma GEMM, or the WMMA / FMA tile through `gemm`."""
         if route == "wgmma":
             wgmma.gemm(self, a, b, c, m, n, kdim, epi, a_m_major=a_m_major,
                        b_mn_major=b_mn_major, batch=batch, sa=sa, sb=sb, sc=sc, bias=bias,
-                       bias_rows=bias_rows, res=res, mul=mul, aux=aux, act=ACTIVATIONS["gelu"])
+                       bias_rows=bias_rows, res=res, mul=mul, aux=aux, act=ACTIVATIONS["gelu"],
+                       batch_sum=batch_sum)
             self.wgmma_launches += 1
             return
-        self.gemm(a, m if a_m_major else kdim, sa, b, n if b_mn_major else kdim, sb, c, n, sc,
-                  m, n, kdim, batch, a_mmajor=int(a_m_major), b_kmajor=int(not b_mn_major),
-                  c_f32=int(epi == "f32"), res=res, ldr=n, sr=sc, bias=bias,
-                  bias_mode=0 if bias is None else 1 if bias_rows else 2,
+        self.gemm(a, m if a_m_major else kdim, sa, b, n if b_mn_major else kdim, sb, c, n,
+                  0 if batch_sum else sc, m, n, kdim, batch, a_mmajor=int(a_m_major),
+                  b_kmajor=int(not b_mn_major), c_f32=int(epi == "f32"), res=res, ldr=n, sr=sc,
+                  bias=bias, bias_mode=0 if bias is None else 1 if bias_rows else 2,
                   gelu=int(epi in ("act", "act_only")),
                   gelu_grad=aux if epi == "act" else None, mul=mul,
-                  out_f32=aux if epi == "mul" else None)
+                  out_f32=aux if epi == "mul" else None, batch_sum=int(batch_sum))
 
     def affine(self, x, scale, bias, out, d):
         err = self.lib.ffvc_affine_rows(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -637,24 +647,29 @@ def mixer_token_bwd(dr, x, g1, dg1, w: MixerBlockWeights):
     _check_like("dg1", dg1, (b, et, d), dt, dev)
     x = x.contiguous()
     k = _Launcher(dev, dt)
+
+    def route(name, *tensors):
+        return mixer_gemm_route(name, t, d, et, w.w1.shape[0], dt, tensors)
+
     with torch.cuda.device(dev):
         drd = dr.to(dt)
         # da1 = (t2^T dr) * gelu'(a1), batched; its f32 value feeds dt1b
         da1, da1f = k.empty(b, et, d), k.empty(b, et, d, dtype=torch.float32)
-        k.gemm(w.t2, et, 0, drd, d, t * d, da1, d, et * d, et, d, t, b, a_mmajor=1,
-               mul=dg1, out_f32=da1f)
+        k.mm(route("da1", w.t2, drd, da1, dg1, da1f), w.t2, drd, da1, et, d, t, "mul",
+             a_m_major=True, b_mn_major=True, batch=b, sb=t * d, sc=et * d, mul=dg1, aux=da1f)
         # dt2 = sum_b dr g1^T, dt1 = sum_b da1 xn^T: batch products added in order
         dt2 = k.empty(t, et, dtype=torch.float32)
-        k.gemm(drd, d, t * d, g1, d, et * d, dt2, et, 0, t, et, d, b, b_kmajor=1, c_f32=1,
-               batch_sum=1)
+        k.mm(route("dt2", drd, g1, dt2), drd, g1, dt2, t, et, d, "f32", batch=b, sa=t * d,
+             sb=et * d, batch_sum=True)
         xn = torch.empty_like(x)
         k.ln(x, w.ln1_w, w.ln1_b, xn, b * t, d, centered=1)
         dt1 = k.empty(et, t, dtype=torch.float32)
-        k.gemm(da1, d, et * d, xn, d, t * d, dt1, t, 0, et, t, d, b, b_kmajor=1, c_f32=1,
-               batch_sum=1)
+        k.mm(route("dt1", da1, xn, dt1), da1, xn, dt1, et, t, d, "f32", batch=b, sa=et * d,
+             sb=t * d, batch_sum=True)
         # dxn = t1^T da1, then LN1's backward with its statistics recomputed from x
         dxn = k.empty(b, t, d, dtype=torch.float32)
-        k.gemm(w.t1, t, 0, da1, d, et * d, dxn, d, t * d, t, d, et, b, a_mmajor=1, c_f32=1)
+        k.mm(route("dxn", w.t1, da1, dxn), w.t1, da1, dxn, t, d, et, "f32", a_m_major=True,
+             b_mn_major=True, batch=b, sb=et * d, sc=t * d)
         dx, prod = torch.empty_like(dxn), torch.empty_like(dxn)
         k.ln_bwd(dxn, x, None, w.ln1_w, dr, dx, prod, b * t, d)
         grads = TokenGrads(
@@ -663,6 +678,7 @@ def mixer_token_bwd(dr, x, g1, dg1, w: MixerBlockWeights):
             t2=dt2, t2b=k.col_sum(k.row_sum(dr, b * t, d), b, t),
         )
     mixer_token_bwd.launches += 1
+    mixer_token_bwd.wgmma_launches += k.wgmma_launches
     return grads
 
 
@@ -676,6 +692,7 @@ mixer_block.wgmma_launches = 0
 mixer_block_stacked.wgmma_launches = 0
 mixer_block_fwd_res.wgmma_launches = 0
 mixer_channel_bwd.wgmma_launches = 0
+mixer_token_bwd.wgmma_launches = 0
 
 
 class MixerBlockTrain(torch.autograd.Function):

@@ -2,8 +2,9 @@
 Python: its tile planner, the TMA-eligibility predicate, the launch through the
 entry point `ffvc_wgmma_gemm` (csrc/wgmma_gemm.cu), and `gemm_reference`, the
 plain version of its contract. K11 (ops/kernels/mlp_ln.py) and the Mixer block
-kernels (ops/kernels/mixer_block.py: K2, K5, K6, K7) launch their bf16 GEMMs
-through `gemm`.
+kernels (ops/kernels/mixer_block.py: K2, K5, K6, K7, K8) launch their bf16 GEMMs
+through `gemm`; the Mixer stack (K4, ops/kernels/mixer_stream.py) runs the same
+tile walk inside its own persistent kernel.
 
 The contract, for z < batch (a batch stride of 0: the operand is shared, as the
 Mixer's token weights are):
@@ -22,6 +23,11 @@ per row (M,) where B is MN-major (the token GEMMs), as the kernel is compiled:
 
 act: exact GELU or quick_gelu (ACTIVATIONS). Rounding is to the working type,
 bf16; the tile takes bf16 operands only (the float32 routes keep their FMA tile).
+
+The batch-sum form (`batch_sum`, f32 only; K8's token weight grads) gives one C,
+the sum over z of the batch's products: each product lands as an f32 partial
+(batch, M, N) and csrc/mixer_train.cu `ffvc_batch_sum` adds them in batch order,
+z = 0, 1, ..., one thread per output, so every run gives the same bits.
 """
 
 import torch
@@ -73,16 +79,24 @@ def _ptr(t):
 
 
 def gemm(k, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False, batch=1, sa=0,
-         sb=0, sc=0, bias=None, bias_rows=False, res=None, mul=None, aux=None, act=0, bn=None):
+         sb=0, sc=0, bias=None, bias_rows=False, res=None, mul=None, aux=None, act=0, bn=None,
+         batch_sum=False):
     """One bf16 GEMM of csrc/wgmma_gemm.cuh on launcher `k` (its `lib`, `sms` and
     `stream`): c = a . b with epilogue `epi` of EPILOGUES, as the module docstring
-    states; sa, sb, sc batch strides in elements. The tile width is
+    states; sa, sb, sc batch strides in elements. With `batch_sum` (epi "f32"),
+    c (M, N) is the sum over the batch of the products, added in batch order
+    from an f32 partial per element (sc is then unused). The tile width is
     `wgmma_plan`'s, or `bn` of WGMMA_WIDTHS where given. Raises where an operand
     is not 16-byte aligned or the launch fails: there is no other route from
     here."""
     for t in (a, b, c, res, mul, aux):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("the wgmma GEMM's operands need 16-byte-aligned bases (TMA)")
+    if batch_sum and epi != "f32":
+        raise ValueError(f"the batch-sum form takes the f32 epilogue, not {epi!r}")
+    out = c
+    if batch_sum:
+        c, sc = torch.empty(batch, m, n, dtype=torch.float32, device=out.device), m * n
     planned, grid = wgmma_plan(m, n, k.sms, batch)
     if bn is not None and bn != planned:
         grid = min(wgmma_tiles(m, n, bn, batch), k.sms)
@@ -90,6 +104,9 @@ def gemm(k, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False, batc
         a.data_ptr(), sa, int(a_m_major), b.data_ptr(), sb, int(b_mn_major), c.data_ptr(), sc,
         m, n, kdim, batch, EPILOGUES[epi], _ptr(bias), int(bias_rows), _ptr(res), _ptr(mul),
         _ptr(aux), act, bn or planned, grid, k.stream), "ffvc_wgmma_gemm")
+    if batch_sum:
+        build.check(k.lib.ffvc_batch_sum(c.data_ptr(), out.data_ptr(), batch, m * n, k.stream),
+                    "ffvc_batch_sum")
 
 
 # ---------------------------------------------------------------- plain versions
@@ -111,18 +128,28 @@ def act_val_grad(h, act):
 
 
 def gemm_reference(a, b, epi, *, a_m_major=False, b_mn_major=False, bias=None, bias_rows=False,
-                   res=None, mul=None, act="gelu"):
+                   res=None, mul=None, act="gelu", batch_sum=False):
     """The GEMM contract in plain PyTorch: a (M, K), or (K, M) where a_m_major, and
     b (N, K), or (K, N) where b_mn_major, each with an optional leading batch
     dimension (an operand without one is shared by the batch) -> (C, aux): aux
     act' for "act", the f32 v for "mul", else None. Products in float32 (exact for
-    bf16 operands), rounded to a's dtype where the kernel rounds."""
+    bf16 operands), rounded to a's dtype where the kernel rounds. `batch_sum`
+    ("f32"): C (M, N) = the batch's products added in batch order."""
     if epi not in EPILOGUES:
         raise ValueError(f"epilogue {epi!r}: the kernel has {sorted(EPILOGUES)}")
+    if batch_sum and epi != "f32":
+        raise ValueError(f"the batch-sum form takes the f32 epilogue, not {epi!r}")
     dt = a.dtype
     af = a.float().transpose(-1, -2) if a_m_major else a.float()
     bf = b.float() if b_mn_major else b.float().transpose(-1, -2)
     v = torch.matmul(af, bf)
+    if batch_sum:
+        if v.dim() != 3:
+            raise ValueError("the batch-sum form needs a batched operand")
+        total = v[0].clone()
+        for z in range(1, v.shape[0]):
+            total += v[z]
+        return total, None
     if bias is not None and epi in ("act", "act_only", "res"):
         v = v + (bias[:, None] if bias_rows else bias)
     if epi in ("act", "act_only"):

@@ -38,9 +38,11 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.ops import augment, pooling
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mixer_stream as mixer_stream_module
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     ChannelGrads,
+    MixerBlockWeights,
     MixerResiduals,
     TokenGrads,
     _Launcher,
@@ -58,8 +60,11 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     stack_mixer_params,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+    StreamPlan,
     mixer_stream,
     mixer_stream_plain,
+    stream_plan,
+    stream_route,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
     MlpLnGrads,
@@ -163,7 +168,8 @@ def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
     x = torch.from_numpy(rng.normal(size=(b, s * s, d)).astype(np.float32)).to(cuda, dtype)
     tol = 1e-3 if dtype == torch.float32 else 3e-2
     counts = (mixer_block_fwd_res.launches, mixer_channel_bwd.launches, mixer_token_bwd.launches)
-    wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches)
+    wg = (mixer_block_fwd_res.wgmma_launches, mixer_channel_bwd.wgmma_launches,
+          mixer_token_bwd.wgmma_launches)
     out, res = mixer_block_fwd_res(x, w)
     assert torch.equal(out, mixer_block(x, w))
     ref_out, ref_res = mixer_block_fwd_res_plain(x, w)
@@ -184,11 +190,54 @@ def test_mixer_train_kernels_match_plain(cuda, dtype, b, s, d):
         assert torch.equal(getattr(tok, name), getattr(again, name)), name
     assert (mixer_block_fwd_res.launches, mixer_channel_bwd.launches,
             mixer_token_bwd.launches) == (counts[0] + 1, counts[1] + 2, counts[2] + 2)
-    # each GEMM on the tile its route names: the forward's four, K7's four (twice)
+    # each GEMM on the tile its route names: the forward's four, K7's four and K8's
+    # four (twice each)
     routes = mixer_gemm_routes(s * s, d, w.t1.shape[0], w.w1.shape[0], dtype)
-    on_wgmma = [routes[n] == "wgmma" for n in ("g1", "r", "g3", "out", "da3", "drn", "dw2", "dw1")]
+    on_wgmma = [routes[n] == "wgmma" for n in ("g1", "r", "g3", "out", "da3", "drn", "dw2",
+                                               "dw1", "da1", "dxn", "dt2", "dt1")]
     assert (mixer_block_fwd_res.wgmma_launches - wg[0],
-            mixer_channel_bwd.wgmma_launches - wg[1]) == (sum(on_wgmma[:4]), 2 * sum(on_wgmma[4:]))
+            mixer_channel_bwd.wgmma_launches - wg[1],
+            mixer_token_bwd.wgmma_launches - wg[2]) == (
+        sum(on_wgmma[:4]), 2 * sum(on_wgmma[4:8]), 2 * sum(on_wgmma[8:]))
+
+
+def _token_case(b, t, d, et, seed):
+    """(dr, x, g1, dg1, weights) of the token backward at (B, T, D, Et), Ec = 2 D,
+    bf16, random at lecun scales."""
+    rng = np.random.default_rng(seed)
+    ec = 2 * d
+
+    def n(*shape, std=1.0, dt=torch.float32):
+        return torch.from_numpy((rng.normal(size=shape) * std).astype(np.float32)).to("cuda", dt)
+
+    bf = torch.bfloat16
+    w = MixerBlockWeights(
+        ln1_w=1 + n(d, std=0.1), ln1_b=n(d, std=0.1), t1=n(et, t, std=t ** -0.5, dt=bf),
+        t1b=n(et, std=0.1), t2=n(t, et, std=et ** -0.5, dt=bf), t2b=n(t, std=0.1),
+        ln2_w=1 + n(d, std=0.1), ln2_b=n(d, std=0.1), w1=n(ec, d, std=d ** -0.5, dt=bf),
+        b1=n(ec, std=0.1), w2=n(d, ec, std=ec ** -0.5, dt=bf), b2=n(d, std=0.1))
+    return n(b, t, d), n(b, t, d, dt=bf), n(b, et, d, dt=bf), n(b, et, d, std=0.5, dt=bf), w
+
+
+@pytest.mark.parametrize("b,t,d,et", [(8, 256, 1024, 1024), (3, 64, 128, 104)],
+                         ids=["flagship", "et104"])
+def test_mixer_token_bwd_on_wgmma_matches_plain(cuda, b, t, d, et):
+    """K8's four GEMMs on the wgmma GEMM (the flagship, and Et = 104: a shared
+    M-major A ragged against the 128-row tile in a batched launch, and dt2's N),
+    bf16, every output within 3e-2 of the plain version, and two runs bitwise
+    equal (the batch sums in a fixed order)."""
+    dr, x, g1, dg1, w = _token_case(b, t, d, et, et)
+    routes = mixer_gemm_routes(t, d, et, 2 * d, torch.bfloat16)
+    assert [routes[n] for n in ("da1", "dxn", "dt2", "dt1")] == ["wgmma"] * 4
+    before = mixer_token_bwd.wgmma_launches
+    tok = mixer_token_bwd(dr, x, g1, dg1, w)
+    assert mixer_token_bwd.wgmma_launches == before + 4
+    ref = mixer_token_bwd_plain(dr, x, g1, dg1, w)
+    for name in TokenGrads._fields:
+        assert _rel(getattr(tok, name), getattr(ref, name)) <= 3e-2, name
+    again = mixer_token_bwd(dr, x, g1, dg1, w)
+    for name in TokenGrads._fields:
+        assert torch.equal(getattr(tok, name), getattr(again, name)), name
 
 
 def _bf16(rng, *shape, std=1.0):
@@ -269,6 +318,44 @@ def test_wgmma_column_epilogues_at_ragged_edges(cuda, bn):
     assert _rel(f32, wgmma.gemm_reference(a, wn, "f32", b_mn_major=True)[0]) <= 1e-5
 
 
+@pytest.mark.parametrize("bn", wgmma.WGMMA_WIDTHS)
+@pytest.mark.parametrize("m", [56, 104])
+def test_wgmma_shared_m_major_a_batched_matches_reference(cuda, m, bn):
+    """K8's da1 and dxn form: A M-major and shared by the batch (stride 0), B
+    MN-major and batched, B = 3, ragged M (56, 104), N = 136, K = 72; the mul
+    epilogue with its f32 copy, and the f32 output, against `gemm_reference`."""
+    rng = np.random.default_rng(5 * m + bn)
+    batch, n, kk = 3, 136, 72
+    a, b = _bf16(rng, kk, m), _bf16(rng, batch, kk, n)
+    mul = _bf16(rng, batch, m, n)
+    k = _Launcher(cuda, torch.bfloat16)
+    prod = torch.empty(batch, m, n, dtype=torch.bfloat16, device=cuda)
+    vf, f32 = (torch.empty(batch, m, n, device=cuda) for _ in range(2))
+    kw = dict(a_m_major=True, b_mn_major=True, batch=batch, sb=kk * n, sc=m * n, bn=bn)
+    wgmma.gemm(k, a, b, prod, m, n, kk, "mul", mul=mul, aux=vf, **kw)
+    wgmma.gemm(k, a, b, f32, m, n, kk, "f32", **kw)
+    ref, ref_vf = wgmma.gemm_reference(a, b, "mul", a_m_major=True, b_mn_major=True, mul=mul)
+    assert _rel(prod, ref) <= 8e-3 and _rel(vf, ref_vf) <= 1e-5
+    assert _rel(f32, wgmma.gemm_reference(a, b, "f32", a_m_major=True, b_mn_major=True)[0]) <= 1e-5
+
+
+@pytest.mark.parametrize("bn", wgmma.WGMMA_WIDTHS)
+def test_wgmma_batch_sum_matches_reference(cuda, bn):
+    """K8's weight grads' form: both operands K-major and batched, B = 5, M = 200,
+    N = 104, K = 72, one f32 C summed over the batch in order, against
+    `gemm_reference(batch_sum=True)`; the same bits on a second run."""
+    rng = np.random.default_rng(11 + bn)
+    batch, m, n, kk = 5, 200, 104, 72
+    a, b = _bf16(rng, batch, m, kk), _bf16(rng, batch, n, kk)
+    k = _Launcher(cuda, torch.bfloat16)
+    c, again = (torch.empty(m, n, device=cuda) for _ in range(2))
+    for out in (c, again):
+        wgmma.gemm(k, a, b, out, m, n, kk, "f32", batch=batch, sa=m * kk, sb=n * kk,
+                   batch_sum=True, bn=bn)
+    ref, _ = wgmma.gemm_reference(a, b, "f32", batch_sum=True)
+    assert _rel(c, ref) <= 1e-5 and torch.equal(c, again)
+
+
 def test_wgmma_gemm_raises_on_a_misaligned_base(cuda):
     k = _Launcher(cuda, torch.bfloat16)
     a = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(64, 64)
@@ -287,10 +374,12 @@ def _random_mapper(s, d, depth, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,s,d,depth", [(2, 8, 96, 3), (3, 7, 100, 2), (1, 16, 128, 4)])
+@pytest.mark.parametrize("b,s,d,depth", [(2, 8, 96, 3), (3, 7, 100, 2), (1, 16, 128, 4),
+                                         (2, 8, 128, 3)])
 def test_mixer_stream_kernel_matches_plain(cuda, dtype, b, s, d, depth):
     """K4: one launch for the stack, against the plain version (K5's plain
-    version over the depth); two launches give the same bits."""
+    version over the depth); two launches give the same bits. In bf16 T = 49,
+    D = 100 takes the WMMA tile's kernel, the others the persistent wgmma one."""
     mapper = _random_mapper(s, d, depth, dtype, 2).to(cuda)
     sp = stack_mixer_params([blk.kernel_weights(torch.float32) for blk in mapper.blocks], dtype)
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(b, s * s, d)).astype(np.float32))
@@ -304,6 +393,31 @@ def test_mixer_stream_kernel_matches_plain(cuda, dtype, b, s, d, depth):
     assert _rel(got, mixer_stream_plain(x, sp)) <= tol
     with pytest.raises(TypeError):
         mixer_stream(x.double(), sp)
+
+
+def test_mixer_stream_wgmma_plans_agree(cuda):
+    """The wgmma route of K4 at T = 64, D = 128, L = 3, B = 2 under its own plan,
+    without split-K (the plan of one SM) and with every GEMM's K cut (r in 2, g3
+    in 2, out in 4: the ordered partial sums, in their own phase or inside the
+    next row phase): each within 3e-2 of the plain version, each twice bitwise
+    equal."""
+    mapper = _random_mapper(8, 128, 3, torch.bfloat16, 6).to(cuda)
+    sp = stack_mixer_params([blk.kernel_weights(torch.float32) for blk in mapper.blocks],
+                            torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 64, 128)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    assert stream_route(x, sp) == "wgmma"
+    ref = mixer_stream_plain(x, sp)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    own = stream_plan(2, 64, 128, 256, 512, sms)
+    whole = stream_plan(2, 64, 128, 256, 512, 1)
+    # K steps of 64: g1 1, r 4, g3 2, out 8
+    cut = StreamPlan(own.tiles, (1, 2, 2, 4), (1, 2, 1, 2))
+    with torch.cuda.device(cuda):
+        for plan in (own, whole, cut):
+            got = mixer_stream_module._launch_wgmma(x, sp, plan)
+            assert _rel(got, ref) <= 3e-2, plan
+            assert torch.equal(got, mixer_stream_module._launch_wgmma(x, sp, plan)), plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

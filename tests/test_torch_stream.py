@@ -45,10 +45,13 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     stack_mixer_params,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
+    STREAM_GEMMS,
     barriers_per_launch,
     gemm_plans,
     mixer_stream,
     mixer_stream_plain,
+    stream_plan,
+    stream_route,
 )
 
 DIM, S, B, IN, CH = 128, 16, 2, 32, 8
@@ -194,13 +197,77 @@ def test_streamed_supported():
     assert not streamed_supported(torch.nn.Linear(2, 2))
 
 
+@pytest.mark.parametrize("batch,tiles,splits,k_split,barriers", [
+    (1, (64, 16, 64, 16), (1, 2, 2, 8), (4, 8, 8, 8), 32 * 7),
+    (4, (256, 64, 256, 64), (1, 2, 1, 2), (4, 8, 16, 32), 32 * 6),
+])
+def test_flagship_split_k_plans_and_barriers(batch, tiles, splits, k_split, barriers):
+    """The wgmma route's plan at the flagship (T=256, D=1024, Et=1024, Ec=4096,
+    bf16, 132 SMs): each GEMM's 128 x 128 tiles (g1, r, g3, out), its K splits
+    (K steps of 64 each), and the kernel's grid-wide barriers per launch (six
+    phases a block, one more where g1 or g3 splits: r's and out's sums run
+    inside the next row phase); on one SM every K stays whole."""
+    plan = stream_plan(batch, 256, 1024, 1024, 4096, 132)
+    assert (plan.tiles, plan.splits, plan.k_split) == (tiles, splits, k_split)
+    assert plan.barriers(32) == barriers
+    whole = stream_plan(batch, 256, 1024, 1024, 4096, 1)
+    assert whole.tiles == tiles
+    assert whole.splits == (1, 1, 1, 1) and whole.barriers(32) == 32 * 6
+    assert whole.k_split == (4, 16, 16, 64)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("b,t,d", [(1, 256, 1024), (4, 256, 1024), (8, 64, 128), (3, 56, 200)])
+def test_stream_plan_splits_cover_k(sms, b, t, d):
+    """Every split holds at least 8 K steps of 64 and the splits cover K exactly;
+    doubling stops while the doubled tiles would overflow one wave of `sms`."""
+    plan = stream_plan(b, t, d, 4 * t, 4 * d, sms)
+    for name, tiles, splits, per, k in zip(STREAM_GEMMS, plan.tiles, plan.splits, plan.k_split,
+                                           (t, 4 * t, d, 4 * d)):
+        steps = -(-k // 64)
+        assert (splits - 1) * per < steps <= splits * per, name
+        if splits > 1:
+            assert per >= 8 and tiles * splits <= sms, name
+
+
 @pytest.mark.parametrize("batch,plans,barriers", [
     (1, [(2, 128), (8, 128), (4, 256), (16, 256)], 32 * 10),
     (4, [(1, 256), (4, 256), (1, 1024), (4, 1024)], 32 * 8),
 ])
-def test_flagship_split_k_plans_and_barriers(batch, plans, barriers):
-    """The K2 split-K plan at the flagship (T=256, D=1024, Et=1024, Ec=4096, bf16,
-    132 SMs) and the kernel's grid-wide barriers per launch."""
+def test_tile_route_split_k_plans_and_barriers(batch, plans, barriers):
+    """The WMMA / FMA tile route's K2 split-K plan at the flagship (the float32
+    route takes it; 132 SMs) and its grid-wide barriers per launch."""
     got = gemm_plans(batch, 256, 1024, 1024, 4096, torch.bfloat16, 132)
     assert got == plans
     assert barriers_per_launch(32, got) == barriers
+
+
+@pytest.mark.parametrize("t,d,dtype,route", [
+    (256, 1024, torch.bfloat16, "wgmma"),  # the flagship
+    (64, 96, torch.bfloat16, "wgmma"),
+    (49, 100, torch.bfloat16, "wmma"),  # rows of 49 and 100 elements: TMA cannot read them
+    (256, 1024, torch.float32, "fma"),
+])
+def test_stream_route_by_dtype_and_shape(t, d, dtype, route):
+    """K4 takes the persistent wgmma kernel in bf16 wherever TMA can read T, D, Et
+    and Ec rows, the WMMA tile's kernel at other bf16 shapes, the FMA tile in f32."""
+    sp = stack_mixer_params([_block_weights(t, d, s) for s in range(2)], dtype)
+    x = torch.zeros(1, t, d, dtype=dtype)
+    assert stream_route(x, sp) == route
+    if route == "wgmma":  # a misaligned activation sends it to the tile kernel
+        shifted = torch.zeros(t * d + 1, dtype=dtype)[1:].view(1, t, d)
+        assert stream_route(shifted, sp) == "wmma"
+
+
+def _block_weights(t, d, seed):
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import MixerBlockWeights
+
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=g)
+
+    et, ec = 4 * t, 4 * d
+    return MixerBlockWeights(ln1_w=1 + n(d), ln1_b=n(d), t1=n(et, t), t1b=n(et), t2=n(t, et),
+                             t2b=n(t), ln2_w=1 + n(d), ln2_b=n(d), w1=n(ec, d), b1=n(ec),
+                             w2=n(d, ec), b2=n(d))

@@ -30,6 +30,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.wgmma import (
 H100_SMS = 132
 FORWARD = ("g1", "r", "g3", "out")   # K2, K5, K6
 CHANNEL_BWD = ("da3", "drn", "dw2", "dw1")  # K7
+TOKEN_BWD = ("da1", "dxn", "dt2", "dt1")  # K8
 
 
 def _cost(m, n, bn, sms, batch=1):
@@ -124,12 +125,14 @@ def test_tma_ok_on_stacked_views():
     (256, 1024, torch.float32, dict.fromkeys(MIXER_GEMMS, "fma")),
     (64, 96, torch.float32, dict.fromkeys(MIXER_GEMMS, "fma")),
     (50, 100, torch.float32, dict.fromkeys(MIXER_GEMMS, "fma")),
-    # T = 49 (a 7 x 7 grid): the token GEMMs read rows of 49; the channel ones fit
-    (49, 40, torch.bfloat16, {**dict.fromkeys(("g1", "r"), "wmma"),
+    # T = 49 (a 7 x 7 grid): the token GEMMs and K8's read rows of 49 or Et = 196;
+    # the channel ones fit
+    (49, 40, torch.bfloat16, {**dict.fromkeys(("g1", "r") + TOKEN_BWD, "wmma"),
                               **dict.fromkeys(("g3", "out") + CHANNEL_BWD, "wgmma")}),
 ])
 def test_routes_at_the_smoke_shapes(t, d, dtype, want):
-    """Every flagship GEMM, K6's four and K7's four, takes the wgmma tile in bf16."""
+    """Every flagship GEMM, K6's four, K7's four and K8's four, takes the wgmma
+    tile in bf16; chip_smoke's ragged (3, 64, 96) too, (2, 50, 100) the WMMA tile."""
     assert mixer_gemm_routes(t, d, 4 * t, 4 * d, dtype) == want
 
 
@@ -138,7 +141,9 @@ def _flagship(b):
     return {"g1": (1024, 1024, 256, b), "r": (256, 1024, 1024, b),
             "g3": (256 * b, 4096, 1024, 1), "out": (256 * b, 1024, 4096, 1),
             "da3": (256 * b, 4096, 1024, 1), "drn": (256 * b, 1024, 4096, 1),
-            "dw2": (1024, 4096, 256 * b, 1), "dw1": (4096, 1024, 256 * b, 1)}
+            "dw2": (1024, 4096, 256 * b, 1), "dw1": (4096, 1024, 256 * b, 1),
+            "da1": (1024, 1024, 256, b), "dxn": (256, 1024, 1024, b),
+            "dt2": (256, 1024, 1024, b), "dt1": (1024, 256, 1024, b)}
 
 
 @pytest.mark.parametrize("b,tiles", [
@@ -150,11 +155,11 @@ def _flagship(b):
 ])
 def test_routes_of_the_flagship_by_batch(b, tiles):
     """At B = 1, 4, 8 (the train step) and 16 the route takes the wgmma tile for
-    K6's (K2's) four GEMMs and K7's four (the route reads no batch size: wgmma
-    without split-K was faster at every one, PERF.md); the tiles of the walk and
-    the persistent grid each GEMM is planned with."""
+    K6's (K2's) four GEMMs, K7's four and K8's four (the route reads no batch size:
+    wgmma without split-K was faster at every one, PERF.md); the tiles of the walk
+    and the persistent grid each GEMM is planned with."""
     routes = mixer_gemm_routes(256, 1024, 1024, 4096, torch.bfloat16)
-    assert [routes[n] for n in FORWARD + CHANNEL_BWD] == ["wgmma"] * 8
+    assert [routes[n] for n in FORWARD + CHANNEL_BWD + TOKEN_BWD] == ["wgmma"] * 12
     for name, want in zip(FORWARD, tiles):
         m, n, _, batch = _flagship(b)[name]
         assert wgmma_tiles(m, n, 128, batch) == want
@@ -162,6 +167,17 @@ def test_routes_of_the_flagship_by_batch(b, tiles):
         bn, grid = wgmma_plan(m, n, H100_SMS, batch)
         assert bn == 128, name  # narrow tiles win or tie in whole waves at these shapes
         assert grid == min(wgmma_tiles(m, n, bn, batch), H100_SMS)
+
+
+@pytest.mark.parametrize("b,tiles", [(8, 128), (1, 16), (4, 64)])
+def test_token_weight_grad_partials_fill_a_wave_at_b8(b, tiles):
+    """dt2 (T x Et) and dt1 (Et x T) have 16 output tiles of 128 x 128: as B batched
+    partial products (one per batch element, added in order afterwards) they walk
+    16 B tiles, one wave of 128 on 132 SMs at the train step's B=8."""
+    for name in ("dt2", "dt1"):
+        m, n, _, batch = _flagship(b)[name]
+        assert wgmma_tiles(m, n, 128, batch) == tiles
+        assert wgmma_plan(m, n, H100_SMS, batch) == (128, min(tiles, H100_SMS))
 
 
 def test_route_reads_the_bases():
@@ -210,6 +226,28 @@ def test_reference_products_against_explicit_sums(a_m_major, b_mn_major, batched
     assert aux is None and got.dtype == torch.float32
     assert got.shape == want.shape == ((3, m, n) if batched else (m, n))
     assert torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("a_m_major,b_mn_major", [(False, False), (True, True)])
+def test_reference_batch_sum_against_einsum(a_m_major, b_mn_major):
+    """The batch-sum form (K8's dt2 and dt1 in its K-major layouts): one f32 C,
+    the sum over the batch of the products, against an explicit float64 einsum
+    over (z, k); it takes the f32 epilogue and a batched operand only."""
+    rng = np.random.default_rng(17 + int(a_m_major))
+    batch, m, n, k = 5, 12, 20, 24
+    a = _bf(rng, batch, *((k, m) if a_m_major else (m, k)))
+    b = _bf(rng, batch, *((k, n) if b_mn_major else (n, k)))
+    got, aux = gemm_reference(a, b, "f32", a_m_major=a_m_major, b_mn_major=b_mn_major,
+                              batch_sum=True)
+    want = np.einsum("zkm,zkn->mn" if a_m_major else "zmk,znk->mn", a.double().numpy(),
+                     b.double().numpy())
+    assert aux is None and got.dtype == torch.float32 and got.shape == (m, n)
+    assert torch.allclose(got.double(), torch.from_numpy(want), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        gemm_reference(a, b, "mul", batch_sum=True, mul=a)
+    with pytest.raises(ValueError):
+        gemm_reference(a[0], b[0], "f32", a_m_major=a_m_major, b_mn_major=b_mn_major,
+                       batch_sum=True)
 
 
 @pytest.mark.parametrize("bias_rows", [False, True])
