@@ -4,7 +4,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
-    python3 chip_smoke.py --warp-against DIR   # K10 against another tree's (warp_against)
+    python3 chip_smoke.py --warp-against DIR   # K9, K10 against another tree's (warp_against)
 
 1. [device] Needs torch.cuda.is_available(); prints the card's name and power
    limit (nvidia-smi), torch and CUDA versions, and whether triton imports.
@@ -12,9 +12,12 @@
    counts the HGMMA (wgmma) instructions of each instantiation of the Hopper
    GEMM (csrc/wgmma_gemm.cuh) in the library's SASS (cuobjdump, where the
    toolkit has it), with the GEMMs of K11 and of the Mixer kernels that
-   launch it, and in K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu);
-   fails if one the paths launch holds none.
-3. [vq] VQ kernel against its plain version on the card (stated near-tie rule).
+   launch it, in K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu) and in
+   K1's search (csrc/vq_lookup.cu); fails if one the paths launch holds none.
+3. [vq] VQ kernel (K1) against its plain version on the card (stated near-tie
+   rule) at N = 1024, 1000, 256 and 2048 against the flagship codebook, N=1000
+   against 1000 codes, N=77 at C=70 and a tie case; its split kernel's bf16
+   pieces bitwise equal to the plain split; two launches bitwise equal.
 4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
    and bf16, with its GEMMs' routes (mixer_block.mixer_gemm_route) and as many
    wgmma launches as the routes name.
@@ -31,8 +34,8 @@
    unpooled crops): real Re draws, Re's largest zoom, Cc (a pure shift), the
    whole frame (shrinking) and a fused Af-then-Pe map; Af at the ends of its
    ranges (rotation +-15 degrees, translation +-10%, and a draw pushed onto two
-   edges: the longest border strips); two adjoint runs bitwise equal; <K9 x, g>
-   = <x, K10 g> in float32.
+   edges: the longest border strips); two K9 and two K10 runs bitwise equal;
+   <K9 x, g> = <x, K10 g> in float32.
 7. [stream] The whole-stack Mixer kernel (K4, one launch for 32 blocks)
    against its plain version at the flagship shape (T=256, D=1024, 32 blocks)
    at B=1 and 4, float32 and bf16, with its route and launch plan (bf16: one
@@ -51,7 +54,10 @@
    [c3] The plain backwards of the R, Et and Ts codes, run twice at 64 crops of
    224 px (R from 256 px), float32: bitwise equal.
 9. [time] Kernel and plain times at the flagship shapes, CUDA events, beside
-   each kernel's bound; for the warps also grid_sample's forward and backward,
+   each kernel's bound; K1 at N = 256, 1024, 2048, 4096, eager and from a CUDA
+   graph, with its split kernel alone, beside the tensor-core bound of its six
+   bf16 products and the f32 CUDA-core bound of one; for the warps, eager and
+   from a CUDA graph (K9 in f32 too), also grid_sample's forward and backward,
    square (224 -> 224) and rectangular (256 -> 224, Re draws);
    K4 (eager and from a CUDA graph; its plan against the plan without
    split-K) beside 32 x K2 (eager and from one CUDA graph) and 32 x K5 at the
@@ -166,6 +172,7 @@ WGMMA_USERS = {
 # K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu), which runs the GEMM's tile
 # walk inside itself
 STREAM_WGMMA_KERNEL = "mixer_stream_wgmma_kernel"
+VQ_KERNEL = "vq_argmin_kernel"  # K1's search (csrc/vq_lookup.cu): six bf16 wgmma products
 # published peaks of one H100 SXM (dense) at a 700 W limit, for the bounds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -292,10 +299,11 @@ def phase_build():
         if missing:
             raise AssertionError(f"wgmma GEMM instantiations without HGMMA instructions: "
                                  f"{[WGMMA_USERS[k] for k in missing]}")
-        stream = sum(n for k, n in counts.items() if STREAM_WGMMA_KERNEL in k)
-        log(f"[build] {STREAM_WGMMA_KERNEL} (K4, bf16): {stream} HGMMA")
-        if not stream:
-            raise AssertionError("K4's bf16 kernel holds no HGMMA instruction")
+        for kernel, who in ((STREAM_WGMMA_KERNEL, "K4, bf16"), (VQ_KERNEL, "K1")):
+            n = sum(v for k, v in counts.items() if kernel in k)
+            log(f"[build] {kernel} ({who}): {n} HGMMA")
+            if not n:
+                raise AssertionError(f"{who}'s kernel {kernel} holds no HGMMA instruction")
     else:
         log("[build] cuobjdump not found: the SASS is not inspected")
 
@@ -306,6 +314,8 @@ def _vq_case(n, k, c, gen, tie=False):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel,
         nearest_codebook_indices_plain,
+        split_pieces,
+        vq_plan,
     )
 
     dev = "cuda"
@@ -314,6 +324,7 @@ def _vq_case(n, k, c, gen, tie=False):
     if tie:  # duplicated halves: every winner must be the lower copy
         cb[k // 2:] = cb[: k // 2]
     got = nearest_codebook_indices_kernel(x, cb).long()
+    again = nearest_codebook_indices_kernel(x, cb).long()
     torch.cuda.synchronize()
     ref = nearest_codebook_indices_plain(x, cb).long()
     # float64 scores of both choices, and the plain version's own top-2 gap
@@ -331,23 +342,43 @@ def _vq_case(n, k, c, gen, tie=False):
     agree = 1.0 - diff.float().mean().item()
     bad = diff & (gap >= bound)
     max_err = (s_got - s_ref).abs().max().item()
-    ok = agree >= VQ_MIN_AGREEMENT and not bad.any().item() and got.min() >= 0 and got.max() < k
+    # the split kernel's bf16 pieces against the plain split, bit for bit
+    plan = vq_plan(n, k, c, torch.cuda.get_device_properties(0).multi_processor_count)
+    pieces = split_pieces(x, cb, plan.channels)
+    plain_pieces = split_pieces(x.cpu(), cb.cpu(), plan.channels)
+    same_pieces = all(torch.equal(a.cpu(), b) for a, b in zip(pieces, plain_pieces))
+    repeat = torch.equal(got, again)
+    ok = (agree >= VQ_MIN_AGREEMENT and not bad.any().item() and got.min() >= 0
+          and got.max() < k and same_pieces and repeat)
     if tie:
         ok = ok and bool((got < k // 2).all().item())
     log(f"[vq] N={n} K={k} C={c}{' tie' if tie else ''}: agreement {agree:.6f}, "
         f"{int(diff.sum())} flips (all near-ties: {not bad.any().item()}), "
-        f"max |score(kernel) - score(plain)| {max_err:.3e}")
+        f"max |score(kernel) - score(plain)| {max_err:.3e}; {plan.splits} splits x "
+        f"{plan.row_blocks} row blocks, {plan.channels} channels; pieces bitwise equal to "
+        f"the plain split: {same_pieces}; two launches bitwise equal: {repeat}")
     if not ok:
-        raise AssertionError(f"vq kernel disagrees with plain at N={n} K={k} tie={tie}")
+        raise AssertionError(f"vq kernel disagrees with plain at N={n} K={k} C={c} tie={tie}")
     return max_err
 
 
 def phase_vq(gen):
+    """K1 against its plain version: the four cases of the shared stream `gen`, then
+    N = 256 (1x1), 2048 (the train step) and a ragged C = 70 on a generator of their
+    own, so that every later phase draws what it drew before they were added."""
+    import torch
+
     errs = [
         _vq_case(1024, 16384, 256, gen),
         _vq_case(1000, 16384, 256, gen),
         _vq_case(1000, 1000, 256, gen),
         _vq_case(300, 2048, 256, gen, tie=True),
+    ]
+    own = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    errs += [
+        _vq_case(256, 16384, 256, own),
+        _vq_case(2048, 16384, 256, own),
+        _vq_case(77, 1000, 70, own),
     ]
     return max(errs)
 
@@ -534,22 +565,13 @@ def af_extremes(h, w):
     return augment.af_matrices(ang, tx * w, ty * h, h, w)
 
 
-def phase_warp(gen):
-    """K9 and K10 against their plain versions, each within its ceiling of max
-    |plain|, at equal frames and from 256 to 224 px; two K10 runs bitwise equal;
-    the dot-product test in float32. -> {kernel name: max abs err in bf16 at the
-    train step's square shape, and under "rect" at the rectangular one}."""
+def warp_cases(gen):
+    """[(label, m, padding mode, input shape, output frame)]: the train step's Af and
+    Pe draws at its square shape, a horizon-crossing and a far-overshoot draw at
+    64x64, Af's extremes, and the rectangular draws from 256 to 224 px."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops import augment
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
-        warp_adjoint,
-        warp_adjoint_plain,
-    )
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
-        warp_forward,
-        warp_forward_plain,
-    )
 
     b, h, w, c = WARP_SHAPE
     cases = [(f"{name} {b}x{h}x{w}x{c}", m, mode, WARP_SHAPE, (h, w))
@@ -568,6 +590,26 @@ def phase_warp(gen):
     rb, rh, rw, rc = RECT_IN
     cases += [(f"{name} {rb}x{rh}x{rw}x{rc} -> {h}x{w}", m, mode, RECT_IN, (h, w))
               for name, (m, mode) in rect_draws(gen, rb, rh, rw, h).items()]
+    return cases
+
+
+def phase_warp(gen):
+    """K9 and K10 against their plain versions, each within its ceiling of max
+    |plain|, at equal frames and from 256 to 224 px; two K9 and two K10 runs
+    bitwise equal; the dot-product test in float32. -> {kernel name: max abs err in
+    bf16 at the train step's square shape, and under "rect" at the rectangular one}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
+        warp_adjoint,
+        warp_adjoint_plain,
+    )
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
+        warp_forward,
+        warp_forward_plain,
+    )
+
+    cases = warp_cases(gen)
     worst = {"warp_forward": 0.0, "warp_adjoint": 0.0}
     rect = {"warp_forward": 0.0, "warp_adjoint": 0.0}
     for label, m, mode, shape, out_hw in cases:
@@ -576,6 +618,7 @@ def phase_warp(gen):
             x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
             g = torch.randn((shape[0], *out_hw, shape[3]), generator=gen, device="cuda").to(dtype)
             out = warp_forward(x, m, mode, out_hw)
+            out_again = warp_forward(x, m, mode, out_hw)
             grad = warp_adjoint(g, m, mode, in_hw)
             again = warp_adjoint(g, m, mode, in_hw)
             torch.cuda.synchronize()
@@ -594,8 +637,8 @@ def phase_warp(gen):
                     worst[name] = max(worst[name], err)
                 if dtype == torch.bfloat16 and shape == RECT_IN:
                     rect[name] = max(rect[name], err)
-            if not torch.equal(grad, again):
-                raise AssertionError(f"warp_adjoint differs between two runs at {label} {dtype}")
+            if not (torch.equal(grad, again) and torch.equal(out, out_again)):
+                raise AssertionError(f"a warp kernel differs between two runs at {label} {dtype}")
             if dtype == torch.float32:
                 terms = out.double() * g.double()
                 lhs, rhs = terms.sum().item(), (x.double() * grad.double()).sum().item()
@@ -605,7 +648,8 @@ def phase_warp(gen):
                 if not dot_err <= 1e-5:
                     raise AssertionError(f"warp_adjoint is not the transpose of warp_forward at "
                                          f"{label}")
-    log("[warp] two adjoint runs bitwise equal at every draw, pair of frames and dtype")
+    log("[warp] two forward and two adjoint runs bitwise equal at every draw, pair of frames "
+        "and dtype")
     worst["rect"] = rect
     return worst
 
@@ -904,6 +948,66 @@ def bound(inputs, outputs, flops, peak):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def recorder(smi):
+    """The [time] line and JSON row of one kernel: record(label, kernel ms, plain
+    ms, (bound ms, bound by), flops, CUDA-graph ms) -> {ms, plain_ms, bound_ms,
+    bound_by[, graph_ms]}."""
+
+    def record(label, k_ms, p_ms, bnd, flops=None, g_ms=None):
+        rate = f" ({flops / k_ms / 1e9:.1f} TFLOP/s)" if flops else ""
+        graph = ""
+        if g_ms is not None:
+            graph = (f", CUDA-graph replay {g_ms:.4f} ms"
+                     + (f" ({flops / g_ms / 1e9:.1f} TFLOP/s)" if flops else ""))
+        log(f"[time] {label}: kernel {k_ms:.4f} ms{rate}{graph}, plain {p_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        return row if g_ms is None else {**row, "graph_ms": g_ms}
+
+    return record
+
+
+def vq_timing(gen, smi, record):
+    """K1 at N = 256 (1x1), 1024 (2x2), 2048 (the train step's B=8) and 4096 (4x4)
+    tokens against the flagship codebook (16384 x 256), f32: eager and from a CUDA
+    graph beside the plain version (one f32 matmul and argmin), with the split
+    kernel's graph time alone; bound by the six bf16 products on the tensor cores,
+    and beside it the f32 CUDA-core bound of one product. -> the row at N=1024."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
+        nearest_codebook_indices_kernel,
+        nearest_codebook_indices_plain,
+        split_pieces,
+        vq_plan,
+    )
+
+    k, c = 16384, 256
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cb = torch.rand(k, c, generator=gen, device="cuda") * (2.0 / k)
+    row = None
+    for n in (256, 1024, 2048, 4096):
+        x = torch.randn(n, c, generator=gen, device="cuda") * (2.0 / k)
+        plan = vq_plan(n, k, c, sms)
+        k_ms, p_ms = paired_ms(lambda: nearest_codebook_indices_kernel(x, cb),
+                               lambda: nearest_codebook_indices_plain(x, cb))
+        g_ms = graph_ms(lambda: nearest_codebook_indices_kernel(x, cb))
+        prep_ms = graph_ms(lambda: split_pieces(x, cb, plan.channels))
+        out = nearest_codebook_indices_kernel(x, cb)
+        flops = 2 * n * k * c
+        tensor = bound([x, cb], [out], 6 * flops, "bf16")
+        f32 = bound([x, cb], [out], flops, "f32")
+        r = record(f"vq N={n} K={k} C={c} f32 (six bf16 products)", k_ms, p_ms, tensor,
+                   6 * flops, g_ms)
+        log(f"[time] vq N={n}: split kernel alone (CUDA graph) {prep_ms:.4f} ms "
+            f"({prep_ms / g_ms:.0%} of the kernel's graph time); f32 CUDA-core bound "
+            f"{f32[0]:.4f} ms; plan {plan.splits} splits x {plan.row_blocks} row blocks = "
+            f"{plan.ctas} CTAs ({smi})")
+        if n == 1024:
+            row = {**r, "f32_bound_ms": f32[0], "split_graph_ms": prep_ms}
+    return row
+
+
 def phase_timing(gen, smi):
     """Kernel and plain times (CUDA events) at the paths' shapes, each beside its
     bound; -> {kernel name: {ms, plain_ms, bound_ms, bound_by}} at the shapes the
@@ -921,33 +1025,9 @@ def phase_timing(gen, smi):
         mixer_token_bwd,
         mixer_token_bwd_plain,
     )
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
-        nearest_codebook_indices_kernel,
-        nearest_codebook_indices_plain,
-    )
 
-    def record(label, k_ms, p_ms, bnd, flops=None, g_ms=None):
-        rate = f" ({flops / k_ms / 1e9:.1f} TFLOP/s)" if flops else ""
-        graph = ""
-        if g_ms is not None:
-            graph = (f", CUDA-graph replay {g_ms:.4f} ms"
-                     + (f" ({flops / g_ms / 1e9:.1f} TFLOP/s)" if flops else ""))
-        log(f"[time] {label}: kernel {k_ms:.4f} ms{rate}{graph}, plain {p_ms:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
-        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
-        return row if g_ms is None else {**row, "graph_ms": g_ms}
-
-    times = {}
-    cb = torch.rand(16384, 256, generator=gen, device="cuda") * (2.0 / 16384)
-    for b in (1, 4, 16):
-        x = torch.randn(b * 256, 256, generator=gen, device="cuda") * (2.0 / 16384)
-        k_ms, p_ms = paired_ms(lambda: nearest_codebook_indices_kernel(x, cb),
-                               lambda: nearest_codebook_indices_plain(x, cb))
-        out = nearest_codebook_indices_kernel(x, cb)
-        bnd = bound([x, cb], [out], 2 * x.shape[0] * 16384 * 256, "f32")
-        row = record(f"vq N={b * 256} K=16384 C=256 f32", k_ms, p_ms, bnd)
-        if b == 4:
-            times["vq_argmin"] = row
+    record = recorder(smi)
+    times = {"vq_argmin": vq_timing(gen, smi, record)}
     t, d, et, ec = 256, 1024, 1024, 4096
     for b in (1, 4, 16):
         w = random_block_weights(t, d, torch.bfloat16, gen)
@@ -1125,7 +1205,8 @@ def time_warp_pair(x, g, m, mode, label, smi, record):
              lambda: warp_adjoint_plain(g, m, mode, in_hw), lib_bwd, ([g, m], [x]))):
         k_ms, p_ms = paired_ms(kernel_fn, plain_fn)
         lib_ms = (cuda_ms(lib_fn) + cuda_ms(lib_fn)) / 2
-        row = record(f"{name} {label} {mode} {frames} bf16", k_ms, p_ms, bound(*moved, ops, "f32"))
+        row = record(f"{name} {label} {mode} {frames} {str(x.dtype)[6:]}", k_ms, p_ms,
+                     bound(*moved, ops, "f32"), g_ms=graph_ms(kernel_fn))
         log(f"[time] {name} {label}: grid_sample {'backward' if 'adj' in name else 'forward'} "
             f"{lib_ms:.4f} ms (bf16, with the grid build and the NHWC permutes) against the "
             f"kernel's {k_ms:.4f} ms: kernel {'faster' if k_ms < lib_ms else 'slower'} ({smi})")
@@ -1141,6 +1222,7 @@ def warp_timing(gen, smi, record):
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops import augment
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
 
     b, h, w, c = WARP_SHAPE
     x = torch.rand(WARP_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1150,11 +1232,23 @@ def warp_timing(gen, smi, record):
     times = {name: {k: (rows[0][name][k] + rows[1][name][k]) / 2 if k != "bound_by"
                     else rows[0][name][k] for k in rows[0][name]} for name in rows[0]}
     rb, rh, rw, rc = RECT_IN
-    m = augment.crop_matrices(*augment.re_sample(gen, rb, rh, rw, augment.RE_SCALE, "cuda"), h)
+    m_re = augment.crop_matrices(*augment.re_sample(gen, rb, rh, rw, augment.RE_SCALE, "cuda"),
+                                 h)
     x = torch.rand(RECT_IN, generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn((rb, h, w, rc), generator=gen, device="cuda").to(torch.bfloat16)
-    for name, row in time_warp_pair(x, g, m, "border", "Re", smi, record).items():
+    for name, row in time_warp_pair(x, g, m_re, "border", "Re", smi, record).items():
         times[name]["rect"] = {"shape": f"{rb}x{rh}x{rw}x{rc} -> {h}x{w}", **row}
+    # K9's device time in float32 too, on the same draws
+    x32 = torch.rand(WARP_SHAPE, generator=gen, device="cuda")
+    for draw, (m, mode) in warp_draws(gen, b, h, w).items():
+        f32_ms = graph_ms(lambda: warp_forward(x32, m, mode))
+        log(f"[time] warp_forward {draw} {mode} {b}x{h}x{w}x{c} f32: CUDA-graph replay "
+            f"{f32_ms:.4f} ms, bound {bound([x32, m], [x32], 0, 'f32')[0]:.4f} ms (bytes) ({smi})")
+    x32 = torch.rand(RECT_IN, generator=gen, device="cuda")
+    f32_ms = graph_ms(lambda: warp_forward(x32, m_re, "border", (h, w)))
+    log(f"[time] warp_forward Re border {rb}x{rh}x{rw}x{rc} -> {h}x{w} f32: CUDA-graph replay "
+        f"{f32_ms:.4f} ms, bound {bound([x32, m_re], [x32[:, :h, :w]], 0, 'f32')[0]:.4f} ms "
+        f"(bytes) ({smi})")
     return times
 
 
@@ -1365,18 +1459,21 @@ def mixer_gemm_timing(gen, smi):
 
 
 def warp_against(parent):
-    """`python3 chip_smoke.py --warp-against DIR`: K10 of this tree against the
-    warp adjoint of another tree's csrc/warp.cu (DIR, a checkout unpacked with git
-    archive), built with nvcc beside this tree's kernels: bitwise equality on the
-    [warp] phase's square and rectangular draws and Af's extremes, f32 and bf16, and
-    the times of both and of grid_sample's input gradient (bf16, in turns other,
-    this, this, other). The card's line is printed last."""
+    """`python3 chip_smoke.py --warp-against DIR`: K9 and K10 of this tree against the
+    warp forward and adjoint of another tree's csrc/warp.cu (DIR, a checkout unpacked
+    with git archive), built with nvcc beside this tree's kernels: bitwise equality on
+    every draw of the [warp] phase (`warp_cases`), f32 and bf16, and the times of both
+    trees' kernels and of grid_sample's forward and input gradient (bf16, in turns
+    other, this, this, other; the kernels eager and from a CUDA graph). The card's line
+    is printed last."""
     import ctypes
 
     import torch
+    import torch.nn.functional as F
 
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels import build
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
 
     smi = phase_device()
     build.load_library()
@@ -1385,45 +1482,59 @@ def warp_against(parent):
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib_path), src], check=True,
                    capture_output=True, timeout=600)
     other = ctypes.CDLL(str(lib_path))
-    other.ffvc_warp_adjoint.argtypes = build._SIGNATURES["ffvc_warp_adjoint"]
+    for name in ("ffvc_warp_forward", "ffvc_warp_adjoint"):
+        getattr(other, name).argtypes = build._SIGNATURES[name]
 
-    def adjoint_other(g, m, mode, in_hw):
-        b, ho, wo, c = g.shape
-        grad = g.new_empty(b, *in_hw, c)
-        err = other.ffvc_warp_adjoint(g.data_ptr(), m.contiguous().data_ptr(), grad.data_ptr(),
-                                      b, *in_hw, ho, wo, c, int(mode == "border"),
-                                      int(g.dtype == torch.bfloat16),
-                                      build.stream_handle(g.device))
+    def other_call(name, src_t, m, mode, in_hw, out_hw):
+        """The other tree's K9 (name ffvc_warp_forward: src_t an image of in_hw) or K10
+        (ffvc_warp_adjoint: src_t a gradient of out_hw)."""
+        b, c = src_t.shape[0], src_t.shape[3]
+        dst = src_t.new_empty(b, *(out_hw if name == "ffvc_warp_forward" else in_hw), c)
+        err = getattr(other, name)(src_t.data_ptr(), m.contiguous().data_ptr(), dst.data_ptr(),
+                                   b, *in_hw, *out_hw, c, int(mode == "border"),
+                                   int(src_t.dtype == torch.bfloat16),
+                                   build.stream_handle(src_t.device))
         if err:
-            raise RuntimeError(f"the other tree's ffvc_warp_adjoint: CUDA error {err}")
-        return grad
+            raise RuntimeError(f"the other tree's {name}: CUDA error {err}")
+        return dst
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    b, h, w, c = WARP_SHAPE
-    extremes = af_extremes(h, w)
-    rb, rh, rw, rc = RECT_IN
-    cases = [(name, m, mode, WARP_SHAPE) for name, (m, mode) in warp_draws(gen, b, h, w).items()]
-    cases.append(("Af extremes", extremes, "border", (extremes.shape[0], h, w, c)))
-    cases += [(f"{name} {rh} -> {h}", m, mode, RECT_IN)
-              for name, (m, mode) in rect_draws(gen, rb, rh, rw, h).items()]
-    for label, m, mode, shape in cases:
+    timed = ("Af", "Pe", "Af extremes", "Re")
+    for label, m, mode, shape, out_hw in warp_cases(gen):
         in_hw = tuple(shape[1:3])
         for dtype in (torch.float32, torch.bfloat16):
-            g = torch.randn((shape[0], h, w, shape[3]), generator=gen, device="cuda").to(dtype)
-            same = torch.equal(warp_adjoint(g, m, mode, in_hw), adjoint_other(g, m, mode, in_hw))
-            log(f"[warp-against] K10 {label} {mode} {str(dtype)[6:]}: bitwise equal to the "
-                f"other tree's {same}")
-            if not same:
-                raise AssertionError(f"K10 differs from the other tree's at {label} {dtype}")
-        if label in ("Af", "Pe", "Af extremes", f"Re {rh} -> {h}"):
-            x = torch.rand(shape, generator=gen, device="cuda").to(torch.bfloat16)
-            g = torch.randn((shape[0], h, w, shape[3]), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-            this_ms, other_ms = paired_ms(lambda: warp_adjoint(g, m, mode, in_hw),
-                                          lambda: adjoint_other(g, m, mode, in_hw))
-            lib_ms = cuda_ms(grid_sample_adjoint(x, g, m, mode))
-            log(f"[warp-against] K10 {label} {mode} bf16: this tree {this_ms:.4f} ms, the other "
-                f"tree {other_ms:.4f} ms, grid_sampler_2d_backward {lib_ms:.4f} ms ({smi})")
+            x = torch.rand(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn((shape[0], *out_hw, shape[3]), generator=gen, device="cuda").to(dtype)
+            for kernel, this, theirs in (
+                    ("K9", warp_forward(x, m, mode, out_hw),
+                     other_call("ffvc_warp_forward", x, m, mode, in_hw, out_hw)),
+                    ("K10", warp_adjoint(g, m, mode, in_hw),
+                     other_call("ffvc_warp_adjoint", g, m, mode, in_hw, out_hw))):
+                same = torch.equal(this, theirs)
+                log(f"[warp-against] {kernel} {label} {mode} {str(dtype)[6:]}: bitwise equal to "
+                    f"the other tree's {same}")
+                if not same:
+                    raise AssertionError(f"{kernel} differs from the other tree's at {label} "
+                                         f"{dtype}")
+            if dtype != torch.bfloat16 or not any(label.startswith(t + " ") for t in timed):
+                continue
+            pairs = (
+                ("K9", lambda: warp_forward(x, m, mode, out_hw),
+                 lambda: other_call("ffvc_warp_forward", x, m, mode, in_hw, out_hw),
+                 lambda: F.grid_sample(x.permute(0, 3, 1, 2), grid_sample_grid(m, x, out_hw),
+                                       "bilinear", mode, align_corners=True
+                                       ).permute(0, 2, 3, 1).contiguous(),
+                 "grid_sample"),
+                ("K10", lambda: warp_adjoint(g, m, mode, in_hw),
+                 lambda: other_call("ffvc_warp_adjoint", g, m, mode, in_hw, out_hw),
+                 grid_sample_adjoint(x, g, m, mode), "grid_sampler_2d_backward"))
+            for kernel, this_fn, other_fn, lib_fn, lib_name in pairs:
+                this_ms, other_ms = paired_ms(this_fn, other_fn)
+                this_g, other_g = graph_ms(this_fn), graph_ms(other_fn)
+                lib_ms = cuda_ms(lib_fn)
+                log(f"[warp-against] {kernel} {label} {mode} bf16: this tree {this_ms:.4f} ms "
+                    f"(CUDA graph {this_g:.4f}), the other tree {other_ms:.4f} ms (CUDA graph "
+                    f"{other_g:.4f}), {lib_name} {lib_ms:.4f} ms ({smi})")
     print(smi, flush=True)
     return 0
 
@@ -2477,13 +2588,15 @@ def main():
         ("mlp_ln_bwd", "mlp_ln.cu", "mlp_ln.py:81", launches["mlp_ln_bwd"],
          errs["mlp_ln_bwd"]),
     ]
-    # library_ms: grid_sample's forward and backward for the warps; no single
-    # PyTorch call computes the other functions (K11's rows carry the eager
-    # module sublayer's time as eager_ms instead). The warps' launches are
-    # [train]'s and [trainer-crops]'s; their "rect" rows, the 256 -> 224 px
-    # warps of [trainer-crops]
+    # library_ms: the warps' rows carry grid_sample's forward and input-gradient
+    # times from [time] (time_warp_pair), their "rect" rows too; no single PyTorch
+    # call computes the other functions (K1 is a matmul and an argmin; K11's rows
+    # carry the eager module sublayer's time as eager_ms instead). The warps'
+    # launches are [train]'s and [trainer-crops]'s; their "rect" rows, the 256 ->
+    # 224 px warps of [trainer-crops]
     kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
-                "launches": n, "max_abs_err": err, "library_ms": None, **times[name]}
+                "launches": n, "max_abs_err": err, **times[name],
+                "library_ms": times[name].get("library_ms")}
                for name, src, tpu, n, err in rows]
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")

@@ -30,7 +30,13 @@
 // crop is 301 KB, so the taps' reads hit L2.
 //   * K9 is a direct gather: one thread per output pixel, all C channels, the 4
 //     taps read in bf16/f32 and interpolated in float32 in grid_sample's order
-//     (top = v00 (1-wx) + v01 wx, bot likewise, out = top (1-wy) + bot wy).
+//     (top = v00 (1-wx) + v01 wx, bot likewise, out = top (1-wy) + bot wy). A block
+//     holds one output row, so a thread finds its pixel with no division, and it
+//     issues a pass's tap loads before their arithmetic. It is not bound by bytes:
+//     bf16 and f32 take about the same time. Staging a 32 x 32 output tile's input
+//     box in shared memory with 16-byte loads and storing the outputs as 16-byte
+//     words was slower on an H100, the box's unpacking and the barriers costing
+//     more than the gathers and 2-byte stores they replace (PERF.md §6).
 //   * K10 is a gather too, so it needs no atomics and is deterministic: each INPUT
 //     pixel p (all C channels) sums w(s(q), p) g[q] over the output pixels q whose
 //     sample can reach p, in row-major order of q, in float32, and writes once.
@@ -101,41 +107,57 @@ __device__ __forceinline__ Taps sample_taps(const float* __restrict__ m, int qx,
   return {static_cast<int>(x0), static_cast<int>(y0), __fsub_rn(sx, x0), __fsub_rn(sy, y0)};
 }
 
-template <typename T>
+// K9: block bi * ho + qy holds output row qy of image bi, a thread a pixel (blockDim a
+// multiple of 32 that covers the row, at most kThreads, looping past it). kC: the
+// channels at compile time (3, the images), or 0 to read c.
+template <typename T, int kC>
 __global__ void __launch_bounds__(kThreads)
 warp_forward_kernel(const T* __restrict__ img, const float* __restrict__ mats,
-                    T* __restrict__ out, int b, int h, int w, int ho, int wo, int c,
-                    bool border) {
-  // one thread per output pixel q = (qx, qy) of the (ho, wo) frame
-  const long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (i >= static_cast<long long>(b) * ho * wo) return;
-  const int bi = static_cast<int>(i / (static_cast<long long>(ho) * wo));
-  const int r = static_cast<int>(i % (static_cast<long long>(ho) * wo));
-  const int qy = r / wo, qx = r % wo;
-  const Taps t = sample_taps(mats + bi * 9, qx, qy, h, w, border);
-  int x1 = t.x0 + 1, y1 = t.y0 + 1;
-  // zeros mode: a tap outside the frame reads 0; border mode: the taps are in the
-  // frame but x0 + 1 (y0 + 1) may be one past the edge, at weight 0
-  const bool in_x0 = border || (t.x0 >= 0 && t.x0 < w);
-  const bool in_x1 = border || (x1 >= 0 && x1 < w);
-  const bool in_y0 = border || (t.y0 >= 0 && t.y0 < h);
-  const bool in_y1 = border || (y1 >= 0 && y1 < h);
-  x1 = min(x1, w - 1);
-  y1 = min(y1, h - 1);
-  const T* base = img + static_cast<long long>(bi) * h * w * c;
-  auto tap = [&](bool inside, int x, int y, int ch) -> float {
-    return inside ? to_f(base[(static_cast<long long>(y) * w + x) * c + ch]) : 0.f;
-  };
-  const float ux = __fsub_rn(1.f, t.wx), uy = __fsub_rn(1.f, t.wy);
-  T* o = out + i * c;
-  for (int ch = 0; ch < c; ++ch) {
-    const float v00 = tap(in_x0 && in_y0, t.x0, t.y0, ch);
-    const float v01 = tap(in_x1 && in_y0, x1, t.y0, ch);
-    const float v10 = tap(in_x0 && in_y1, t.x0, y1, ch);
-    const float v11 = tap(in_x1 && in_y1, x1, y1, ch);
-    const float top = __fadd_rn(__fmul_rn(v00, ux), __fmul_rn(v01, t.wx));
-    const float bot = __fadd_rn(__fmul_rn(v10, ux), __fmul_rn(v11, t.wx));
-    o[ch] = from_f<T>(__fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, t.wy)));
+                    T* __restrict__ out, int h, int w, int ho, int wo, int c, bool border) {
+  const int nc = kC ? kC : c;
+  const int bi = blockIdx.x / ho, qy = blockIdx.x % ho;
+  const float* m = mats + bi * 9;
+  const T* base = img + static_cast<long long>(bi) * h * w * nc;
+  T* row = out + (static_cast<long long>(bi) * ho + qy) * wo * nc;
+  for (int qx = threadIdx.x; qx < wo; qx += blockDim.x) {
+    const Taps t = sample_taps(m, qx, qy, h, w, border);
+    int x1 = t.x0 + 1, y1 = t.y0 + 1;
+    // zeros mode: a tap outside the frame reads 0; border mode: the taps are in the
+    // frame but x0 + 1 (y0 + 1) may be one past the edge, at weight 0
+    const bool in_x0 = border || (t.x0 >= 0 && t.x0 < w);
+    const bool in_x1 = border || (x1 >= 0 && x1 < w);
+    const bool in_y0 = border || (t.y0 >= 0 && t.y0 < h);
+    const bool in_y1 = border || (y1 >= 0 && y1 < h);
+    x1 = min(x1, w - 1);
+    y1 = min(y1, h - 1);
+    auto tap = [&](bool inside, int x, int y, int ch) -> float {
+      return inside ? to_f(base[(y * w + x) * nc + ch]) : 0.f;  // an image < 2^31 elements
+    };
+    const float ux = __fsub_rn(1.f, t.wx), uy = __fsub_rn(1.f, t.wy);
+    T* o = row + qx * nc;
+    // a pass of channels: every tap's loads first, then the arithmetic
+    constexpr int kPass = kC ? kC : 4;
+    for (int c0 = 0; c0 < nc; c0 += kPass) {
+      float v[4][kPass];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the top row's taps, then the bottom row's
+        const bool in_y = r ? in_y1 : in_y0;
+        const int y = r ? y1 : t.y0;
+#pragma unroll
+        for (int k = 0; k < kPass; ++k) {
+          const bool ok = kC || c0 + k < nc;
+          v[2 * r][k] = tap(ok && in_y && in_x0, t.x0, y, c0 + k);
+          v[2 * r + 1][k] = tap(ok && in_y && in_x1, x1, y, c0 + k);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPass; ++k) {
+        if (!kC && c0 + k >= nc) break;
+        const float top = __fadd_rn(__fmul_rn(v[0][k], ux), __fmul_rn(v[1][k], t.wx));
+        const float bot = __fadd_rn(__fmul_rn(v[2][k], ux), __fmul_rn(v[3][k], t.wx));
+        o[c0 + k] = from_f<T>(__fadd_rn(__fmul_rn(top, uy), __fmul_rn(bot, t.wy)));
+      }
+    }
   }
 }
 
@@ -500,17 +522,25 @@ int launch(bool adjoint, const void* src, const float* mats, void* dst, int b, i
         static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
     FFVC_RETURN_LAST_ERROR();
   }
-  // a thread per output pixel
-  const long long n = static_cast<long long>(b) * ho * wo;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  warp_forward_kernel<T><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(src), mats, static_cast<T*>(dst), b, h, w, ho, wo, c, border);
+  // a block an output row
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(b) * ho);
+  const int threads = min(kThreads, (wo + 31) / 32 * 32);
+  const T* img = static_cast<const T*>(src);
+  T* out = static_cast<T*>(dst);
+  if (c == 3)
+    warp_forward_kernel<T, 3><<<blocks, threads, 0, s>>>(img, mats, out, h, w, ho, wo, c, border);
+  else
+    warp_forward_kernel<T, 0><<<blocks, threads, 0, s>>>(img, mats, out, h, w, ho, wo, c, border);
   FFVC_RETURN_LAST_ERROR();
 }
 
 int dispatch(bool adjoint, const void* src, const float* mats, void* dst, int b, int h, int w,
              int ho, int wo, int c, int border, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // K9 indexes one image of either frame with 32-bit offsets
+  if (!adjoint && (static_cast<long long>(h) * w * c >= (1LL << 31) ||
+                   static_cast<long long>(ho) * wo * c >= (1LL << 31)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == ffvc::kBF16)
     return launch<bf16>(adjoint, src, mats, dst, b, h, w, ho, wo, c, border != 0, s);
   return launch<float>(adjoint, src, mats, dst, b, h, w, ho, wo, c, border != 0, s);

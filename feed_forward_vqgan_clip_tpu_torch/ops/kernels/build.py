@@ -42,8 +42,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # entry point -> argument types (csrc/*.cu `extern "C"` signatures)
 _SIGNATURES = {
-    # x, codebook, c2, part_min, part_arg, out, n, k, c, splits, codes_per_split, stream
-    "ffvc_vq_argmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, codebook, xp, cp, n, k, c, channels, stream
+    "ffvc_vq_split": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, cp, c2, part_min, part_arg, out, n, k, channels, splits, stream
+    "ffvc_vq_argmin": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, bias, out, rows, d, dtype, stream
     "ffvc_ln_rows": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, scale, bias, out, rhat, inv, rows, d, centered, dtype, stream

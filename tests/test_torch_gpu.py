@@ -77,6 +77,8 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
     nearest_codebook_indices_kernel,
     nearest_codebook_indices_plain,
+    split_pieces,
+    vq_plan,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import (
     warp_adjoint,
@@ -100,11 +102,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,k", [(1000, 16384), (77, 1000), (4096, 16384)])
-def test_vq_kernel_matches_plain(cuda, n, k):
+@pytest.mark.parametrize("n,k,c", [(1000, 16384, 256), (77, 1000, 256), (4096, 16384, 256),
+                                   (256, 16384, 256), (2048, 16384, 256), (300, 2048, 70)])
+def test_vq_kernel_matches_plain(cuda, n, k, c):
     gen = torch.Generator(device=cuda).manual_seed(n + k)
-    x = torch.randn(n, 256, generator=gen, device=cuda)
-    cb = torch.randn(k, 256, generator=gen, device=cuda)
+    x = torch.randn(n, c, generator=gen, device=cuda)
+    cb = torch.randn(k, c, generator=gen, device=cuda)
     before = nearest_codebook_indices_kernel.launches
     got = nearest_codebook_indices_kernel(x, cb)
     assert nearest_codebook_indices_kernel.launches == before + 1
@@ -112,11 +115,30 @@ def test_vq_kernel_matches_plain(cuda, n, k):
     ref = nearest_codebook_indices_plain(x, cb)
     scores = cb.square().sum(-1)[None] - 2 * x @ cb.T
     top2 = scores.topk(2, dim=1, largest=False).values
-    bound = 4 * 256 * torch.finfo(torch.float32).eps * (
+    bound = 4 * c * torch.finfo(torch.float32).eps * (
         x.norm(dim=1) * cb.norm(dim=1).max() + cb.square().sum(-1).max())
     diff = got != ref
     assert diff.float().mean().item() <= 1e-3
     assert not (diff & (top2[:, 1] - top2[:, 0] >= bound)).any().item()
+
+
+@pytest.mark.parametrize("n,c", [(256, 256), (1000, 70)])
+def test_vq_kernel_repeats_bitwise(cuda, n, c):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, c, generator=gen, device=cuda)
+    cb = torch.randn(16384, c, generator=gen, device=cuda)
+    assert torch.equal(nearest_codebook_indices_kernel(x, cb),
+                       nearest_codebook_indices_kernel(x, cb))
+
+
+def test_vq_split_kernel_matches_plain_split(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(77, 70, generator=gen, device=cuda) * 1e3
+    cb = torch.randn(1000, 70, generator=gen, device=cuda) * 1e-3
+    x[0, :4] = torch.tensor([0.0, 1.5, -3.0e38, 3.4e38])  # bf16-exact, and a carry to inf
+    channels = vq_plan(77, 1000, 70, 132).channels
+    for got, ref in zip(split_pieces(x, cb, channels), split_pieces(x.cpu(), cb.cpu(), channels)):
+        assert torch.equal(got.cpu(), ref)
 
 
 def test_vq_kernel_ties_keep_lowest_index(cuda):
@@ -556,6 +578,27 @@ def test_warp_kernels_take_any_channel_count(cuda, c):
     for mode in ("zeros", "border"):
         assert _rel(warp_forward(img, m, mode), warp_forward_plain(img, m, mode)) <= 1e-4
         assert _rel(warp_adjoint(g, m, mode), warp_adjoint_plain(g, m, mode)) <= 1e-4
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5])
+def test_warp_forward_repeats_bitwise_at_any_alignment(cuda, c):
+    """K9 twice on the same inputs gives the same bits (C = 3 compiled for the images,
+    any other C read at run time); an image that starts off a 16-byte boundary gives
+    the same bits as an aligned copy; an output frame of 30 x 37 (rows of 37 pixels,
+    ragged against every warp) matches the plain version."""
+    gen = torch.Generator().manual_seed(20 + c)
+    m = _warp_mats("projective", 2, 40, 56, gen).to(cuda)
+    img = torch.rand(2, 40, 56, c, generator=gen).to(cuda, torch.bfloat16)
+    for mode in ("zeros", "border"):
+        out = warp_forward(img, m, mode)
+        assert torch.equal(out, warp_forward(img, m, mode))
+        buf = torch.empty(img.numel() + 1, dtype=img.dtype, device=cuda)
+        shifted = buf[1:].view_as(img)
+        shifted.copy_(img)
+        assert torch.equal(warp_forward(shifted, m, mode), out)
+        assert _rel(out, warp_forward_plain(img, m, mode)) <= 3e-2
+        ragged = warp_forward(img, m, mode, (30, 37))
+        assert _rel(ragged, warp_forward_plain(img, m, mode, (30, 37))) <= 3e-2
 
 
 def _crop_mats(case, b, gen):
