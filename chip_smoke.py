@@ -80,7 +80,8 @@
    `.th` checkpoint, loaded with ViT-B/32 and VQGAN f16-16384 (random from the
    seed) and a synthetic BPE table; grids 1x1, 2x2 and 4x4, a warm-up and 3
    timed requests each; K4 once per request of n <= 8 images, K2 32 times at
-   n = 16; per-stage CUDA-event ms, request ms, peak memory.
+   n = 16; per-stage CUDA-event ms, request ms, peak memory; after each
+   request's time, its float images n x 256 x 256 x 3 and finite in [0, 1].
 14. [train] The flagship train step (entry.train_entry: B=8, cutn=8, 224-px
    cutouts with the default augs Af/Pe/Ji/Er, ViT-B/32 loss, Adam), built twice:
    the image tower as modules, and through K11 (FFVC_FUSED_CLIP=1). A warm-up
@@ -103,11 +104,21 @@
    warp counters up by 3 forward and 3 adjoint, one pair of them from 256 to
    224 px (2 and 2, none, by default); step and per-stage ms, peak memory. Then
    two identical 2-step runs at depth 2, bitwise equal.
-18. Prints the card's line, the kernels' JSON line (K11's launches from the
-   [trainer] runs, the warps' from [train] and [trainer-crops], with the
-   rectangular warps' times, and their launches in [trainer-crops] as the
-   wrappers counted them, under "rect"), then `{"ok": true,
-   "device": {...}}` last.
+18. [mappers] The released mapper families the flagship is not, at full width
+   with random weights from seeds of the phase's own (MAPPER_MODELS): the VitGAN
+   Generator 32x1024 (ViT-B/32), the x-transformer 256x16 at 512 px
+   (32 x 32 latent tokens) and the Mixer 32x1024 with the ml-jku CLOOB RN50
+   perceptor. Each saved as a `.th`, served by the Predictor (VitGAN and Mixer
+   at 1x1, 2x2, 4x4, the x-transformer at 1x1, 2x2; per-stage CUDA-event ms,
+   peak memory; images finite in [0, 1]; K1 once a request, the Mixer's K4 at
+   n <= 8 and 32 x K2 above, no Mixer kernel for the others), then one train
+   step through entry.train_entry (finite loss, changed parameters; K1, K9 x 2,
+   K10 x 2, and K6, K7, K8 x 32 for the Mixer).
+19. Prints the card's line, the kernels' JSON line (K11's launches from the
+   [trainer] runs, the warps' from [train], [trainer-crops] and [mappers], with
+   the rectangular warps' times, and their launches in [trainer-crops] as the
+   wrappers counted them, under "rect"; K1, K2, K4, K6-K8 with [mappers]' too),
+   then `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -156,6 +167,23 @@ BPE_MERGES = ["h e", "l l", "he ll", "o</w> !</w>", "hell o</w>", "w o", "r l", 
               "worl d</w>"]
 TRAIN_STEPS = 3
 SEED = 0
+# [mappers]: the released mapper checkpoints the flagship is not, at their widths
+# (random weights from a seed of the phase's own): label, config, serving grids.
+# "256x16" of the x-transformer's file name read as dim x depth (depth 256 at
+# width 16 is no trainable transformer); its config is not in the repository.
+MAPPER_COMMON = dict(dropout=0, noise_dim=0, vqgan_model="vqgan_imagenet_f16_16384",
+                     compute_dtype="bfloat16")
+MAPPER_MODELS = (
+    ("vitgan_32x1024", dict(clip_model="ViT-B/32", model_type="vitgan", dim=1024, depth=32,
+                            vq_image_size=16, num_heads=6), ("1x1", "2x2", "4x4")),
+    ("xtransformer_256x16_512px", dict(clip_model="ViT-B/32", model_type="xtransformer",
+                                       dim=256, depth=16, vq_image_size=32, num_heads=6,
+                                       initial_proj=True, add_input=False), ("1x1", "2x2")),
+    ("mlp_mixer_32x1024_cloob_rn50", dict(clip_model="cloob_rn50", model_type="mlp_mixer",
+                                          dim=1024, depth=32, vq_image_size=16),
+     ("1x1", "2x2", "4x4")),
+)
+MAPPERS_SEED = 11
 CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
@@ -1763,10 +1791,75 @@ def slice_stream_mode(smi, block_ms, block_images):
     return mixer_block_stacked.launches
 
 
+def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, side, record):
+    """SERVE_REQUESTS timed requests of model `name` at each grid, after the
+    caller's warm-up: host ms per request, CUDA-event ms per stage (`mark`), the
+    kernels' launches of each request equal to `want(n)`; after the request's
+    time is taken, its float images (kept in `record` by `recorded_images`)
+    n x side x side, finite and in [0, 1], and the PNG their grid and not flat;
+    one line per grid, tagged `tag`, the mapper's route `route(n)`.
+    -> {grid: median request ms}."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.serve.predictor import STAGES
+
+    medians = {}
+    for grid in grids:
+        gh, gw = (int(v) for v in grid.split("x"))
+        n = gh * gw
+        request_ms, stage_ms = [], {st: [] for st in STAGES}
+        for i in range(SERVE_REQUESTS):
+            before = {k: fn.launches for k, fn in counters.items()}
+            record.clear()
+            events = [torch.cuda.Event(enable_timing=True)]
+
+            def mark(stage):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+
+            t = time.perf_counter()
+            events[0].record()
+            out = pred.predict(PROMPT, name, grid_size=grid, seed=seed + i,
+                               out_path=os.path.join(tmp, f"serve_{grid}.png"), mark=mark)
+            request_ms.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            for j, st in enumerate(STAGES):
+                stage_ms[st].append(events[j].elapsed_time(events[j + 1]))
+            launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+            if launched != want(n):
+                raise AssertionError(f"{tag} {grid}: launches {launched}, need {want(n)}")
+            (imgs,) = record
+            if not (imgs.shape == (n, side, side, 3) and np.isfinite(imgs).all()
+                    and imgs.min() >= 0.0 and imgs.max() <= 1.0):
+                raise AssertionError(f"{tag} {grid}: images {imgs.shape} in [{imgs.min()}, "
+                                     f"{imgs.max()}], need ({n}, {side}, {side}, 3) finite in "
+                                     "[0, 1]")
+            img = read_png(out)
+            png = (side + 2) * gh + 2
+            if img.shape != (png, png, 3) or float(np.std(img)) == 0.0:
+                raise AssertionError(f"{tag} {grid}: PNG {img.shape}, need ({png}, {png}, 3) "
+                                     "and not flat")
+        stages = ", ".join(f"{st} {sorted(v)[1]:.2f}" for st, v in stage_ms.items())
+        med = medians[grid] = sorted(request_ms)[1]
+        log(f"{tag} grid {grid} (n={n}, {route(n)}): median request {med:.2f} ms of "
+            f"{SERVE_REQUESTS} ({', '.join(f'{v:.2f}' for v in request_ms)}), "
+            f"{n / med * 1e3:.2f} img/s; median stage ms (CUDA events): {stages}; PNG "
+            f"{png}x{png} ({smi})")
+    return medians
+
+
+def mixer_route(n, depth=STREAM_DEPTH):
+    """The Predictor's Mixer route for a request of n images, as a label."""
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+
+    return "K4" if n <= STREAM_MAX_BATCH else f"{depth} x K2"
+
+
 def phase_serve(smi):
     """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's
     launches in the timed requests."""
-    import numpy as np
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.config import make_config
@@ -1778,14 +1871,21 @@ def phase_serve(smi):
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
-    from feed_forward_vqgan_clip_tpu_torch.serve.predictor import STAGES, Predictor
+    from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
 
     # the flagship of __graft_entry__.entry, as a released checkpoint's config holds it
     cfg = dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32, dropout=0,
                vq_image_size=16, noise_dim=0, vqgan_model="vqgan_imagenet_f16_16384",
                compute_dtype="bfloat16")
     counters = {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block}
-    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+
+    def want(n):
+        return {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
+                "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
+
+    record = []
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
+            patched(predictor_mod, make_grid=recorded_images(record)):
         t0 = time.perf_counter()
         mapper = build_mapper(make_config(**cfg), vq_channels=256, device="cuda")
         mapper.init_random_(torch.Generator(device="cuda").manual_seed(SEED))
@@ -1794,7 +1894,7 @@ def phase_serve(smi):
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
-        pred = Predictor([path], device="cuda")
+        pred = predictor_mod.Predictor([path], device="cuda")
         pred.setup()
         name = "flagship_mixer.th"
         for grid in SERVE_GRIDS:  # warm-up, outside the counted run
@@ -1807,43 +1907,8 @@ def phase_serve(smi):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        for grid in SERVE_GRIDS:
-            gh, gw = (int(v) for v in grid.split("x"))
-            n = gh * gw
-            want = {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
-                    "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
-            request_ms, stage_ms = [], {st: [] for st in STAGES}
-            for i in range(SERVE_REQUESTS):
-                before = {k: fn.launches for k, fn in counters.items()}
-                events = [torch.cuda.Event(enable_timing=True)]
-
-                def mark(stage):
-                    ev = torch.cuda.Event(enable_timing=True)
-                    ev.record()
-                    events.append(ev)
-
-                t = time.perf_counter()
-                events[0].record()
-                out = pred.predict(PROMPT, name, grid_size=grid, seed=SEED + i,
-                                   out_path=os.path.join(tmp, f"serve_{grid}.png"), mark=mark)
-                request_ms.append((time.perf_counter() - t) * 1e3)
-                torch.cuda.synchronize()
-                for j, st in enumerate(STAGES):
-                    stage_ms[st].append(events[j].elapsed_time(events[j + 1]))
-                launched = {k: fn.launches - before[k] for k, fn in counters.items()}
-                if launched != want:
-                    raise AssertionError(f"[serve] {grid}: launches {launched}, need {want}")
-                img = read_png(out)
-                side = (256 + 2) * gh + 2
-                if img.shape != (side, side, 3) or float(np.std(img)) == 0.0:
-                    raise AssertionError(f"[serve] {grid}: PNG {img.shape}, need ({side}, {side}, "
-                                         "3) and not flat")
-            stages = ", ".join(f"{st} {sorted(v)[1]:.2f}" for st, v in stage_ms.items())
-            med = sorted(request_ms)[1]
-            log(f"[serve] grid {grid} (n={n}, {'K4' if n <= STREAM_MAX_BATCH else '32 x K2'}): "
-                f"median request {med:.2f} ms of {SERVE_REQUESTS} "
-                f"({', '.join(f'{v:.2f}' for v in request_ms)}), {n / med * 1e3:.2f} img/s; "
-                f"median stage ms (CUDA events): {stages}; PNG {side}x{side} ({smi})")
+        serve_timed(pred, name, SERVE_GRIDS, counters, want, mixer_route, "[serve]", tmp, SEED,
+                    smi, 16 * cfg["vq_image_size"], record)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve] peak device memory in the requests {peak:.2f} GiB; launches in the timed "
             f"requests {dict((k, fn.launches) for k, fn in counters.items())}")
@@ -2424,6 +2489,165 @@ def phase_trainer_crops(smi):
     return launches, rect
 
 
+def mapper_counters():
+    """{kernel name: wrapper} of every kernel a request or a train step can launch."""
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
+
+    return {**train_counters(), "mixer_stream": mixer_stream, "mixer_block": mixer_block}
+
+
+def recorded_images(record):
+    """predictor.make_grid that first appends the request's float images to
+    `record`, for serve_timed to check once the request's time is taken."""
+    from feed_forward_vqgan_clip_tpu_torch.io.images import make_grid
+
+    def grid(imgs, nrow):
+        record.append(imgs)
+        return make_grid(imgs, nrow)
+
+    return grid
+
+
+def mapper_model_run(label, cfg, grids, seed, smi):
+    """One released mapper, random from `seed`: saved as a `.th`, served by the
+    Predictor (a warm-up, then SERVE_REQUESTS timed requests at each grid, the
+    kernels' launches of each request asserted: K1 once, and for a Mixer K4
+    once at n <= 8, K2 32 times above), then one train step after a warm-up
+    step (entry.train_entry with this mapper and perceptor: K1 once, K9 and K10
+    twice, K6, K7, K8 32 times each for a Mixer, no Mixer kernel for the
+    others; a finite loss, changed parameters). -> the kernels' launches in the
+    timed requests and the timed step."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config, vqgan_arch_config
+    from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
+    from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+    from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES as TRAIN_STAGES
+
+    cfg = dict(MAPPER_COMMON, **cfg)
+    counters = mapper_counters()
+    mixer = cfg["model_type"] == "mlp_mixer"
+    depth = int(cfg["depth"])
+    launches = {k: 0 for k in counters}
+    side = 16 * int(cfg["vq_image_size"])
+    record = []
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
+            patched(predictor_mod, make_grid=recorded_images(record)):
+        t0 = time.perf_counter()
+        mapper = build_mapper(make_config(**cfg), device="cuda",
+                              vq_channels=int(vqgan_arch_config(cfg)["z_channels"]))
+        mapper.init_random_(torch.Generator(device="cuda").manual_seed(seed))
+        params = sum(p.numel() for p in mapper.parameters())
+        path = save_model(os.path.join(tmp, f"{label}.th"), mapper, cfg)
+        del mapper
+        t1 = time.perf_counter()
+        pred = predictor_mod.Predictor([path], device="cuda")
+        pred.setup()
+        name = f"{label}.th"
+        if list(pred.models) != [name] or (name in pred._stream_params) != mixer:
+            raise AssertionError(f"[mappers] {label}: Predictor loaded {list(pred.models)}")
+        for grid in grids:  # warm-up, outside the counted run
+            pred.predict(PROMPT, name, grid_size=grid, seed=seed,
+                         out_path=os.path.join(tmp, "warm.png"))
+        torch.cuda.synchronize()
+        log(f"[mappers] {label}: {params / 1e6:.1f} M parameters, `.th` "
+            f"{os.path.getsize(path) / 2**30:.2f} GiB written in {t1 - t0:.1f} s; Predictor set "
+            f"up and warmed in {time.perf_counter() - t1:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+
+        def want(n):
+            need = {k: 0 for k in counters}
+            need["vq_argmin"] = 1
+            if mixer:
+                need["mixer_stream" if n <= STREAM_MAX_BATCH else "mixer_block"] = (
+                    1 if n <= STREAM_MAX_BATCH else depth)
+            return need
+
+        def route(n):
+            return f"{side} px, mapper " + (
+                mixer_route(n, depth) if mixer else "module path")
+
+        serve_ms = serve_timed(pred, name, grids, counters, want, route, f"[mappers] {label}",
+                               tmp, seed, smi, side, record)
+        serve_peak = torch.cuda.max_memory_allocated() / 2**30
+        for k, fn in counters.items():
+            launches[k] += fn.launches
+        del pred
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with fused_clip(False):
+        step_fn, state, batch = train_entry("cuda", batch=8, cutn=8, seed=seed,
+                                            mapper_config=cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step_fn(state, batch, gen)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    watch = [state.params[0], state.params[len(state.params) // 2], state.params[-1]]
+    snapshot = [p.detach().clone() for p in watch]
+    events = [torch.cuda.Event(enable_timing=True)]
+
+    def stage_mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    t = time.perf_counter()
+    events[0].record()
+    state, metrics = step_fn(state, batch, gen, stage_mark)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    loss = metrics["loss"].item()
+    want = {k: 0 for k in counters}
+    want.update(vq_argmin=1, warp_forward=2, warp_adjoint=2)
+    if mixer:
+        want.update(mixer_fwd_res=depth, mixer_channel_bwd=depth, mixer_token_bwd=depth)
+    launched = {k: fn.launches for k, fn in counters.items()}
+    if launched != want:
+        raise AssertionError(f"[mappers] {label} train step: launches {launched}, need {want}")
+    if not np.isfinite(loss) or any(torch.equal(a, p.detach()) for a, p in zip(snapshot, watch)):
+        raise AssertionError(f"[mappers] {label} train step: loss {loss}, or a watched "
+                             "parameter did not change")
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = ", ".join(f"{st} {events[j].elapsed_time(events[j + 1]):.2f}"
+                       for j, st in enumerate(TRAIN_STAGES))
+    log(f"[mappers] {label} train step (B=8, cutn=8, 224-px cutouts Af/Pe/Ji/Er, bf16, Adam; "
+        f"built and warmed in {built:.1f} s): loss {loss:.6f}, step {step_ms:.2f} ms (host "
+        f"clock, synchronized), CUDA-event stages {stages}; peak device memory "
+        f"{train_peak:.2f} GiB; launches {launched} ({smi})")
+    for k, v in launched.items():
+        launches[k] += v
+    log(f"[mappers] {label}: serving median request ms "
+        f"{', '.join(f'{g} {v:.2f}' for g, v in serve_ms.items())}, peak {serve_peak:.2f} GiB; "
+        f"train step {step_ms:.2f} ms, peak {train_peak:.2f} GiB ({smi})")
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mappers(smi):
+    """[mappers]: every released mapper family the flagship is not, served and
+    trained once through the entry points (`mapper_model_run` each). Draws only
+    from generators of its own. -> the kernels' launches in the phase's timed
+    requests and steps, summed over the models."""
+    total = {}
+    for i, (label, cfg, grids) in enumerate(MAPPER_MODELS):
+        for k, v in mapper_model_run(label, cfg, grids, MAPPERS_SEED + i, smi).items():
+            total[k] = total.get(k, 0) + v
+    log(f"[mappers] launches in the phase: {total}")
+    return total
+
+
 def torch_pools():
     """The cutouts' pools as torch's F.adaptive_{avg,max}_pool2d (atomic CUDA
     backwards: the port's pools before the matmul formulation) while the block
@@ -2564,6 +2788,11 @@ def main():
     for name in ("warp_forward", "warp_adjoint"):
         launches[name] += crops[name]
         times[name]["rect"].update(launches=rect[name], max_abs_err=errs["rect"][name])
+    mappers = phase_mappers(smi)
+    mappers["vq"] = mappers.pop("vq_argmin")
+    for name in ("vq", "mixer_block", "mixer_stream", "mixer_fwd_res", "mixer_channel_bwd",
+                 "mixer_token_bwd", "warp_forward", "warp_adjoint"):
+        launches[name] += mappers[name]
     pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
     csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
     rows = [  # name, source, TPU kernel replaced, launches (the path's run), max abs err
@@ -2592,8 +2821,8 @@ def main():
     # times from [time] (time_warp_pair), their "rect" rows too; no single PyTorch
     # call computes the other functions (K1 is a matmul and an argmin; K11's rows
     # carry the eager module sublayer's time as eager_ms instead). The warps'
-    # launches are [train]'s and [trainer-crops]'s; their "rect" rows, the 256 ->
-    # 224 px warps of [trainer-crops]
+    # launches are [train]'s, [trainer-crops]'s and [mappers]'; their "rect" rows,
+    # the 256 -> 224 px warps of [trainer-crops]
     kernels = [{"name": name, "route": "cuda", "source": csrc + src, "replaces": pallas + tpu,
                 "launches": n, "max_abs_err": err, **times[name],
                 "library_ms": times[name].get("library_ms")}

@@ -9,9 +9,11 @@ one device:
     cutouts, ViT-B/32 spherical loss, Adam with bf16 moments.
 """
 
+from typing import Optional
+
 import torch
 
-from feed_forward_vqgan_clip_tpu_torch.config import make_config
+from feed_forward_vqgan_clip_tpu_torch.config import make_config, vqgan_arch_config
 from feed_forward_vqgan_clip_tpu_torch.infer import build_generator
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
@@ -43,7 +45,8 @@ def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0,
     return prompt_to_image, (example_tokens(batch, device),)
 
 
-def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0):
+def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0,
+                mapper_config: Optional[dict] = None):
     """-> (step_fn, state, batch_dict): `step_fn(state, batch_dict, generator,
     mark=None)` runs one train step and returns (state, metrics).
 
@@ -52,17 +55,23 @@ def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0):
     f16-16384 (frozen), bf16 compute with float32 master weights, Adam lr 1e-3
     with bf16 moments, `cutn` 224-px pooled cutouts with additive noise, one
     text encode per step (same_io), tokens `[SOT, 0, EOT, 0...]`, and the
-    default augmentations `Af`, `Pe`, `Ji`, `Er`."""
+    default augmentations `Af`, `Pe`, `Ji`, `Er`. `mapper_config`: config keys
+    that replace the flagship's (`model_type`, `dim`, `depth`, `vq_image_size`,
+    `num_heads`, `clip_model`: another released mapper and its perceptor, whose
+    input size the cutouts take)."""
     dtype = torch.bfloat16
-    cfg = make_config(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32,
-                      dropout=0, vq_image_size=16, noise_dim=0, batch_size=batch, cutn=cutn,
-                      compute_dtype="bfloat16")
+    cfg = make_config(**{**dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024,
+                                depth=32, dropout=0, vq_image_size=16, noise_dim=0),
+                         **(mapper_config or {}),
+                         **dict(batch_size=batch, cutn=cutn, compute_dtype="bfloat16")})
     frozen = build_frozen(cfg, dtype, device=device, seed=seed)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    mapper = build_mapper(dict(cfg), vq_channels=256, dtype=dtype, device=device)
+    mapper = build_mapper(dict(cfg), vq_channels=int(vqgan_arch_config(cfg)["z_channels"]),
+                          dtype=dtype, device=device)
     mapper.init_random_(gen)
     state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
-    cutouts = MakeCutouts(cut_size=224, cutn=cutn, pool_size=224)
+    size = frozen.perceptor.size  # 224 for ViT-B/32
+    cutouts = MakeCutouts(cut_size=size, cutn=cutn, pool_size=size)
     step_fn, _ = make_train_step(cfg, mapper, frozen, cutouts, inp_is_tokens=True,
                                  out_is_tokens=True, same_io=True)
     tokens = torch.zeros(batch, 77, dtype=torch.long, device=device)

@@ -99,7 +99,7 @@ class Generator:
         """Prompts -> H (B, clip_dim) float32, normalised where the config says
         `normalize_input`."""
         toks = torch.from_numpy(bpe.get_tokenizer().tokenize(texts, truncate=True)).long()
-        h = self.encode_tokens(toks.to(self.mapper.proj.weight.device))
+        h = self.encode_tokens(toks.to(next(self.mapper.parameters()).device))
         return normalize(h) if self.cfg.get("normalize_input") else h
 
     @torch.no_grad()

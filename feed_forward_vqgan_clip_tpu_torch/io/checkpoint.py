@@ -2,10 +2,10 @@
 
 Port of the `.th` branch of feed_forward_vqgan_clip_tpu/io/checkpoint.py
 `load_model`: a torch file holding the dict {state_dict, config, step, epoch},
-the fixed noise bank under `NOISE` in the state dict. The port's Mixer keeps the
-reference's mlp_mixer_pytorch key names, so the state dict loads as it is, with
-no converter. `save_model` writes the same format, which the JAX package's
-`load_model` reads too.
+the fixed noise bank under `NOISE` in the state dict. The port's mappers (the
+MLP-Mixer, the VitGAN generators, the x-transformer) keep the reference's key
+names, so the state dict loads as it is, with no converter. `save_model` writes
+the same format, which the JAX package's `load_model` reads too.
 
 A trainer's run folder holds, as the reference's does:
 
@@ -18,7 +18,7 @@ Every file is written atomically (tmp + rename), and the trainer writes
 checkpoint.th last: its rename is the commit point `checkpoint_exists` keys off.
 
 Not ported: the JAX package's native checkpoint directories (flax msgpack +
-meta.json, ROADMAP A16) and the legacy whole-module pickles (which need the
+meta.json, ROADMAP A16f) and the legacy whole-module pickles (which need the
 reference's own classes); `load_model` raises NotImplementedError on both.
 """
 
@@ -111,19 +111,19 @@ def load_model(path: str, *, device="cuda"):
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a native checkpoint directory (flax msgpack); the port reads "
-            "reference .th files only (ROADMAP A16)"
+            "reference .th files only (ROADMAP A16f)"
         )
     try:
         obj = torch.load(path, map_location="cpu", weights_only=False)
     except (ModuleNotFoundError, AttributeError) as e:
         raise NotImplementedError(
             f"{path} pickles classes this environment lacks (a legacy whole-module "
-            "checkpoint?); the port reads {state_dict, config} .th files only (ROADMAP A6)"
+            "checkpoint?); the port reads {state_dict, config} .th files only (ROADMAP A16f)"
         ) from e
     if not (isinstance(obj, dict) and "state_dict" in obj and "config" in obj):
         raise NotImplementedError(
             f"{path} is not a {{state_dict, config}} checkpoint (a legacy whole-module "
-            "pickle?); the port reads those only (ROADMAP A6)"
+            "pickle?); the port reads those only (ROADMAP A16f)"
         )
     sd = dict(obj["state_dict"])
     noise = sd.pop("NOISE", None)

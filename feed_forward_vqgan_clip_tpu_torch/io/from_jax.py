@@ -1,8 +1,9 @@
 """JAX parameter pytrees -> state dicts of the port's modules.
 
 The inverse of the JAX package's torch converters (io/torch_import.py) for the
-modules of the served and trained paths: the MLP-Mixer mapper, the VQGAN decoder
-and the CLIP text and image towers. Parity tests use these to run the JAX module
+modules of the served and trained paths: the mappers (MLP-Mixer, the VitGAN
+generators and their SineLayer and Discriminator, the x-transformer), the VQGAN
+decoder and the CLIP towers (ViT and ModifiedResNet). Parity tests use these to run the JAX module
 and its port on the same weights. Inputs are the pytrees as the JAX modules' `init` returns them
 (with or without the top-level 'params'), leaves as numpy arrays (or anything
 np.asarray takes). Layouts:
@@ -31,12 +32,14 @@ def _t(a):
 
 def _linear(sd, prefix, p):
     sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _conv(sd, prefix, p):
     sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def _norm(sd, prefix, p):
@@ -178,4 +181,127 @@ def clip_state_dict(tree):
     """models.clip_vit.CLIP params (both towers) -> the port's CLIP state dict."""
     sd = {**clip_text_state_dict(tree), **clip_image_state_dict(tree)}
     sd["logit_scale"] = _t(_params(tree)["logit_scale"]).reshape(())
+    return sd
+
+
+def _depth(p):
+    return sum(1 for k in p if k.startswith("block_"))
+
+
+def _sln(sd, prefix, p):
+    sd[f"{prefix}.gamma"] = _t(p["gamma"])
+    sd[f"{prefix}.beta"] = _t(p["beta"])
+    _norm(sd, f"{prefix}.ln", p["ln"])
+
+
+def _vitgan_mlp(sd, prefix, p):
+    _linear(sd, f"{prefix}.linear1", p["linear1"])
+    _linear(sd, f"{prefix}.linear2", p["linear2"])
+
+
+def vitgan_generator_state_dict(tree):
+    """models.mappers.vitgan.Generator or SimpleGenerator params -> the port's
+    state dict (the reference's names)."""
+    p = _params(tree)
+    sd = {"pos_emb1D": _t(p["pos_emb1D"])}
+    _linear(sd, "mlp", p["mlp"])
+    if "inp" in p:  # SimpleGenerator
+        _linear(sd, "inp", p["inp"])
+    for i in range(_depth(p)):
+        b, pre = p[f"block_{i}"], f"Transformer_Encoder.blocks.{i}"
+        _sln(sd, f"{pre}.norm1", b["norm1"])
+        _sln(sd, f"{pre}.norm2", b["norm2"])
+        _linear(sd, f"{pre}.attn.to_qkv", b["attn"]["to_qkv"])
+        _linear(sd, f"{pre}.attn.w_out", b["attn"]["w_out"])
+        _vitgan_mlp(sd, f"{pre}.mlp", b["mlp"])
+    _sln(sd, "sln_norm", p["sln_norm"])
+    _linear(sd, "w_out.0", p["w_out"])
+    return sd
+
+
+def vitgan_discriminator_state_dict(tree):
+    """models.mappers.vitgan.Discriminator params -> the port's state dict. Each
+    attention's `init_spect_norm` is no key: the port sets it from the weight
+    loaded (`init_discriminator_spectral_norms`), as the JAX converter does."""
+    p = _params(tree)
+    sd = {"cls_token": _t(p["cls_token"]), "pos_emb1D": _t(p["pos_emb1D"])}
+    _linear(sd, "project_patches", p["project_patches"])
+    for i in range(_depth(p)):
+        b, pre = p[f"block_{i}"], f"Transformer_Encoder.blocks.{i}"
+        _norm(sd, f"{pre}.norm1", b["norm1"])
+        _norm(sd, f"{pre}.norm2", b["norm2"])
+        sd[f"{pre}.attn.to_qkv.weight"] = _t(np.asarray(b["attn"]["to_qkv_kernel"]).T)
+        _linear(sd, f"{pre}.attn.w_out", b["attn"]["w_out"])
+        _vitgan_mlp(sd, f"{pre}.mlp", b["mlp"])
+    _norm(sd, "mlp_head.0", p["head_norm"])
+    _linear(sd, "mlp_head.1", p["head"])
+    return sd
+
+
+def sine_layer_state_dict(tree):
+    """models.mappers.vitgan.SineLayer params -> the port's state dict."""
+    sd = {}
+    _linear(sd, "linear", _params(tree)["linear"])
+    return sd
+
+
+def xtransformer_state_dict(tree, *, add_input=False):
+    """models.mappers.xtransformer.XTransformer params -> the port's state dict
+    (x-transformers 0.19.1 names). With `proj` (initial_proj) and not
+    `add_input` the reference's position table has one more row than the JAX
+    module's, which no forward reads: it is added as zeros."""
+    p, t = _params(tree), "transformer"
+    sd = {}
+    if "proj" in p:
+        _linear(sd, "proj", p["proj"])
+    _linear(sd, f"{t}.project_in", p["project_in"])
+    pos = np.asarray(p["pos_emb"], np.float32)
+    if "proj" in p and not add_input:
+        pos = np.concatenate([pos, np.zeros_like(pos[:1])])
+    sd[f"{t}.pos_emb.emb.weight"] = _t(pos)
+    for i in range(_depth(p)):
+        b = p[f"block_{i}"]
+        a, f = f"{t}.attn_layers.layers.{2 * i}", f"{t}.attn_layers.layers.{2 * i + 1}"
+        _norm(sd, f"{a}.0", b["ln_attn"]["LayerNorm_0"])
+        for name in ("to_q", "to_k", "to_v", "to_out"):
+            _linear(sd, f"{a}.1.{name}", b["attn"][name])
+        _norm(sd, f"{f}.0", b["ln_ff"]["LayerNorm_0"])
+        _linear(sd, f"{f}.1.net.0.0", b["ff1"])
+        _linear(sd, f"{f}.1.net.2", b["ff2"])
+    _norm(sd, f"{t}.norm", p["final_norm"]["LayerNorm_0"])
+    _linear(sd, f"{t}.project_out", p["project_out"])
+    return sd
+
+
+def _frozen_bn(sd, prefix, p):
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+    sd[f"{prefix}.running_mean"] = _t(p["mean"])
+    sd[f"{prefix}.running_var"] = _t(p["var"])
+
+
+def clip_resnet_state_dict(tree):
+    """models.clip_resnet.CLIPResNet params (both towers) -> the port's
+    CLIPResNet state dict (OpenAI CLIP RN names)."""
+    p = _params(tree)
+    vis = p["visual"]
+    sd = clip_text_state_dict(tree)
+    for i in (1, 2, 3):
+        _conv(sd, f"visual.conv{i}", vis[f"conv{i}"])
+        _frozen_bn(sd, f"visual.bn{i}", vis[f"bn{i}"])
+    for name, sub in vis.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if m:
+            pre = f"visual.layer{m.group(1)}.{m.group(2)}"
+            for i in (1, 2, 3):
+                _conv(sd, f"{pre}.conv{i}", sub[f"conv{i}"])
+                _frozen_bn(sd, f"{pre}.bn{i}", sub[f"bn{i}"])
+            if "downsample_conv" in sub:
+                _conv(sd, f"{pre}.downsample.0", sub["downsample_conv"])
+                _frozen_bn(sd, f"{pre}.downsample.1", sub["downsample_bn"])
+    pool = vis["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(sd, f"visual.attnpool.{name}", pool[name])
+    sd["logit_scale"] = _t(p["logit_scale"]).reshape(())
     return sd

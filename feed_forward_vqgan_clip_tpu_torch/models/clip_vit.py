@@ -37,6 +37,21 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(self.dtype)
 
 
+class Linear(nn.Linear):
+    """nn.Linear with float32 parameters computed in `dtype`: input, weight and
+    bias cast to it (flax's Dense with a `dtype`)."""
+
+    def __init__(self, in_features, out_features, bias=True, *, dtype=torch.float32,
+                 device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 class MHSA(nn.Module):
     """Multi-head self-attention with torch.nn.MultiheadAttention's parameters
     (packed `in_proj_weight` / `in_proj_bias`, `out_proj`)."""
@@ -137,7 +152,7 @@ class TextTransformer(nn.Module):
         """The JAX module's init from a torch.Generator: embeddings N(0, 0.02),
         positions N(0, 0.01), projection N(0, width^-1/2), lecun-normal dense
         kernels, zero biases, unit norms."""
-        _init_blocks_(self.transformer, self.ln_final, generator=generator)
+        init_blocks_(self.transformer, self.ln_final, generator=generator)
         self.token_embedding.weight.normal_(0.0, 0.02, generator=generator)
         self.positional_embedding.normal_(0.0, 0.01, generator=generator)
         self.text_projection.normal_(0.0, self.width ** -0.5, generator=generator)
@@ -145,13 +160,15 @@ class TextTransformer(nn.Module):
 
 
 @torch.no_grad()
-def _init_blocks_(*modules, generator):
-    """lecun-normal dense kernels, zero biases, unit norms (flax defaults)."""
+def init_blocks_(*modules, generator):
+    """lecun-normal dense and conv kernels (std fan_in^-1/2), zero biases, unit
+    norms (flax defaults)."""
     for module in modules:
         for m in module.modules():
-            if isinstance(m, nn.Linear):
-                m.weight.normal_(0.0, m.weight.shape[1] ** -0.5, generator=generator)
-                m.bias.zero_()
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, MHSA):
                 m.in_proj_weight.normal_(0.0, m.in_proj_weight.shape[1] ** -0.5,
                                          generator=generator)
@@ -202,7 +219,7 @@ class VisionTransformer(nn.Module):
     def init_random_(self, generator):
         """The JAX module's init: lecun-normal patch kernel and dense kernels, class
         token N(0, 0.02), positions N(0, 0.01), projection N(0, width^-1/2)."""
-        _init_blocks_(self.transformer, self.ln_pre, self.ln_post, generator=generator)
+        init_blocks_(self.transformer, self.ln_pre, self.ln_post, generator=generator)
         self.conv1.weight.normal_(0.0, self.conv1.weight[0].numel() ** -0.5,
                                   generator=generator)
         self.class_embedding.normal_(0.0, 0.02, generator=generator)
@@ -255,18 +272,29 @@ def make_clip_from_config(cfg: dict, act: str = "quick_gelu", dtype=torch.float3
     )
 
 
+def parse_openclip(name: str):
+    """'openclip/<arch>/<tag>' -> (arch as the registry names it, activation):
+    ViT-B-32 becomes ViT-B/32, RN archs stay as they are; exact GELU unless the
+    arch ends in -quickgelu."""
+    parts = name.split("/", 2)
+    if len(parts) < 3:
+        raise ValueError(f"openclip perceptor name {name!r} must look like "
+                         "'openclip/<arch>/<pretrained_tag>'")
+    arch = parts[1]
+    act = "quick_gelu" if arch.endswith("-quickgelu") else "gelu"
+    arch = arch.replace("-quickgelu", "")
+    pieces = arch.split("-")
+    if len(pieces) == 3 and pieces[0] == "ViT":
+        arch = f"ViT-{pieces[1]}/{pieces[2]}"
+    return arch, act
+
+
 def make_clip(name: str, dtype=torch.float32, device=None,
               image: bool = False) -> TextTransformer:
     """A CLIP ViT from a backbone name ('ViT-B/32', 'openclip/ViT-B-32/<tag>';
     non-quickgelu OpenCLIP tags use exact GELU): both towers with `image`, else
     the text tower alone."""
-    act = "quick_gelu"
-    arch = name
-    if name.startswith("openclip/"):
-        _, arch, _tag = name.split("/", 2)
-        act = "quick_gelu" if arch.endswith("-quickgelu") else "gelu"
-        parts = arch.replace("-quickgelu", "").split("-")  # ViT-B-32 -> ViT-B/32
-        arch = f"ViT-{parts[1]}/{parts[2]}" if len(parts) == 3 and parts[0] == "ViT" else arch
+    arch, act = parse_openclip(name) if name.startswith("openclip/") else (name, "quick_gelu")
     if arch not in CLIP_VIT_CONFIGS:
         raise ValueError(f"unknown CLIP ViT arch {arch!r} (from {name!r}); known archs: "
                          f"{sorted(CLIP_VIT_CONFIGS)}")

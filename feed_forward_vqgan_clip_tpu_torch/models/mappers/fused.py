@@ -3,7 +3,9 @@
 Port of feed_forward_vqgan_clip_tpu/models/mappers/fused.py: on a CUDA tensor
 every Mixer block is one call of the block kernels (ops/kernels/mixer_block.py),
 `mixer_block` for inference and the differentiable `MixerBlockTrain` for
-training; on a CPU tensor the module runs as it is. The streamed forward
+training; on a CPU tensor the module runs as it is. The other mapper families
+(VitGAN, x-transformer) have no kernel: `fused_supported` sends them through
+their modules on every device, as the JAX gate does. The streamed forward
 (`streamed_mixer_forward`, the small-request serving path) runs the whole block
 stack as one launch of ops/kernels/mixer_stream.py (K4) over weights stacked and
 folded once per loaded model; `stacked_mixer_forward` runs the same stacked
@@ -43,17 +45,25 @@ def fused_mixer_forward(mapper: Mixer, x, block_weights):
     return mapper.head(h)
 
 
-def make_mapper_apply(mapper: Mixer):
+def fused_supported(mapper) -> bool:
+    """The block kernels take a Mixer of any shape; every other mapper runs as
+    its module."""
+    return isinstance(mapper, Mixer)
+
+
+def make_mapper_apply(mapper):
     """x -> z for deterministic (inference) forwards of `mapper`.
 
-    CUDA input goes through the block kernel; the blocks' weights are cast to the
-    compute dtype once, at the first CUDA call, so later changes to the mapper's
-    parameters need a new apply function. CPU input runs the module."""
+    CUDA input to a Mixer goes through the block kernel; the blocks' weights are
+    cast to the compute dtype once, at the first CUDA call, so later changes to
+    the mapper's parameters need a new apply function. CPU input, and every
+    other mapper, runs the module."""
     weights = {}
+    fused = fused_supported(mapper)
 
     @torch.no_grad()
     def apply_fn(x):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not fused:
             return mapper(x)
         if x.device not in weights:
             weights[x.device] = [b.kernel_weights(mapper.dtype) for b in mapper.blocks]
@@ -74,7 +84,7 @@ class StreamedMixerParams(NamedTuple):
 def streamed_supported(mapper) -> bool:
     """The streamed forward serves a Mixer mapper whose forwards are
     deterministic (dropout 0). The TPU's VMEM gate has no counterpart."""
-    return isinstance(mapper, Mixer) and all(
+    return fused_supported(mapper) and all(
         m.p == 0 for m in mapper.modules() if isinstance(m, Dropout))
 
 
@@ -156,14 +166,16 @@ def fused_mixer_train_forward(mapper: Mixer, x):
     return mapper.head(h)
 
 
-def make_mapper_train_apply(mapper: Mixer):
+def make_mapper_train_apply(mapper):
     """x -> z for differentiable deterministic forwards (the train step's
-    dropout == 0 path): CUDA input through the block kernels, CPU input through
-    the module. Unlike `make_mapper_apply` nothing is cached across calls: the
-    parameters change every step, and each forward casts them anew."""
+    dropout == 0 path): CUDA input to a Mixer through the block kernels, CPU
+    input and every other mapper through the module. Unlike `make_mapper_apply`
+    nothing is cached across calls: the parameters change every step, and each
+    forward casts them anew."""
+    fused = fused_supported(mapper)
 
     def apply_fn(x):
-        if x.device.type != "cuda":
+        if x.device.type != "cuda" or not fused:
             return mapper(x)
         return fused_mixer_train_forward(mapper, x)
 

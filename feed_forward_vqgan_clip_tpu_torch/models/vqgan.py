@@ -271,13 +271,13 @@ def load_vqgan(cfg: TrainConfig, dtype=torch.bfloat16, *, device="cuda", seed: i
     `first_stage_model.` prefix and GumbelVQ's `quantize.embed` name are taken
     as the JAX package takes them), else random from `seed`. Port of JAX
     train/loop.py `load_vqgan`; native msgpack directories are not read
-    (ROADMAP A6)."""
+    (ROADMAP A16f)."""
     vq = make_vqgan(vqgan_arch_config(cfg), dtype=dtype, device=device)
     path = cfg.get("vqgan_checkpoint")
     if path and os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a native (flax msgpack) VQGAN directory; the port reads torch "
-            "files only (ROADMAP A6)"
+            "files only (ROADMAP A16f)"
         )
     if path:
         obj = torch.load(path, map_location="cpu", weights_only=False)

@@ -1,5 +1,6 @@
 """Frozen-model constants the port reads: CLIP input sizes and embedding widths,
-pixel normalisation, the CLIP ViT architectures and the VQGAN decoder configs.
+pixel normalisation, the CLIP ViT and ResNet architectures and the VQGAN decoder
+configs.
 
 The port's own copy of the entries it uses from feed_forward_vqgan_clip_tpu/
 registry.py (the port imports nothing of the JAX package);
@@ -62,6 +63,31 @@ CLIP_VIT_CONFIGS = {
         image_size=32, patch_size=8, vision_width=64, vision_layers=2,
         vision_heads=2, embed_dim=32, text_width=32, text_layers=2,
         text_heads=2, vocab_size=49408, context_length=77,
+    ),
+}
+
+# Public OpenAI CLIP ModifiedResNet configs (the ml-jku CLOOB RN50 / RN50x4 use
+# RN50's and RN50x4's).
+CLIP_RESNET_CONFIGS = {
+    "RN50": dict(
+        image_size=224, vision_layers=(3, 4, 6, 3), vision_width=64,
+        embed_dim=1024, text_width=512, text_layers=12, text_heads=8,
+        vocab_size=49408, context_length=77,
+    ),
+    "RN101": dict(
+        image_size=224, vision_layers=(3, 4, 23, 3), vision_width=64,
+        embed_dim=512, text_width=512, text_layers=12, text_heads=8,
+        vocab_size=49408, context_length=77,
+    ),
+    "RN50x4": dict(
+        image_size=288, vision_layers=(4, 6, 10, 6), vision_width=80,
+        embed_dim=640, text_width=640, text_layers=12, text_heads=10,
+        vocab_size=49408, context_length=77,
+    ),
+    "RN50x16": dict(
+        image_size=384, vision_layers=(6, 8, 18, 8), vision_width=96,
+        embed_dim=768, text_width=768, text_layers=12, text_heads=12,
+        vocab_size=49408, context_length=77,
     ),
 }
 

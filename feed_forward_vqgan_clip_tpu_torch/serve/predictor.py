@@ -4,7 +4,8 @@ Port of feed_forward_vqgan_clip_tpu/serve/predictor.py. `setup()` loads every
 mapper checkpoint (reference `.th` files) and caches perceptors by
 (clip_model, clip_model_path) and VQGANs by checkpoint and architecture, with
 their latent bounds; for each Mixer mapper it also stacks and folds the weights
-once for the streamed forward. `predict()` runs tokenize -> text encode -> tile
+once for the streamed forward. The other mapper families (VitGAN, x-transformer)
+run as modules on every device. `predict()` runs tokenize -> text encode -> tile
 to grid_h * grid_w rows (+ noise) -> mapper -> clamp -> VQ + decode -> grid ->
 PNG. A request of at most `STREAM_MAX_BATCH` (8) images goes through the
 depth-streaming Mixer stack (one K4 launch for all blocks on the card); a larger
@@ -79,7 +80,7 @@ class Predictor:
             try:
                 mapper, cfg, noise = checkpoint.load_model(path, device=self.device)
             except NotImplementedError as e:
-                # a mapper family or checkpoint format the port does not read yet:
+                # a checkpoint format the port does not read yet (ROADMAP A16f):
                 # serve the loadable models instead of failing
                 log.warning("skipping %s: %s", name, e)
                 continue

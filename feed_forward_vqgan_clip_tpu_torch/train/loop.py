@@ -3,13 +3,13 @@
 Port of feed_forward_vqgan_clip_tpu/train/loop.py. `make_train_step`: text
 encode (frozen CLIP, no grad; once when the input and the target are the same
 tokens, `same_io`) -> `repeat` tiling (+ noise concat when `noise_dim > 0`) ->
-mapper (through the Mixer train kernels on the card; with dropout > 0 the
-module path, masks from the step's generator) -> clamp_with_grad ->
-straight-through VQ -> frozen VQGAN decode -> cutouts with augmentations in
-`aug_dtype` -> CLIP normalisation -> frozen CLIP image encode (the fused tower
-of models/clip_fused.py where FFVC_FUSED_CLIP asks for it) -> spherical loss
-against the cutn-major tiled targets (+ input, L2 and TV terms) -> backward ->
-Adam -> EMA. Loss parity with the reference's `train`, term by term.
+mapper (a Mixer through its train kernels on the card, the other families as
+modules; with dropout > 0 the module path, masks from the step's generator) ->
+clamp_with_grad -> straight-through VQ -> frozen VQGAN decode -> cutouts with
+augmentations in `aug_dtype` -> CLIP normalisation -> frozen CLIP image encode
+(the fused tower of models/clip_fused.py where FFVC_FUSED_CLIP asks for it) ->
+spherical loss against the cutn-major tiled targets (+ input, L2 and TV terms)
+-> backward -> Adam -> EMA. Loss parity with the reference's `train`, term by term.
 
 `train(cfg)` is the host loop around it: per-epoch batches, noise-bank rows
 keyed on (seed, step), a per-step torch.Generator seeded from (seed, step) (the

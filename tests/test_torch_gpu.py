@@ -22,6 +22,8 @@ for bit. The pools' backward, the tiny trainer's steps and the plain-PyTorch
 backwards of Et, Ts and R (no kernel of their own: a sorted fixed-order segment
 sum and weight-matrix products) must repeat bit for bit. The dot-product test of
 K9 and K10 in float32: |<K9 x, g> - <x, K10 g>| within 1e-5 of sum |terms|.
+The VitGAN and x-transformer mappers (module path) and the CLIP RN50 perceptor
+(cuDNN convolutions) on the card, float32, within 1e-4 and 1e-3 of max |CPU|.
 """
 
 import copy
@@ -33,8 +35,14 @@ import torch
 from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
 from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fused
+from feed_forward_vqgan_clip_tpu_torch.models.clip_resnet import CLIPResNet
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
-from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_streamed_mixer_apply
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
+    make_mapper_apply,
+    make_mapper_train_apply,
+    make_streamed_mixer_apply,
+)
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.ops import augment, pooling
@@ -88,6 +96,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
     warp_forward,
     warp_forward_plain,
 )
+from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_RESNET_CONFIGS
 from feed_forward_vqgan_clip_tpu_torch.train import loop
 
 pytestmark = pytest.mark.gpu
@@ -846,3 +855,41 @@ def test_fused_clip_tower_on_card_matches_cpu(cuda):
     ref.square().sum().backward()
     assert _rel(got.detach().cpu(), ref.detach()) <= 1e-3
     assert _rel(xc.grad.cpu(), xr.grad) <= 1e-3
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(model_type="vitgan", dim=64, depth=2, vq_image_size=16, num_heads=5),
+    dict(model_type="xtransformer", dim=64, depth=2, vq_image_size=8, num_heads=2),
+], ids=["vitgan", "xtransformer"])
+def test_other_mappers_take_the_module_path_on_card(cuda, cfg):
+    """make_mapper_apply and make_mapper_train_apply run a non-Mixer mapper as its
+    module on a CUDA tensor: no Mixer kernel launches, the CPU's output within
+    1e-4 of max |CPU|, finite parameter grads."""
+    cpu = build_mapper(dict(cfg, clip_model="ViT-B/32"), vq_channels=32, device="cpu")
+    cpu.init_random_(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(3, 512, generator=torch.Generator().manual_seed(1))
+    counts = (mixer_block.launches, mixer_block_fwd_res.launches)
+    got = make_mapper_apply(card)(x.to(cuda))
+    out = make_mapper_train_apply(card)(x.to(cuda))
+    out.square().mean().backward()
+    assert (mixer_block.launches, mixer_block_fwd_res.launches) == counts
+    with torch.no_grad():
+        want = cpu(x)
+    assert _rel(got.cpu(), want) <= 1e-4 and _rel(out.detach().cpu(), want) <= 1e-4
+    assert all(torch.isfinite(p.grad).all() for p in card.parameters())
+
+
+def test_clip_resnet_on_card_matches_cpu(cuda):
+    """The RN50 perceptor (random weights) on the card against the CPU, float32:
+    both encodes within 1e-3 of max |CPU| (cuDNN's convolutions sum in another
+    order)."""
+    cpu = CLIPResNet(CLIP_RESNET_CONFIGS["RN50"], device="cpu")
+    cpu.init_random_(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 224, 224, 3)).astype(
+        np.float32))
+    toks = example_tokens(2)
+    with torch.no_grad():
+        assert _rel(card.encode_image(x.to(cuda)).cpu(), cpu.encode_image(x)) <= 1e-3
+        assert _rel(card.encode_text(toks.to(cuda)).cpu(), cpu.encode_text(toks)) <= 1e-3

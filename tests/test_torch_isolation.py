@@ -40,7 +40,7 @@ def test_isolation_check_sees_the_imports():
 
 
 @pytest.mark.parametrize("name", ["CLIP_DIM", "CLIP_SIZE", "CLIP_MEAN", "CLIP_STD",
-                                  "CLIP_VIT_CONFIGS", "VQGAN_CONFIGS"])
+                                  "CLIP_VIT_CONFIGS", "CLIP_RESNET_CONFIGS", "VQGAN_CONFIGS"])
 def test_registry_copy_equals_jax_registry(name):
     assert getattr(registry, name) == getattr(jax_registry, name)
 

@@ -121,6 +121,6 @@ def test_build_mapper():
     m = build_mapper(dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=16, depth=2,
                           vq_image_size=4, noise_dim=8), vq_channels=8)
     assert (m.input_dim, m.image_size, m.channels, m.depth) == (520, 4, 8, 2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_mapper(dict(clip_model="ViT-B/32", model_type="vitgan", dim=16, depth=2))
+    with pytest.raises(ValueError, match="model_type"):  # as the JAX factory
+        build_mapper(dict(clip_model="ViT-B/32", model_type="mixer", dim=16, depth=2))
 

@@ -117,6 +117,61 @@ def test_save_model_loads_in_both_packages(tmp_path):
     assert np.abs(got - ref).max() / np.abs(ref).max() <= 1e-5
 
 
+# the other mapper families at tiny size: head counts that do not divide the width
+FAMILIES = {
+    "vitgan": dict(CFG, model_type="vitgan", vq_image_size=8, num_heads=3),
+    "simple_vitgan": dict(CFG, model_type="simple_vitgan", num_heads=3),
+    "xtransformer": dict(CFG, model_type="xtransformer", num_heads=2),
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_save_model_loads_in_jax_for_every_family(family, tmp_path):
+    """A `.th` the port writes for each non-Mixer family: the JAX package's
+    load_model builds the same mapper from it, and both load it to the same
+    outputs (float32, within 1e-5 of max |JAX|)."""
+    cfg = FAMILIES[family]
+    mapper = _mapper(cfg, 7)
+    path = checkpoint.save_model(str(tmp_path / f"{family}.th"), mapper, cfg, step=3)
+    jmapper, jparams, jcfg, _ = jckpt.load_model(path)
+    got_mapper, got_cfg, _ = checkpoint.load_model(path, device="cpu")
+    assert type(got_mapper) is type(mapper) and got_cfg["model_type"] == family
+    x = np.random.default_rng(8).normal(size=(3, 32)).astype(np.float32)
+    ref = np.asarray(jmapper.apply(jparams, x))
+    with torch.no_grad():
+        got = got_mapper(torch.from_numpy(x)).numpy()
+    side = cfg["vq_image_size"]
+    assert got.shape == ref.shape == (3, side, side, TINY_VQ["z_channels"])
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("family", ["vitgan", "xtransformer"])
+def test_predictor_serves_other_families_like_jax(family, bpe_table, tmp_path):
+    """The Predictor serves a VitGAN and an x-transformer `.th` through the
+    module path (no streamed weights), PNG grids within 2/255 of the JAX
+    Predictor's at 1x1 and 2x2."""
+    cfg = FAMILIES[family]
+    path = checkpoint.save_model(str(tmp_path / f"{family}.th"), _mapper(cfg, 9), cfg)
+    jpred = JPredictor([path])
+    jpred.setup()
+    pred = Predictor([path], device="cpu")
+    pred.setup()
+    _carry_jax_frozen(jpred, pred)
+    name = f"{family}.th"
+    assert list(pred.models) == [name] and not pred._stream_params
+    side = 2 * cfg["vq_image_size"]  # the tiny VQGAN upsamples twice
+    for n in (1, 2):
+        grid = f"{n}x{n}"
+        assert pred.route(name, n * n) == "block"
+        got = _png(pred.predict(PROMPT, model=name, grid_size=grid, seed=0,
+                                out_path=str(tmp_path / f"port_{grid}.png")))
+        want = _png(jpred.predict(PROMPT, model=name, grid_size=grid, seed=0,
+                                  out_path=str(tmp_path / f"jax_{grid}.png")))
+        assert got.shape == want.shape == (2 + n * (side + 2), 2 + n * (side + 2), 3)
+        assert len(np.unique(got[2:side, 2:side])) > 10  # an image, not a flat tile
+        assert np.abs(got - want).max() <= 2, grid
+
+
 def test_load_model_raises_on_formats_it_does_not_read(tmp_path):
     with pytest.raises(NotImplementedError):  # a native msgpack checkpoint directory
         checkpoint.load_model(str(tmp_path), device="cpu")
@@ -168,9 +223,9 @@ def test_predictor_prior_and_model_choice(bpe_table, model_path, tmp_path):
 
 def test_predictor_setup_dedups_and_skips_unported(model_path, tmp_path):
     other = checkpoint.save_model(str(tmp_path / "other.th"), _mapper(CFG, 5), CFG)
-    vit = str(tmp_path / "vitgan.th")
-    torch.save({"state_dict": {}, "config": dict(CFG, model_type="vitgan")}, vit)
-    pred = Predictor([model_path, other, vit], device="cpu")
+    legacy = str(tmp_path / "legacy.th")  # a whole-module pickle: a format not ported
+    torch.save(_mapper(CFG, 6), legacy)
+    pred = Predictor([model_path, other, legacy], device="cpu")
     pred.setup()
     assert sorted(pred.models) == ["other.th", "tiny_mixer.th"]
     assert len(pred.perceptors) == 1 and len(pred.vqgans) == 1

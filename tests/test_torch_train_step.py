@@ -18,7 +18,9 @@ io/from_jax.py. The loss and every mapper gradient must agree, three times:
     to 32-px crops (a warp whose output frame is not its input's, border
     padding), noise 0.
 
-And once with the fused image tower (FFVC_FUSED_CLIP's path, K11's plain
+Once with a VitGAN Generator in the Mixer's place (3 heads over dim 16, 8 x 8
+latent tokens, 16-px renders), the default set at numpy-pinned draws. And once
+with the fused image tower (FFVC_FUSED_CLIP's path, K11's plain
 version on the CPU) against JAX's fused tower in interpret mode: augmentations
 neutralised, a CLIP of vision width 128 (the kernel gate's widths) and batch 4
 (16 crops of 17 tokens, 272 rows, which the gate's row tiles divide).
@@ -48,9 +50,11 @@ from feed_forward_vqgan_clip_tpu.ops.cutouts import MakeCutouts as JMakeCutouts
 from feed_forward_vqgan_clip_tpu.registry import CLIP_VIT_CONFIGS
 from feed_forward_vqgan_clip_tpu.train import loop as jloop
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
+from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
     clip_state_dict,
     mixer_state_dict,
+    vitgan_generator_state_dict,
     vqgan_state_dict,
 )
 from feed_forward_vqgan_clip_tpu_torch.models import clip_fused
@@ -72,6 +76,10 @@ KNOBS = dict(clip_model="tiny", vqgan_arch=TINY_VQ, model_type="mlp_mixer", dim=
              cut_size=SIZE, pool_size=SIZE, noise_dim=0, lr=1e-3, compute_dtype="float32",
              aug_dtype="float32", noise_fac=0.0, normalize_input=True, input_loss=True,
              input_loss_coef=0.5, l2_coef=0.1, tv_coef=0.1)
+# a VitGAN Generator in the Mixer's place: 8 x 8 latent tokens (16-px renders),
+# 3 heads over dim 16 (an inner width of 15)
+VITGAN_KNOBS = dict(KNOBS, model_type="vitgan", vq_image_size=8, num_heads=3)
+MAPPER_STATE_DICT = {"mlp_mixer": mixer_state_dict, "vitgan": vitgan_generator_state_dict}
 
 
 def _tokens(bs=BS):
@@ -152,10 +160,11 @@ def _port_augs(d, geometric):
     return ([af, pe] if geometric else []) + [ji, er]
 
 
-def _rigs(clip_cfg=None):
+def _rigs(clip_cfg=None, knobs=KNOBS):
     """The JAX loss_fn with its params, and the port's train step on the same
-    weights; the "tiny" CLIP, or one built from `clip_cfg`."""
-    cfg = j_make_config(augs=["Cc"], **KNOBS)
+    weights; the "tiny" CLIP, or one built from `clip_cfg`; the mapper of
+    `knobs`."""
+    cfg = j_make_config(augs=["Cc"], **knobs)
     if clip_cfg is None:
         perceptor = j_load_perceptor("tiny", dtype=jnp.float32)
     else:
@@ -192,11 +201,11 @@ def _rigs(clip_cfg=None):
     tvq.load_state_dict(vqgan_state_dict(vq_params))
     tfrozen = FrozenModels(Perceptor(clip.eval().requires_grad_(False), "tiny", 32, 32),
                            tvq.eval().requires_grad_(False))
-    tmap = build_mapper(dict(KNOBS), vq_channels=8, device="cpu")
-    tmap.load_state_dict(mixer_state_dict(params))
+    tmap = build_mapper(dict(knobs), vq_channels=8, device="cpu")
+    tmap.load_state_dict(MAPPER_STATE_DICT[knobs["model_type"]](params))
     mc = MakeCutouts(cut_size=SIZE, cutn=CUTN, pool_size=SIZE, augs=["Ji", "Er"],
                      noise_fac=0.0)
-    step, tloss_fn = make_train_step(make_config(augs=["Ji", "Er"], **KNOBS), tmap, tfrozen,
+    step, tloss_fn = make_train_step(make_config(augs=["Ji", "Er"], **knobs), tmap, tfrozen,
                                      mc, inp_is_tokens=True, out_is_tokens=True)
     return (loss_fn, params, fz, jmc, frozen), (step, tloss_fn, tmap, mc, tfrozen)
 
@@ -232,6 +241,48 @@ def test_train_step_loss_and_grads_match_jax(rng, augs):
     for n, g in want.items():
         err = float((got[n] - g).abs().max())
         assert err <= 1e-4 * (float(g.abs().max()) + 1e-3 * top), n
+
+
+def test_vitgan_train_step_matches_jax(rng):
+    """The step with a VitGAN Generator mapper (its module path, as on the card)
+    and the default augmentations Af, Pe, Ji, Er at numpy-pinned draws: loss and
+    every mapper gradient, within the tolerances above."""
+    (loss_fn, params, fz, jmc, _), (_, tloss_fn, tmap, mc, _) = _rigs(knobs=VITGAN_KNOBS)
+    draws = _pinned_draws(rng)
+    jmc.augs = _jax_augs(draws, True)
+    mc.augs = _port_augs(draws, True)
+    toks = _tokens()
+    (j_loss, _), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, fz, {"inp": jnp.asarray(toks), "out": jnp.asarray(toks)},
+        jax.random.PRNGKey(0))
+    tt = torch.from_numpy(toks).long()
+    loss, _ = tloss_fn({"inp": tt, "out": tt}, torch.Generator().manual_seed(0))
+    loss.backward()
+    assert abs(loss.item() - float(j_loss)) <= 1e-5 * abs(float(j_loss))
+    want = vitgan_generator_state_dict(jax.tree.map(np.asarray, j_grads))
+    got = {n: p.grad for n, p in tmap.named_parameters()}
+    assert sorted(want) == sorted(got)
+    top = max(float(g.abs().max()) for g in want.values())
+    for n, g in want.items():
+        err = float((got[n] - g).abs().max())
+        assert err <= 1e-4 * (float(g.abs().max()) + 1e-3 * top), n
+
+
+def test_train_entry_takes_another_mapper_and_perceptor():
+    """entry.train_entry with `mapper_config`: a VitGAN mapper, the tiny CLIP (its
+    32-px input is the cutouts' size) and the tiny VQGAN (its channels the
+    mapper's); two steps move every parameter with a grad, losses finite."""
+    cfg = dict(clip_model="tiny", model_type="vitgan", dim=16, depth=1, vq_image_size=8,
+               num_heads=3, vqgan_arch=TINY_VQ)
+    step_fn, state, batch = train_entry("cpu", batch=2, cutn=2, mapper_config=cfg)
+    assert sum(p.numel() for p in state.params) == sum(
+        p.numel() for p in build_mapper(cfg, vq_channels=8).parameters())
+    before = [p.detach().clone() for p in state.params]
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        state, metrics = step_fn(state, batch, gen)
+        assert bool(torch.isfinite(metrics["loss"]))
+    assert all(not torch.equal(a, p.detach()) for a, p in zip(before, state.params))
 
 
 def test_train_step_with_fused_tower_matches_jax(monkeypatch):

@@ -133,6 +133,39 @@ def test_resume_reproduces_uninterrupted_run_bitwise(tmp_path, feature_data):
         assert torch.equal(ea, eb)
 
 
+@pytest.mark.parametrize("family", [
+    dict(model_type="vitgan", vq_image_size=8, num_heads=3),
+    dict(model_type="simple_vitgan", num_heads=3),
+    dict(model_type="xtransformer", num_heads=2),
+], ids=lambda f: f["model_type"])
+def test_other_mapper_families_resume_bitwise_and_load_in_jax(tmp_path, feature_data, family):
+    """train() with each non-Mixer mapper: 4 steps uninterrupted against 2 + 2
+    resumed, parameters, EMA and Adam moments bit for bit; the checkpoint that
+    the run wrote is read by both packages' load_model to the same outputs
+    (float32, within 1e-5 of max |JAX|)."""
+    kw = dict(path=feature_data, use_ema=True, log_interval=100, **family)
+    a = loop.train(_cfg(tmp_path / "a", max_steps=4, **kw), device="cpu")
+    loop.train(_cfg(tmp_path / "b", max_steps=2, **kw), device="cpu")
+    b = loop.train(_cfg(tmp_path / "b", max_steps=4, **kw), device="cpu")
+    assert a.step == b.step == 4 and b.opt_state.count == 4
+    for pa, pb in zip(a.params + a.ema_params + a.opt_state.mu, b.params + b.ema_params
+                      + b.opt_state.mu):
+        assert torch.equal(pa, pb)
+
+    path = str(tmp_path / "b" / "checkpoint.th")
+    mapper, got_cfg, _ = checkpoint.load_model(path, device="cpu")
+    jmapper, jparams, jcfg, _ = jckpt.load_model(path)
+    assert got_cfg["model_type"] == jcfg.get("model_type") == family["model_type"]
+    for p, q in zip(mapper.parameters(), b.params):
+        assert torch.equal(p, q)
+    h = np.random.default_rng(0).normal(size=(2, 32)).astype(np.float32)
+    want = np.asarray(jmapper.apply(jparams, jnp.asarray(h)))
+    with torch.no_grad():
+        got = mapper(torch.from_numpy(h)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("cutouts", [
     dict(pool=False, augs=["Re", "Af", "Pe", "Ji", "Er"]),
     dict(pool_size=48, augs=["Af", "Pe", "Ji"], fuse_geometric=True, interpolate=True,
