@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's prompt->image, serving, train-step and trainer paths
-(the default cutouts, then the unpooled crops) once on one NVIDIA GPU, in phases.
+(the default cutouts, then the unpooled crops), the released mapper families,
+the flow prior (served and trained), the diversity loss and the offline
+evaluation once on one NVIDIA GPU, in phases.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
@@ -114,11 +116,35 @@
    n <= 8 and 32 x K2 above, no Mixer kernel for the others), then one train
    step through entry.train_entry (finite loss, changed parameters; K1, K9 x 2,
    K10 x 2, and K6, K7, K8 x 32 for the Mixer).
-19. Prints the card's line, the kernels' JSON line (K11's launches from the
-   [trainer] runs, the warps' from [train], [trainer-crops] and [mappers], with
-   the rectangular warps' times, and their launches in [trainer-crops] as the
-   wrappers counted them, under "rect"; K1, K2, K4, K6-K8 with [mappers]' too),
-   then `{"ok": true, "device": {...}}` last.
+19. [prior] The flagship `.th` served with a prior `.th` of the released
+   prior's widths (PRIOR_MODEL: 2 flows, hidden 1024, over 512-d embeddings),
+   random from a seed: grids 1x1, 2x2, 4x4 with prior=True and 1x1 without
+   (serve_timed: the stages text, prior, mapper, decode; K1 once, K4 at
+   n <= 8, 32 x K2 at 16); prior=True moves the mapper input; the card's
+   reverse on a pinned z against the CPU's, float32, within 1e-4 of
+   max(1, max |CPU|); `cli test --prior-path` once.
+20. [prior-train] `train_prior` on 16384 seeded pairs of 512-d (y a fixed
+   random linear map of x plus noise), batch 128, lr 1e-4: 300 steps, a rerun
+   to 400, against 400 at once: median step ms (CUDA events), the loss at
+   steps 0, 100, 300 (falling), parameters and Adam moments bitwise equal.
+21. [diversity] The flagship train step with 4 prompts x repeat 2, noise_dim
+   128 and the diversity term (coefficient 1, between the repeats of a prompt,
+   random VGG16) beside coefficient 0: median step and stage ms, peak memory;
+   the term > 0 and moving the mapper's grads; K1, K6-K8 x 32, K9 and K10 x 2
+   a step; VGG16 in bf16 on the card within 2e-2 of the CPU's float32 max per
+   slice.
+22. [eval] `cli evaluate --compute-fid` on the flagship `.th` over 256 prompts
+   of the synthetic BPE table, batch 64, eval perceptor ViT-B/32 and
+   InceptionV3 random, seeded "real" features: prompts/s, the Inception's
+   CUDA-event ms a batch, the FID's host time; K1 once and K2 32 times a
+   batch; the JSON's keys and finite values. Each of [prior] to [eval] draws
+   from generators seeded apart from the shared one, so [stream]'s draws stay.
+23. Prints the card's line, the kernels' JSON line (K11's launches from the
+   [trainer] runs, the warps' from [train], [trainer-crops], [mappers] and
+   [diversity], with the rectangular warps' times, and their launches in
+   [trainer-crops] as the wrappers counted them, under "rect"; K1, K2, K4,
+   K6-K8 with [mappers]', [prior]'s, [diversity]'s and [eval]'s too), then
+   `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -127,6 +153,7 @@ imports nothing of JAX.
 import contextlib
 import gzip
 import json
+import logging
 import os
 import re
 import shutil
@@ -167,6 +194,10 @@ BPE_MERGES = ["h e", "l l", "he ll", "o</w> !</w>", "hell o</w>", "w o", "r l", 
               "worl d</w>"]
 TRAIN_STEPS = 3
 SEED = 0
+# the flagship of __graft_entry__.entry, as a released checkpoint's config holds it
+FLAGSHIP_CONFIG = dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32,
+                       dropout=0, vq_image_size=16, noise_dim=0,
+                       vqgan_model="vqgan_imagenet_f16_16384", compute_dtype="bfloat16")
 # [mappers]: the released mapper checkpoints the flagship is not, at their widths
 # (random weights from a seed of the phase's own): label, config, serving grids.
 # "256x16" of the x-transformer's file name read as dim x depth (depth 256 at
@@ -184,6 +215,17 @@ MAPPER_MODELS = (
      ("1x1", "2x2", "4x4")),
 )
 MAPPERS_SEED = 11
+# [prior]: the released prior of the ViT-B/32 mappers, prior_cc12m_2x1024_clip_ViTB32_v0.4.th,
+# at the widths its name reads as (2 flows of hidden width 1024, as the mapper names
+# read depth x width; hidden depth 2, embedding 1024, the conditioning embedder's
+# defaults), over ViT-B/32's 512-d embeddings; the file's own config is not in the
+# repository. Each new phase draws from generators seeded apart from main()'s.
+PRIOR_MODEL = dict(n_flows=2, hidden_dim=1024, hidden_depth=2, embedding_dim=1024)
+PRIOR_SEED = 21
+PRIOR_TRAIN_PAIRS = 16384
+DIVERSITY_SEED = 31
+EVAL_SEED = 41
+EVAL_PROMPTS, EVAL_BATCH = 256, 64
 CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
@@ -393,7 +435,8 @@ def _vq_case(n, k, c, gen, tie=False):
 def phase_vq(gen):
     """K1 against its plain version: the four cases of the shared stream `gen`, then
     N = 256 (1x1), 2048 (the train step) and a ragged C = 70 on a generator of their
-    own, so that every later phase draws what it drew before they were added."""
+    own, so that every later phase draws what it drew before they were added, and
+    [eval]'s N = 16384 (64 images) on another."""
     import torch
 
     errs = [
@@ -408,6 +451,9 @@ def phase_vq(gen):
         _vq_case(2048, 16384, 256, own),
         _vq_case(77, 1000, 70, own),
     ]
+    # [eval]'s batch of EVAL_BATCH images, on a generator of its own
+    rows = EVAL_BATCH * FLAGSHIP_CONFIG["vq_image_size"] ** 2
+    errs.append(_vq_case(rows, 16384, 256, torch.Generator(device="cuda").manual_seed(EVAL_SEED)))
     return max(errs)
 
 
@@ -442,10 +488,13 @@ def phase_mixer(gen):
     )
 
     worst_bf16 = 0.0
-    for (b, t, d) in ((4, 256, 1024), (3, 64, 96), (2, 50, 100)):
+    # [eval]'s B=64 last, on a generator of its own: the shared draws stay where they were
+    own = torch.Generator(device="cuda").manual_seed(EVAL_SEED)
+    cases = [(shape, gen) for shape in ((4, 256, 1024), (3, 64, 96), (2, 50, 100))]
+    for (b, t, d), draw in cases + [((EVAL_BATCH, 256, 1024), own)]:
         for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
-            w = random_block_weights(t, d, dtype, gen)
-            x = torch.randn(b, t, d, generator=gen, device="cuda").to(dtype)
+            w = random_block_weights(t, d, dtype, draw)
+            x = torch.randn(b, t, d, generator=draw, device="cuda").to(dtype)
             before = mixer_block.wgmma_launches
             got = mixer_block(x, w)
             torch.cuda.synchronize()
@@ -1791,14 +1840,15 @@ def slice_stream_mode(smi, block_ms, block_images):
     return mixer_block_stacked.launches
 
 
-def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, side, record):
-    """SERVE_REQUESTS timed requests of model `name` at each grid, after the
-    caller's warm-up: host ms per request, CUDA-event ms per stage (`mark`), the
-    kernels' launches of each request equal to `want(n)`; after the request's
-    time is taken, its float images (kept in `record` by `recorded_images`)
-    n x side x side, finite and in [0, 1], and the PNG their grid and not flat;
-    one line per grid, tagged `tag`, the mapper's route `route(n)`.
-    -> {grid: median request ms}."""
+def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, side, record,
+                prior=False):
+    """SERVE_REQUESTS timed requests of model `name` at each grid (with `prior`
+    as the request's prior flag), after the caller's warm-up: host ms per
+    request, CUDA-event ms per stage (`mark`), the kernels' launches of each
+    request equal to `want(n)`; after the request's time is taken, its float
+    images (kept in `record` by `recorded_images`) n x side x side, finite and
+    in [0, 1], and the PNG their grid and not flat; one line per grid, tagged
+    `tag`, the mapper's route `route(n)`. -> {grid: median request ms}."""
     import numpy as np
     import torch
 
@@ -1821,7 +1871,7 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
 
             t = time.perf_counter()
             events[0].record()
-            out = pred.predict(PROMPT, name, grid_size=grid, seed=seed + i,
+            out = pred.predict(PROMPT, name, prior=prior, grid_size=grid, seed=seed + i,
                                out_path=os.path.join(tmp, f"serve_{grid}.png"), mark=mark)
             request_ms.append((time.perf_counter() - t) * 1e3)
             torch.cuda.synchronize()
@@ -1857,40 +1907,56 @@ def mixer_route(n, depth=STREAM_DEPTH):
     return "K4" if n <= STREAM_MAX_BATCH else f"{depth} x K2"
 
 
-def phase_serve(smi):
-    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's
-    launches in the timed requests."""
+def save_flagship(folder, seed):
+    """The flagship Mixer, random from `seed`, saved in `folder` as a reference
+    `.th` (FLAGSHIP_CONFIG); -> its path."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.config import make_config
     from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
     from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
-    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+
+    mapper = build_mapper(make_config(**FLAGSHIP_CONFIG), vq_channels=256, device="cuda")
+    mapper.init_random_(torch.Generator(device="cuda").manual_seed(seed))
+    path = save_model(os.path.join(folder, "flagship_mixer.th"), mapper, FLAGSHIP_CONFIG)
+    del mapper
+    torch.cuda.empty_cache()
+    return path
+
+
+def serve_counters():
+    """{kernel name: wrapper} of the kernels a flagship request can launch."""
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
+
+    return {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block}
+
+
+def serve_want(n):
+    """The launches of a flagship request of n images: K1 once, K4 once at
+    n <= 8, else K2 once a block."""
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+
+    return {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
+            "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
+
+
+def phase_serve(smi):
+    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's
+    launches in the timed requests."""
+    import torch
+
     from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
 
-    # the flagship of __graft_entry__.entry, as a released checkpoint's config holds it
-    cfg = dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024, depth=32, dropout=0,
-               vq_image_size=16, noise_dim=0, vqgan_model="vqgan_imagenet_f16_16384",
-               compute_dtype="bfloat16")
-    counters = {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block}
-
-    def want(n):
-        return {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
-                "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
-
+    counters = serve_counters()
     record = []
     with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
             patched(predictor_mod, make_grid=recorded_images(record)):
         t0 = time.perf_counter()
-        mapper = build_mapper(make_config(**cfg), vq_channels=256, device="cuda")
-        mapper.init_random_(torch.Generator(device="cuda").manual_seed(SEED))
-        path = save_model(os.path.join(tmp, "flagship_mixer.th"), mapper, cfg)
-        del mapper
+        path = save_flagship(tmp, SEED)
         t1 = time.perf_counter()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -1907,12 +1973,12 @@ def phase_serve(smi):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
-        serve_timed(pred, name, SERVE_GRIDS, counters, want, mixer_route, "[serve]", tmp, SEED,
-                    smi, 16 * cfg["vq_image_size"], record)
+        serve_timed(pred, name, SERVE_GRIDS, counters, serve_want, mixer_route, "[serve]", tmp,
+                    SEED, smi, 16 * FLAGSHIP_CONFIG["vq_image_size"], record)
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve] peak device memory in the requests {peak:.2f} GiB; launches in the timed "
             f"requests {dict((k, fn.launches) for k, fn in counters.items())}")
-        launches = mixer_stream.launches
+        launches = counters["mixer_stream"].launches
         del pred
     return launches
 
@@ -2648,6 +2714,378 @@ def phase_mappers(smi):
     return total
 
 
+def run_cli(argv):
+    """The port's CLI on `argv`, as `python -m ... cli` runs it (its parser and
+    command), without the logging set-up of cli.main."""
+    from feed_forward_vqgan_clip_tpu_torch.cli import build_parser
+
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+def phase_prior(smi):
+    """[prior]: the flagship `.th` served with a prior `.th` of the released
+    prior's widths (PRIOR_MODEL), random from PRIOR_SEED: grids with prior=True
+    and 1x1 without, the prior's stage timed; the mapper input with and without
+    the prior; the card's reverse against the CPU's on a pinned z; `cli test
+    --prior-path`. -> the kernels' launches in the timed requests."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.models import flow
+    from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
+
+    t_phase = time.perf_counter()
+    counters = serve_counters()
+    record = []
+    name = "flagship_mixer.th"
+    gen = torch.Generator(device="cuda").manual_seed(PRIOR_SEED)
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
+            patched(predictor_mod, make_grid=recorded_images(record)):
+        path = save_flagship(tmp, PRIOR_SEED)
+        prior = flow.build_prior_model({"model": PRIOR_MODEL}, 512, 512, device="cuda")
+        prior.init_random_(gen)
+        with torch.no_grad():  # ActNorm off the identity, as a trained prior's
+            for blk in prior.sub_layers:
+                blk.norm_layer.loc.normal_(0.0, 0.1, generator=gen)
+                blk.norm_layer.scale.uniform_(0.5, 1.5, generator=gen)
+        n_params = sum(p.numel() for p in prior.parameters())
+        prior_path = flow.save_prior(os.path.join(tmp, "prior_2x1024.th"), prior,
+                                     {"model": PRIOR_MODEL})
+        del prior
+        t1 = time.perf_counter()
+        pred = predictor_mod.Predictor([path], {name: prior_path}, device="cuda")
+        pred.setup()
+        if pred.model_prior != {name: prior_path}:
+            raise AssertionError(f"[prior] the Predictor paired {pred.model_prior}")
+        for grid in SERVE_GRIDS:  # warm-up, outside the counted run
+            pred.predict(PROMPT, name, prior=True, grid_size=grid, seed=PRIOR_SEED,
+                         out_path=os.path.join(tmp, "warm.png"))
+        pred.predict(PROMPT, name, grid_size="1x1", seed=PRIOR_SEED,
+                     out_path=os.path.join(tmp, "warm.png"))
+        torch.cuda.synchronize()
+        log(f"[prior] prior {n_params / 1e6:.2f} M parameters ({PRIOR_MODEL}, 512 -> 512), "
+            f"`.th` {os.path.getsize(prior_path) / 2**20:.1f} MiB; Predictor with its prior set "
+            f"up and warmed in {time.perf_counter() - t1:.1f} s ({smi})")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        serve_timed(pred, name, SERVE_GRIDS, counters, serve_want, mixer_route,
+                    "[prior] prior=True", tmp, PRIOR_SEED, smi, 256, record, prior=True)
+        serve_timed(pred, name, ("1x1",), counters, serve_want, mixer_route,
+                    "[prior] prior=False", tmp, PRIOR_SEED, smi, 256, record)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {k: fn.launches for k, fn in counters.items()}
+        log(f"[prior] peak device memory in the requests {peak:.2f} GiB; launches {launches} "
+            f"({smi})")
+
+        inputs = []
+        stream = predictor_mod.streamed_mixer_forward
+        with patched(predictor_mod, streamed_mixer_forward=lambda m, p, x: (
+                inputs.append(x.float().cpu()) or stream(m, p, x))):
+            for flag in (True, False):
+                pred.predict(PROMPT, name, prior=flag, grid_size="1x1", seed=PRIOR_SEED,
+                             out_path=os.path.join(tmp, "flag.png"))
+        moved = (inputs[0] - inputs[1]).abs().max().item()
+        if moved == 0.0:
+            raise AssertionError("[prior] prior=True left the mapper input unchanged")
+
+        card_flow = pred.priors[prior_path].flow
+        cpu_flow = copy.deepcopy(card_flow).cpu()
+        cg = torch.Generator().manual_seed(PRIOR_SEED)
+        z, cond = torch.randn(16, 512, generator=cg), torch.randn(16, 512, generator=cg)
+        with torch.no_grad():
+            want = cpu_flow.reverse(z, cond)
+            got = card_flow.reverse(z.cuda(), cond.cuda()).cpu()
+        err = (got - want).abs().max().item()
+        limit = 1e-4 * max(1.0, want.abs().max().item())
+        log(f"[prior] prior=True moves the 1x1 mapper input by up to {moved:.4f} against "
+            f"prior=False (same seed); reverse on a pinned z (16 x 512), card against the CPU, "
+            f"f32: max abs err {err:.3e} (limit {limit:.3e}) ({smi})")
+        if not err <= limit:
+            raise AssertionError("[prior] the card's reverse disagrees with the CPU's")
+        del pred, card_flow
+        torch.cuda.empty_cache()
+
+        out = os.path.join(tmp, "cli_test.png")
+        t = time.perf_counter()
+        run_cli(["test", path, f"{PROMPT}|hello", "--prior-path", prior_path, "--nb-repeats",
+                 "2", "--out-path", out, "--seed", "1"])
+        img = read_png(out)
+        if img.shape != (2 + 2 * 258, 2 + 2 * 258, 3) or float(np.std(img)) == 0.0:
+            raise AssertionError(f"[prior] cli test --prior-path wrote {img.shape}")
+        log(f"[prior] `cli test --prior-path` (2 prompts x 2 repeats): PNG {img.shape} in "
+            f"{time.perf_counter() - t:.1f} s (load and generate); phase "
+            f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_prior_train(smi):
+    """[prior-train]: `train_prior` (PRIOR_MODEL) on PRIOR_TRAIN_PAIRS seeded pairs
+    of 512-d (y a fixed random linear map of x plus noise): 300 steps, a rerun to
+    400 (the resume), against 400 steps at once, bitwise; step ms (CUDA events)
+    and the loss at steps 0, 100 and 300."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
+    from feed_forward_vqgan_clip_tpu_torch.train import prior as prior_mod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PRIOR_SEED)
+    x = rng.standard_normal((PRIOR_TRAIN_PAIRS, 512), dtype=np.float32)
+    w = rng.standard_normal((512, 512), dtype=np.float32) / np.sqrt(512.0)
+    y = x @ w + 0.1 * rng.standard_normal((PRIOR_TRAIN_PAIRS, 512), dtype=np.float32)
+    runs = {}
+    make_step = prior_mod.make_prior_step
+
+    def timed_step(flow, state):
+        step = make_step(flow, state)
+        run = runs[current[0]]
+
+        def timed(xb, yb):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(xb, yb)
+            end.record()
+            run.append((state.step - 1, start, end, metrics["loss"]))
+            return metrics
+
+        return timed
+
+    with tempfile.TemporaryDirectory() as tmp, patched(prior_mod, make_prior_step=timed_step):
+        data = os.path.join(tmp, "pairs.npz")
+        np.savez(data, x=x, y=y)
+        current = [None]
+        walls = {}
+        for label, folder, steps in (("first", "split", 300), ("resume", "split", 400),
+                                     ("whole", "whole", 400)):
+            current[0] = label
+            runs[label] = []
+            cfg = make_config(folder=os.path.join(tmp, folder), seed=PRIOR_SEED,
+                              data={"path": data, "batch_size": 128}, model=PRIOR_MODEL,
+                              optim={"lr": 1e-4, "epochs": 100},
+                              logging={"log_interval": 1000}, max_steps=steps)
+            t = time.perf_counter()
+            prior_mod.train_prior(cfg, device="cuda")
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t
+        step_ms = sorted(s.elapsed_time(e) for _, s, e, _ in runs["first"] + runs["resume"])
+        loss = {i: v.item() for i, _, _, v in runs["first"] + runs["resume"]}
+        if [i for i, *_ in runs["resume"]] != list(range(300, 400)):
+            raise AssertionError("[prior-train] the resume did not continue at step 300")
+        ckpts = [torch.load(prior_mod.checkpoint_path(os.path.join(tmp, f)), weights_only=False)
+                 for f in ("split", "whole")]
+        opts = [ckpt_io.load_optimizer(os.path.join(tmp, f)) for f in ("split", "whole")]
+        same = all(torch.equal(v, ckpts[1]["model"][k]) for k, v in ckpts[0]["model"].items())
+        same_opt = opts[0]["count"] == opts[1]["count"] == 400 and all(
+            torch.equal(opts[0][m][n], opts[1][m][n]) for m in ("mu", "nu") for n in opts[0][m])
+        log(f"[prior-train] {PRIOR_TRAIN_PAIRS} pairs of 512-d, batch 128, lr 1e-4, "
+            f"{PRIOR_MODEL}: median step {step_ms[len(step_ms) // 2]:.3f} ms (CUDA events, "
+            f"{len(step_ms)} steps, {PRIOR_TRAIN_PAIRS // 128} an epoch); "
+            f"loss step 0 {loss[0]:.4f}, step 100 {loss[100]:.4f}, step 300 {loss[300]:.4f}; "
+            f"wall s: 300 steps {walls['first']:.1f}, resume to 400 {walls['resume']:.1f}, "
+            f"400 at once {walls['whole']:.1f}; resumed parameters bitwise equal to the "
+            f"uninterrupted run's: {same}, Adam moments: {same_opt}; phase "
+            f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+        if not (loss[100] < loss[0] and loss[300] < loss[0]):
+            raise AssertionError(f"[prior-train] the loss did not fall: {loss[0]}, {loss[100]}, "
+                                 f"{loss[300]}")
+        if not (same and same_opt):
+            raise AssertionError("[prior-train] the resumed run differs from the uninterrupted one")
+
+
+def phase_diversity(smi):
+    """[diversity]: the flagship train step (entry.train_entry) with 4 prompts x
+    repeat 2, noise_dim 128, the diversity term (coefficient 1, between the
+    repeats of each prompt, random VGG16 from the seed) against the same step
+    with coefficient 0: a warm-up step each (their grads compared), then
+    TRAIN_STEPS timed steps each; the VGG16 forward in bf16 on the card against
+    the CPU's float32. -> the kernels' launches in the timed steps."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
+    from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES as TRAIN_STAGES
+
+    t_phase = time.perf_counter()
+    counters = train_counters()
+    want = {k: 0 for k in counters}
+    want.update(vq_argmin=1, warp_forward=2, warp_adjoint=2, mixer_fwd_res=STREAM_DEPTH,
+                mixer_channel_bwd=STREAM_DEPTH, mixer_token_bwd=STREAM_DEPTH)
+    launches = {k: 0 for k in counters}
+    grads, rows = {}, {}
+    for coef in (0.0, 1.0):
+        with fused_clip(False):
+            step_fn, state, batch = train_entry(
+                "cuda", batch=4, cutn=8, seed=DIVERSITY_SEED, mapper_config=dict(
+                    repeat=2, noise_dim=128, diversity_coef=coef,
+                    diversity_mode="between_same_prompts"))
+        batch["inp"][:, 1] = 320 + torch.arange(4, device="cuda")  # 4 prompts ("out" is "inp")
+        watch = [state.params[0], state.params[len(state.params) // 2], state.params[-1]]
+        state, metrics = step_fn(state, batch, torch.Generator(device="cuda").manual_seed(
+            DIVERSITY_SEED))
+        grads[coef] = [p.grad.detach().clone() for p in watch]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(TRAIN_STEPS):
+            for fn in counters.values():
+                fn.launches = 0
+            events = [torch.cuda.Event(enable_timing=True)]
+
+            def mark(stage):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+
+            t = time.perf_counter()
+            events[0].record()
+            state, metrics = step_fn(state, batch, torch.Generator(device="cuda").manual_seed(
+                DIVERSITY_SEED + 1 + i), mark)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launched = {k: fn.launches for k, fn in counters.items()}
+            if launched != want:
+                raise AssertionError(f"[diversity] coef {coef}: launches {launched}, need {want}")
+            for k, v in launched.items():
+                launches[k] += v
+            loss, div = metrics["loss"].item(), metrics["diversity"].item()
+            if not (np.isfinite(loss) and np.isfinite(div) and (div > 0) == (coef > 0)):
+                raise AssertionError(f"[diversity] coef {coef}: loss {loss}, diversity {div}")
+            steps.append([ms] + [events[j].elapsed_time(events[j + 1])
+                                 for j in range(len(TRAIN_STAGES))])
+        med = np.median(np.array(steps), axis=0)
+        rows[coef] = med
+        log(f"[diversity] coef {coef:g} (B=4 prompts x repeat 2, noise_dim 128, cutn 8, 224-px "
+            f"cutouts Af/Pe/Ji/Er, bf16): steps {', '.join(f'{r[0]:.2f}' for r in steps)} ms "
+            f"(host clock, synchronized); median {med[0]:.2f} ms; median CUDA-event stages "
+            f"{', '.join(f'{n} {v:.2f}' for n, v in zip(TRAIN_STAGES, med[1:]))}; last loss "
+            f"{loss:.6f}, diversity {div:.6f}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        del step_fn, state, batch, watch
+        torch.cuda.empty_cache()
+    moved = max((a - b).abs().max().item() for a, b in zip(grads[0.0], grads[1.0]))
+    if moved == 0.0:
+        raise AssertionError("[diversity] the diversity term left the mapper's grads unchanged")
+
+    cpu = VGG16Features().init_random_(torch.Generator().manual_seed(DIVERSITY_SEED))
+    card = VGG16Features(dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 256, 256, 3, generator=torch.Generator().manual_seed(DIVERSITY_SEED))
+    with torch.no_grad():
+        errs = [(g.float().cpu() - w).abs().max().item() / w.abs().max().item()
+                for g, w in zip(card(x.cuda()), cpu(x))]
+    stage = TRAIN_STAGES.index("diversity") + 1
+    log(f"[diversity] step with the term against without: median {rows[1.0][0]:.2f} / "
+        f"{rows[0.0][0]:.2f} ms, diversity stage {rows[1.0][stage]:.2f} / "
+        f"{rows[0.0][stage]:.2f} ms (CUDA events); the term moves the first step's watched "
+        f"grads by up to {moved:.3e}; VGG16 bf16 on the card against the CPU's float32 "
+        f"(2 x 256 px), max abs err / max |CPU| per slice "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (limit 2e-2); phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    if not max(errs) <= 2e-2:
+        raise AssertionError("[diversity] the card's VGG16 disagrees with the CPU's")
+    return launches
+
+
+def phase_eval(smi):
+    """[eval]: `cli evaluate` on the flagship `.th` over EVAL_PROMPTS prompts of
+    the synthetic BPE table, batch EVAL_BATCH, eval perceptor ViT-B/32 at random,
+    FID through a random InceptionV3 against seeded "real" features: prompts/s,
+    the Inception's CUDA-event ms per batch, the FID's host time, the artifacts.
+    -> the kernels' launches in the run."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.data.datasets import save_tokens
+    from feed_forward_vqgan_clip_tpu_torch.eval import evaluate as evaluate_mod
+    from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+
+    t_phase = time.perf_counter()
+    counters = serve_counters()
+    inception_events, fid_s, records = [], [], {}
+    make_inception = evaluate_mod.make_inception_fn
+    fid = evaluate_mod.frechet_distance
+
+    def timed_inception(*a, **k):
+        fn = make_inception(*a, **k)
+
+        def run(x):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(x)
+            end.record()
+            inception_events.append((start, end))
+            return out
+
+        return run
+
+    def timed_fid(a, b):
+        t = time.perf_counter()
+        out = fid(a, b)
+        fid_s.append(time.perf_counter() - t)
+        return out
+
+    class Stamps(logging.Handler):
+        """evaluate's own log: the times of "Evaluate on ..." (before the prompt
+        loop) and "FID: ..." (after the loop and the FID)."""
+
+        def emit(self, record):
+            records[record.getMessage().split()[0]] = record.created
+
+    stamps, level = Stamps(), evaluate_mod.log.level
+    evaluate_mod.log.addHandler(stamps)
+    evaluate_mod.log.setLevel(logging.INFO)
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
+            patched(evaluate_mod, make_inception_fn=timed_inception, frechet_distance=timed_fid):
+        path = save_flagship(tmp, EVAL_SEED)
+        toks = os.path.join(tmp, "prompts.npz")
+        save_tokens(bpe.get_tokenizer().tokenize([f"hello world {i}" for i in range(EVAL_PROMPTS)],
+                                                 truncate=True), toks)
+        real = os.path.join(tmp, "real_features.npy")
+        np.save(real, np.random.default_rng(EVAL_SEED).standard_normal((512, 2048),
+                                                                       dtype=np.float32))
+        out = os.path.join(tmp, "eval")
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        run_cli(["evaluate", path, toks, "--batch-size", str(EVAL_BATCH), "--compute-fid",
+                 "--inception-features-real-path", real, "--out-folder", out])
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        batches = -(-EVAL_PROMPTS // EVAL_BATCH)
+        need = {"vq_argmin": batches, "mixer_stream": 0, "mixer_block": batches * STREAM_DEPTH}
+        if launches != need:
+            raise AssertionError(f"[eval] launches {launches}, need {need}")
+        with open(os.path.join(out, "eval_prompts.npz_ViT-B_32.json")) as fd:
+            dump = json.load(fd)
+        artifacts = sorted(os.listdir(out))
+        inception_ms = sorted(s.elapsed_time(e) for s, e in inception_events)
+        evaluate_mod.log.removeHandler(stamps)
+        evaluate_mod.log.setLevel(level)
+        loop_s = records["FID:"] - records["Evaluate"] - sum(fid_s)
+        log(f"[eval] `cli evaluate` on the flagship `.th`, {EVAL_PROMPTS} prompts, batch "
+            f"{EVAL_BATCH}, eval perceptor ViT-B/32 (random), --compute-fid: command "
+            f"{end - t:.1f} s, of it the prompt loop {loop_s:.2f} s = "
+            f"{EVAL_PROMPTS / loop_s:.1f} prompts/s and the FID's host math {sum(fid_s):.2f} s; "
+            f"InceptionV3 ms per batch of {EVAL_BATCH} (CUDA events) "
+            f"{', '.join(f'{v:.2f}' for v in inception_ms)}; artifacts {artifacts}; json "
+            f"{dump}; launches {launches}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+        keys = {"clip_score_mean", "clip_score_std", "clip_score_atleast_25",
+                "fid_real_features.npy"}
+        if set(dump) != keys or not all(np.isfinite(v) for v in dump.values()):
+            raise AssertionError(f"[eval] the JSON holds {dump}, need finite {sorted(keys)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def torch_pools():
     """The cutouts' pools as torch's F.adaptive_{avg,max}_pool2d (atomic CUDA
     backwards: the port's pools before the matmul formulation) while the block
@@ -2789,10 +3227,14 @@ def main():
         launches[name] += crops[name]
         times[name]["rect"].update(launches=rect[name], max_abs_err=errs["rect"][name])
     mappers = phase_mappers(smi)
-    mappers["vq"] = mappers.pop("vq_argmin")
-    for name in ("vq", "mixer_block", "mixer_stream", "mixer_fwd_res", "mixer_channel_bwd",
-                 "mixer_token_bwd", "warp_forward", "warp_adjoint"):
-        launches[name] += mappers[name]
+    prior = phase_prior(smi)
+    phase_prior_train(smi)
+    diversity = phase_diversity(smi)
+    evals = phase_eval(smi)
+    for phase in (mappers, prior, diversity, evals):
+        for name, n in phase.items():
+            if not name.startswith("mlp_ln"):  # K11's row: [trainer]'s launches
+                launches["vq" if name == "vq_argmin" else name] += n
     pallas = "feed_forward_vqgan_clip_tpu/ops/pallas/"
     csrc = "feed_forward_vqgan_clip_tpu_torch/csrc/"
     rows = [  # name, source, TPU kernel replaced, launches (the path's run), max abs err

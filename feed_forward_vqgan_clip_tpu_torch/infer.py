@@ -7,7 +7,9 @@ config it carries) and `test` (prompts -> PNG grid, the reference `test`
 command). `build_generator` builds the flagship from a seed instead, for
 `entry`. The noise bank follows the reference: a bank with more rows than
 requested images is truncated, a smaller one is indexed at random, no bank
-means Gaussian noise. The flow prior is ROADMAP A16.
+means Gaussian noise. With a flow prior (models/flow.py) the tiled text
+embeddings are replaced by the prior's samples for them, drawn from the
+request's generator, before the noise columns are added.
 """
 
 import logging
@@ -20,6 +22,7 @@ import torch
 from feed_forward_vqgan_clip_tpu_torch.config import dtype_of
 from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.images import save_grid
+from feed_forward_vqgan_clip_tpu_torch.models.flow import Prior, load_prior_model
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     make_mapper_apply,
@@ -62,13 +65,14 @@ class Generator:
     above that; else one `mixer_block` call per block."""
 
     def __init__(self, perceptor, mapper, vqgan, *, noise_dim: int = 0, cfg=None,
-                 noise_bank=None, stream_mixer: bool = False):
+                 noise_bank=None, stream_mixer: bool = False, prior: Optional[Prior] = None):
         self.perceptor = perceptor
         self.mapper = mapper.eval()
         self.vq = vqgan.eval()
         self.noise_dim = noise_dim
         self.cfg = cfg or {}
         self.noise_bank = noise_bank
+        self.prior = prior
         if stream_mixer and streamed_supported(self.mapper):
             self._mapper_apply = make_streamed_mixer_apply(self.mapper)
         else:
@@ -79,16 +83,16 @@ class Generator:
                         device="cuda") -> "Generator":
         """The mapper of a reference `.th` checkpoint with the perceptor and VQGAN
         its config names (`clip_model`, `clip_model_path`, `vqgan_checkpoint`;
-        random from seed 0 where no path is given), in its `compute_dtype`."""
-        if prior_path:
-            raise NotImplementedError("the flow prior is not ported yet (ROADMAP A16)")
+        random from seed 0 where no path is given), in its `compute_dtype`, and
+        the prior `.th` at `prior_path`, if given."""
         mapper, cfg, noise = checkpoint.load_model(model_path, device=device)
         dtype = dtype_of(cfg)
         perceptor = load_perceptor(cfg.get("clip_model"), cfg.get("clip_model_path"),
                                    dtype=dtype, device=device, image=False)
         vq = load_vqgan(cfg, dtype, device=device)
+        prior = load_prior_model(prior_path, device=device) if prior_path else None
         return cls(perceptor, mapper, vq, noise_dim=int(cfg.get("noise_dim") or 0), cfg=cfg,
-                   noise_bank=noise)
+                   noise_bank=noise, prior=prior)
 
     @torch.no_grad()
     def encode_tokens(self, tokens):
@@ -112,13 +116,15 @@ class Generator:
 
     def generate(self, h, *, nb_repeats: int = 1, seed: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
-        """H (B, clip_dim) -> images (nb_repeats*B, H, W, 3); noise rows
-        (`noise_rows`) from `generator`, else from a generator seeded with `seed`
-        (0 when None) on H's device."""
+        """H (B, clip_dim) -> images (nb_repeats*B, H, W, 3); the prior's samples
+        for the tiled H, then noise rows (`noise_rows`), drawn from `generator`,
+        else from a generator seeded with `seed` (0 when None) on H's device."""
         h = h.repeat(nb_repeats, 1)
+        if generator is None:
+            generator = torch.Generator(device=h.device).manual_seed(seed or 0)
+        if self.prior is not None:
+            h = self.prior.sample(h, generator)
         if self.noise_dim:
-            if generator is None:
-                generator = torch.Generator(device=h.device).manual_seed(seed or 0)
             noise = noise_rows(len(h), self.noise_dim, self.noise_bank, generator, h.device)
             h = torch.cat([h, noise.to(h.dtype)], dim=1)
         return self.render(h)
@@ -128,7 +134,8 @@ def test(model_path: str, text_or_path: str, *, nb_repeats: int = 1, out_path: s
          images_per_row: Optional[int] = None, prior_path: Optional[str] = None,
          seed: Optional[int] = None, device="cuda") -> str:
     """Prompts ('|'-separated, or a .txt file with one per line) -> a PNG grid of
-    nb_repeats images per prompt (the reference `test` command)."""
+    nb_repeats images per prompt (the reference `test` command), through the
+    prior at `prior_path` where given."""
     if text_or_path.endswith(".txt") and os.path.exists(text_or_path):
         with open(text_or_path) as fd:
             texts = [line.strip() for line in fd.readlines()]

@@ -3,10 +3,11 @@
 The inverse of the JAX package's torch converters (io/torch_import.py) for the
 modules of the served and trained paths: the mappers (MLP-Mixer, the VitGAN
 generators and their SineLayer and Discriminator, the x-transformer), the VQGAN
-decoder and the CLIP towers (ViT and ModifiedResNet). Parity tests use these to run the JAX module
-and its port on the same weights. Inputs are the pytrees as the JAX modules' `init` returns them
-(with or without the top-level 'params'), leaves as numpy arrays (or anything
-np.asarray takes). Layouts:
+decoder, the CLIP towers (ViT and ModifiedResNet) and the flow prior (whose
+variables hold 'buffers' beside 'params'). Parity tests use these to run the
+JAX module and its port on the same weights. Inputs are the pytrees as the
+JAX modules' `init` returns them (with or without the top-level 'params'),
+leaves as numpy arrays (or anything np.asarray takes). Layouts:
 
   * Dense kernel (in, out)      -> Linear weight (out, in)
   * conv kernel HWIO            -> Conv2d weight OIHW
@@ -304,4 +305,34 @@ def clip_resnet_state_dict(tree):
     for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
         _linear(sd, f"visual.attnpool.{name}", pool[name])
     sd["logit_scale"] = _t(p["logit_scale"]).reshape(())
+    return sd
+
+
+def _basic_fc(sd, prefix, p):
+    """BasicFC {fc_in, fc_0 .. fc_{depth-1}, fc_out} -> net2net's `main.N`."""
+    depth = sum(1 for k in p if re.fullmatch(r"fc_\d+", k))
+    _linear(sd, f"{prefix}.main.0", p["fc_in"])
+    for i in range(depth):
+        _linear(sd, f"{prefix}.main.{2 * (i + 1)}", p[f"fc_{i}"])
+    _linear(sd, f"{prefix}.main.{2 * (depth + 1)}", p["fc_out"])
+
+
+def flow_state_dict(variables):
+    """models.flow.ConditionalFlatCouplingFlow variables ({params, buffers}) ->
+    the port's flow state dict (net2net names), the inverse of convert_flow."""
+    p, buffers = variables["params"], variables["buffers"]
+    sd = {}
+    _basic_fc(sd, "embedder", p["embedder"])
+    n_flows = sum(1 for k in p if k.startswith("flow_"))
+    for i in range(n_flows):
+        blk, pre = p[f"flow_{i}"], f"sub_layers.{i}"
+        sd[f"{pre}.norm_layer.loc"] = _t(blk["norm"]["loc"]).reshape(1, -1, 1, 1)
+        sd[f"{pre}.norm_layer.scale"] = _t(blk["norm"]["scale"]).reshape(1, -1, 1, 1)
+        sd[f"{pre}.norm_layer.initialized"] = torch.tensor(1, dtype=torch.uint8)
+        for j in range(2):
+            _basic_fc(sd, f"{pre}.coupling.s.{j}", blk["coupling"][f"s_{j}"])
+            _basic_fc(sd, f"{pre}.coupling.t.{j}", blk["coupling"][f"t_{j}"])
+        perm = torch.from_numpy(np.asarray(buffers[f"flow_{i}"]["shuffle"]).astype(np.int64))
+        sd[f"{pre}.shuffle.forward_shuffle_idx"] = perm
+        sd[f"{pre}.shuffle.backward_shuffle_idx"] = torch.argsort(perm)
     return sd

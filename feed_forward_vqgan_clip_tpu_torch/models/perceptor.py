@@ -53,6 +53,11 @@ class Perceptor(NamedTuple):
         """x (B, H, W, 3) CLIP-normalised -> (B, dim) float32; differentiable in x."""
         return self.module.encode_image(x)
 
+    @property
+    def logit_scale(self):
+        """exp of the loaded `logit_scale`: the CLIP score's factor (0-d float32)."""
+        return self.module.logit_scale.float().exp()
+
 
 def _resnet_arch(name: str):
     """(CLIP_RESNET_CONFIGS entry, activation) of an RN-family perceptor name;

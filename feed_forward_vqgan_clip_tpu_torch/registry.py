@@ -1,6 +1,6 @@
 """Frozen-model constants the port reads: CLIP input sizes and embedding widths,
-pixel normalisation, the CLIP ViT and ResNet architectures and the VQGAN decoder
-configs.
+pixel normalisation, the CLIP ViT and ResNet architectures, the VQGAN decoder
+configs, and the released mapper and prior file names.
 
 The port's own copy of the entries it uses from feed_forward_vqgan_clip_tpu/
 registry.py (the port imports nothing of the JAX package);
@@ -119,3 +119,24 @@ RELEASED_MODELS = (
     "cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th",
     "cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th",
 )
+
+# The released flow priors (the JAX registry's `prior_*` MODEL_URLS keys).
+PRIOR_FILES = (
+    "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
+    "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+)
+
+# Mapper checkpoint -> its companion prior checkpoint: the serving path's default
+# prior for each released mapper, where the file is present.
+PRIOR_MODELS = {
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.1.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.2.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.2.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.3.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_cloob_rn50_256x256_v0.3.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_256x16_xtransformer_clip_ViTB32_512x512_v0.3.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_pixelrecons_256x256_v0.4.th": "prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_ViTB32_256x256_v0.4.th": "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th": "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
+    "cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th": "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
+}

@@ -1,8 +1,10 @@
 """Gradio web app over the Predictor.
 
 Port of feed_forward_vqgan_clip_tpu/serve/app.py: text prompt, model dropdown,
-prior checkbox, grid-size dropdown, seed slider -> image. gradio is optional
-and not a dependency: `build_fn` is the gradio-free callback, and `build_app`
+prior checkbox, grid-size dropdown, seed slider -> image. The checkbox samples
+the model's released companion prior where its file is present (the
+Predictor's default); a model without one ignores it. gradio is optional and
+not a dependency: `build_fn` is the gradio-free callback, and `build_app`
 raises ImportError without gradio.
 """
 
@@ -15,10 +17,10 @@ from feed_forward_vqgan_clip_tpu_torch.serve.predictor import Predictor
 def build_fn(model_paths: Optional[Sequence[str]] = None, out_path: str = "gradio_out.png",
              *, device="cuda"):
     """-> (fn, model names): fn(prompt, model, prior, grid_size, seed) -> PNG path,
-    over a set-up Predictor of `model_paths` (default: the .th files in the
-    working directory)."""
+    over a set-up Predictor of `model_paths` (default: the mapper .th files in
+    the working directory, the released priors beside them left out)."""
     if not model_paths:
-        model_paths = sorted(glob("*.th"))
+        model_paths = [p for p in sorted(glob("*.th")) if not p.startswith("prior_")]
     predictor = Predictor(model_paths, device=device)
     predictor.setup()
     names = list(predictor.models)

@@ -5,16 +5,18 @@ mapper checkpoint (reference `.th` files) and caches perceptors by
 (clip_model, clip_model_path) and VQGANs by checkpoint and architecture, with
 their latent bounds; for each Mixer mapper it also stacks and folds the weights
 once for the streamed forward. The other mapper families (VitGAN, x-transformer)
-run as modules on every device. `predict()` runs tokenize -> text encode -> tile
-to grid_h * grid_w rows (+ noise) -> mapper -> clamp -> VQ + decode -> grid ->
-PNG. A request of at most `STREAM_MAX_BATCH` (8) images goes through the
+run as modules on every device. Priors are cached by path: each model's prior
+is the one `prior_paths` names, else its released companion (`PRIOR_MODELS`)
+where that file is present. `predict()` runs tokenize -> text encode -> tile to
+grid_h * grid_w rows -> (with `prior=True` and a prior for the model: the
+prior's samples for those rows) -> + noise -> mapper -> clamp -> VQ + decode ->
+grid -> PNG. A request of at most `STREAM_MAX_BATCH` (8) images goes through the
 depth-streaming Mixer stack (one K4 launch for all blocks on the card); a larger
 one through the per-block path (K2 per block). On the CPU the same routing runs
 the kernels' plain versions and the module path.
 
-Everything stays resident on one device. The flow prior is ROADMAP A16: a prior
-path raises, and `prior=True` without a loaded prior is ignored, as in the JAX
-package.
+Everything stays resident on one device. `prior=True` for a model without a
+prior is ignored, as in the JAX package.
 """
 
 import json
@@ -28,6 +30,7 @@ import torch
 from feed_forward_vqgan_clip_tpu_torch.config import dtype_of, vqgan_arch_config
 from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.images import make_grid, save_image
+from feed_forward_vqgan_clip_tpu_torch.models.flow import Prior, load_prior_model
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     STREAM_MAX_BATCH,
     make_mapper_apply,
@@ -39,13 +42,13 @@ from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds, load_vqgan, synth
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import normalize
-from feed_forward_vqgan_clip_tpu_torch.registry import RELEASED_MODELS
+from feed_forward_vqgan_clip_tpu_torch.registry import PRIOR_MODELS, RELEASED_MODELS
 from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
 
 log = logging.getLogger(__name__)
 
 # the stages `predict` reports to its `mark` callback, in order
-STAGES = ("text", "mapper", "decode")
+STAGES = ("text", "prior", "mapper", "decode")
 
 
 def default_model_paths() -> list:
@@ -63,14 +66,16 @@ class Predictor:
                  prior_paths: Optional[Dict[str, str]] = None, *, device="cuda"):
         """model_paths: mapper checkpoints (reference .th files); defaults to the
         released ones present locally. prior_paths: {model basename: prior
-        path}; the flow prior is not ported, so a path for a loaded model
-        raises in setup()."""
+        .th path}; a model it does not name takes its released companion prior
+        (PRIOR_MODELS) where that file is present locally."""
         self.model_paths = list(model_paths) if model_paths is not None else default_model_paths()
         self.prior_paths = prior_paths or {}
         self.device = torch.device(device)
         self.models: Dict[str, tuple] = {}  # name -> (mapper, cfg, noise bank)
         self.perceptors: Dict[Tuple[str, Optional[str]], object] = {}
         self.vqgans: Dict[str, tuple] = {}  # key -> (vqgan, (lo, hi))
+        self.priors: Dict[str, Prior] = {}  # prior path -> prior
+        self.model_prior: Dict[str, str] = {}  # model name -> prior path
         self._mapper_apply: Dict[str, Callable] = {}
         self._stream_params: Dict[str, object] = {}
 
@@ -84,11 +89,14 @@ class Predictor:
                 # serve the loadable models instead of failing
                 log.warning("skipping %s: %s", name, e)
                 continue
-            if name in self.prior_paths:
-                raise NotImplementedError(
-                    f"prior {self.prior_paths[name]} for {name}: the flow prior is not "
-                    "ported yet (ROADMAP A16)")
             self.models[name] = (mapper, cfg, noise)
+            prior_path = self.prior_paths.get(name)
+            if prior_path is None and os.path.exists(PRIOR_MODELS.get(name, "")):
+                prior_path = PRIOR_MODELS[name]
+            if prior_path:
+                if prior_path not in self.priors:
+                    self.priors[prior_path] = load_prior_model(prior_path, device=self.device)
+                self.model_prior[name] = prior_path
             dtype = dtype_of(cfg)
             pkey = (cfg.get("clip_model"), cfg.get("clip_model_path"))
             if pkey not in self.perceptors:
@@ -101,8 +109,8 @@ class Predictor:
             self._mapper_apply[name] = make_mapper_apply(mapper)
             if streamed_supported(mapper):
                 self._stream_params[name] = prepare_streamed_params(mapper)
-        log.info("Predictor ready: %d models, %d perceptors, %d vqgans", len(self.models),
-                 len(self.perceptors), len(self.vqgans))
+        log.info("Predictor ready: %d models, %d perceptors, %d vqgans, %d priors",
+                 len(self.models), len(self.perceptors), len(self.vqgans), len(self.priors))
 
     def route(self, model: str, n: int) -> str:
         """"stream" (the whole block stack in one launch) or "block" (the
@@ -131,7 +139,10 @@ class Predictor:
         if cfg.get("normalize_input"):
             h = normalize(h)
         h = h.repeat(n, 1)
-        # prior=True without a loaded prior: ignored (no prior can be loaded yet)
+        mark("text")
+        if prior and model in self.model_prior:  # else prior=True is ignored
+            h = self.priors[self.model_prior[model]].sample(h, gen)
+        mark("prior")
         noise_dim = int(cfg.get("noise_dim") or 0)
         if noise_dim:
             if noise_bank is not None and len(noise_bank) >= n:
@@ -139,7 +150,6 @@ class Predictor:
             else:
                 nz = torch.randn(n, noise_dim, generator=gen)
             h = torch.cat([h, nz.to(self.device, h.dtype)], dim=1)
-        mark("text")
         if self.route(model, n) == "stream":
             z = streamed_mixer_forward(mapper, self._stream_params[model], h)
         else:

@@ -1,1 +1,2 @@
-"""Training: the train state and the single-device train step."""
+"""Training: the train state, the single-device train step and trainer, and the
+flow-prior trainer."""

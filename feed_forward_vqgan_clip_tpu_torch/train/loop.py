@@ -5,11 +5,14 @@ encode (frozen CLIP, no grad; once when the input and the target are the same
 tokens, `same_io`) -> `repeat` tiling (+ noise concat when `noise_dim > 0`) ->
 mapper (a Mixer through its train kernels on the card, the other families as
 modules; with dropout > 0 the module path, masks from the step's generator) ->
-clamp_with_grad -> straight-through VQ -> frozen VQGAN decode -> cutouts with
-augmentations in `aug_dtype` -> CLIP normalisation -> frozen CLIP image encode
-(the fused tower of models/clip_fused.py where FFVC_FUSED_CLIP asks for it) ->
-spherical loss against the cutn-major tiled targets (+ input, L2 and TV terms)
--> backward -> Adam -> EMA. Loss parity with the reference's `train`, term by term.
+clamp_with_grad -> straight-through VQ -> frozen VQGAN decode (-> with a
+`diversity_coef`, frozen VGG16 features of the CLIP-normalised renders and the
+diversity term) -> cutouts with augmentations in `aug_dtype` -> CLIP
+normalisation -> frozen CLIP image encode (the fused tower of
+models/clip_fused.py where FFVC_FUSED_CLIP asks for it) -> spherical loss
+against the cutn-major tiled targets (+ input, L2 and TV terms, - the diversity
+term) -> backward -> Adam -> EMA. Loss parity with the reference's `train`,
+term by term.
 
 `train(cfg)` is the host loop around it: per-epoch batches, noise-bank rows
 keyed on (seed, step), a per-step torch.Generator seeded from (seed, step) (the
@@ -18,7 +21,7 @@ per-log-interval scalar flush, previews, in-train eval, TensorBoard / wandb,
 checkpoints in the reference's layout (io/checkpoint.py) written by a background
 thread, and a resume that skips the batches already consumed, so an interrupted
 and resumed run repeats the uninterrupted one. The mesh, multi-process and
-tensor-parallel paths wait for ROADMAP A12, the diversity term for A16.
+tensor-parallel paths wait for ROADMAP A12.
 """
 
 import contextlib
@@ -49,11 +52,13 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     make_mapper_train_apply,
 )
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor, load_perceptor
+from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features, load_vgg16
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import VQGAN, latent_bounds, load_vqgan, synth
 from feed_forward_vqgan_clip_tpu_torch.ops.augment import resize_bilinear
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import (
+    diversity_loss,
     l2_loss,
     normalize,
     spherical_dist,
@@ -70,31 +75,38 @@ from feed_forward_vqgan_clip_tpu_torch.train.state import (
 log = logging.getLogger(__name__)
 
 # the stages a step reports to its `mark` callback, in order
-STAGES = ("text", "mapper", "decode", "cutouts", "image_tower", "loss", "backward", "adam")
+STAGES = ("text", "mapper", "decode", "diversity", "cutouts", "image_tower", "loss",
+          "backward", "adam")
 PROFILE_STEPS = (10, 15)  # the torch.profiler window of `profile_dir`
 
 
 class FrozenModels(NamedTuple):
-    """The frozen perceptor (both CLIP towers), VQGAN and, for in-train eval
-    with an `eval_clip_model`, the eval perceptor. The VGG16 of the diversity
-    loss waits for ROADMAP A16."""
+    """The frozen perceptor (both CLIP towers), VQGAN, for in-train eval with an
+    `eval_clip_model` the eval perceptor, and for the diversity term the VGG16
+    features."""
 
     perceptor: Perceptor
     vq: VQGAN
     eval_perceptor: Optional[Perceptor] = None
+    vgg: Optional[VGG16Features] = None
 
 
 def build_frozen(cfg: TrainConfig, dtype, *, device="cuda", seed: int = 0) -> FrozenModels:
     """The frozen models: the weights at the config's `clip_model_path`,
-    `vqgan_checkpoint` and `eval_clip_model_path`, else random from `seed`;
-    their parameters do not require grad."""
+    `vqgan_checkpoint`, `eval_clip_model_path` and (with a `diversity_coef`)
+    `vgg_path`, else random from `seed` (the VGG16 from seed + 1, as JAX draws it
+    from PRNGKey(1)); their parameters do not require grad."""
     perceptor = load_perceptor(cfg.get("clip_model"), cfg.get("clip_model_path"), dtype=dtype,
                                device=device, seed=seed)
     eval_p = None
     if cfg.get("eval_path") and cfg.get("eval_clip_model"):
         eval_p = load_perceptor(cfg.get("eval_clip_model"), cfg.get("eval_clip_model_path"),
                                 dtype=dtype, device=device, seed=seed)
-    return FrozenModels(perceptor, load_vqgan(cfg, dtype, device=device, seed=seed), eval_p)
+    vgg = None
+    if cfg.get("diversity_coef"):
+        vgg = load_vgg16(cfg.get("vgg_path"), dtype=dtype, device=device, seed=seed + 1)
+    return FrozenModels(perceptor, load_vqgan(cfg, dtype, device=device, seed=seed), eval_p,
+                        vgg)
 
 
 def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts: MakeCutouts,
@@ -117,8 +129,10 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
     target_loss_coef = float(cfg.get("target_loss_coef"))
     l2_coef = float(cfg.get("l2_coef"))
     tv_coef = float(cfg.get("tv_coef"))
-    if float(cfg.get("diversity_coef")):
-        raise NotImplementedError("the diversity loss needs VGG16 features (ROADMAP A16)")
+    diversity_coef = float(cfg.get("diversity_coef"))
+    diversity_mode = cfg.get("diversity_mode")
+    if diversity_coef and frozen.vgg is None:
+        raise ValueError("diversity_coef needs the frozen VGG16 (build_frozen builds it)")
     dropout = float(cfg.get("dropout") or 0.0)
     aug_dtype = COMPUTE_DTYPES[str(cfg.get("aug_dtype") or cfg.get("compute_dtype"))]
     perceptor, vq = frozen.perceptor, frozen.vq
@@ -166,10 +180,16 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         xr = synth(vq, z).float()  # (repeat*bs, H, W, 3)
         tv = tv_loss(xr) if tv_coef > 0 else torch.zeros((), device=dev)
         mark("decode")
+        mean = torch.tensor(CLIP_MEAN, device=dev)
+        std = torch.tensor(CLIP_STD, device=dev)
+        if diversity_coef:
+            feats = frozen.vgg((xr - mean) / std)
+            div = diversity_loss([f.float() for f in feats], repeat, bs, diversity_mode)
+        else:
+            div = torch.zeros((), device=dev)
+        mark("diversity")
         x = make_cutouts(generator, xr.to(aug_dtype))  # (cutn*repeat*bs, h, w, 3)
-        mean = torch.tensor(CLIP_MEAN, device=dev).to(aug_dtype)
-        std = torch.tensor(CLIP_STD, device=dev).to(aug_dtype)
-        x = (x - mean) / std
+        x = (x - mean.to(aug_dtype)) / std.to(aug_dtype)
         mark("cutouts")
         embed = normalize(clip_image_apply(x).float())
         mark("image_tower")
@@ -178,10 +198,9 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         if input_loss:
             hi = normalize(inp_feats.repeat(cutn, 1))
             dists = dists + input_loss_coef * spherical_dist_loss(hi, embed)
-        loss = dists + l2_coef * l2 + tv_coef * tv
+        loss = dists - diversity_coef * div + l2_coef * l2 + tv_coef * tv
         mark("loss")
-        metrics = {"loss": loss, "dists": dists, "diversity": torch.zeros((), device=dev),
-                   "l2": l2, "tv": tv}
+        metrics = {"loss": loss, "dists": dists, "diversity": div, "l2": l2, "tv": tv}
         return loss, {k: v.detach().float() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
@@ -233,7 +252,7 @@ def make_eval_step(frozen: FrozenModels, eval_p: Perceptor):
         std = torch.tensor(CLIP_STD, device=xr.device)
         embed = normalize(eval_p.encode_image((xr - mean) / std).float())
         h = normalize(feats[:, : embed.shape[1]].float())
-        scores = eval_p.module.logit_scale.exp() * (h * embed).sum(1)
+        scores = eval_p.logit_scale * (h * embed).sum(1)
         return spherical_dist(h, embed), scores
 
     return eval_step

@@ -24,9 +24,14 @@ sum and weight-matrix products) must repeat bit for bit. The dot-product test of
 K9 and K10 in float32: |<K9 x, g> - <x, K10 g>| within 1e-5 of sum |terms|.
 The VitGAN and x-transformer mappers (module path) and the CLIP RN50 perceptor
 (cuDNN convolutions) on the card, float32, within 1e-4 and 1e-3 of max |CPU|.
+The flow prior's reverse (float32 matrix products, TF32 off) within
+1e-4 of max(1, max |CPU|); the VGG16 features float32 within 1e-3 and bf16
+within 2e-2 of max |CPU| per slice; a tiny Predictor's prior=True request
+(K4 and K1 on the card) within 2/255 of the CPU's PNG, and unlike prior=False.
 """
 
 import copy
+import gzip
 
 import numpy as np
 import pytest
@@ -34,6 +39,11 @@ import torch
 
 from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 from feed_forward_vqgan_clip_tpu_torch.infer import Generator, build_generator
+from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
+from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png
+from feed_forward_vqgan_clip_tpu_torch.models import flow
+from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
+from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds
 from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fused
 from feed_forward_vqgan_clip_tpu_torch.models.clip_resnet import CLIPResNet
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
@@ -97,6 +107,8 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
     warp_forward_plain,
 )
 from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_RESNET_CONFIGS
+from feed_forward_vqgan_clip_tpu_torch.serve.predictor import Predictor
+from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
 from feed_forward_vqgan_clip_tpu_torch.train import loop
 
 pytestmark = pytest.mark.gpu
@@ -893,3 +905,81 @@ def test_clip_resnet_on_card_matches_cpu(cuda):
     with torch.no_grad():
         assert _rel(card.encode_image(x.to(cuda)).cpu(), cpu.encode_image(x)) <= 1e-3
         assert _rel(card.encode_text(toks.to(cuda)).cpu(), cpu.encode_text(toks)) <= 1e-3
+
+
+# the released prior's widths as chip_smoke.py's [prior] reads "2x1024": ViT-B/32's
+# 512-d embeddings, 2 flows, hidden 1024 at depth 2, embedding 1024
+PRIOR_MODEL = dict(embedding_dim=1024, hidden_dim=1024, hidden_depth=2, n_flows=2)
+
+
+def test_prior_reverse_on_card_matches_cpu(cuda):
+    cpu = flow.build_prior_model({"model": PRIOR_MODEL}, 512, 512, device="cpu")
+    cpu.init_random_(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for a in (cpu.sub_layers[0].norm_layer.loc, cpu.sub_layers[1].norm_layer.scale):
+            a.add_(0.1 * torch.randn(a.shape, generator=torch.Generator().manual_seed(1)))
+    card = copy.deepcopy(cpu).to(cuda)
+    gen = torch.Generator().manual_seed(2)
+    z, cond = torch.randn(8, 512, generator=gen), torch.randn(8, 512, generator=gen)
+    with torch.no_grad():
+        want = cpu.reverse(z, cond)
+        got = card.reverse(z.to(cuda), cond.to(cuda)).cpu()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+def test_vgg16_on_card_matches_cpu(cuda, dtype, tol):
+    """Random weights from a seed; the CPU runs float32, the card `dtype`."""
+    cpu = VGG16Features().init_random_(torch.Generator().manual_seed(0))
+    card = VGG16Features(dtype=dtype, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 64, 64, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        for got, want in zip(card(x.to(cuda)), cpu(x)):
+            assert got.dtype == dtype and _rel(got.cpu(), want) <= tol
+
+
+def test_predictor_prior_request_on_card(cuda, tmp_path, monkeypatch):
+    """A tiny float32 Mixer with a tiny prior (C = D = 32), the same weights on
+    the card and on the CPU: 1x1 and 2x2 requests with prior=True (the prior's
+    z drawn from the request's CPU generator on both) within 2/255 of the CPU's
+    PNG; prior=True changes the card's images."""
+    path = tmp_path / "merges.txt.gz"
+    with gzip.open(path, "wt", encoding="utf-8") as fd:
+        fd.write("#version: 0.2\nh e\nl l\nhe ll\nhell o</w>\n")
+    monkeypatch.setenv("FFVC_BPE_PATH", str(path))
+    bpe.get_tokenizer.cache_clear()
+    vq = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
+              num_res_blocks=1, attn_resolutions=(4,), resolution=8)
+    cfg = dict(clip_model="tiny", vqgan_arch=vq, model_type="mlp_mixer", dim=64, depth=2,
+               dropout=0, vq_image_size=4, compute_dtype="float32", noise_dim=0)
+    mapper = build_mapper(make_config(**cfg), vq_channels=8)
+    mapper.init_random_(torch.Generator().manual_seed(3))
+    model = save_model(str(tmp_path / "tiny.th"), mapper, cfg)
+    prior_cfg = {"model": dict(PRIOR_MODEL, hidden_dim=64, embedding_dim=16)}
+    prior = flow.build_prior_model(prior_cfg, 32, 32, device="cpu")
+    prior.init_random_(torch.Generator().manual_seed(4))
+    prior_path = flow.save_prior(str(tmp_path / "prior.th"), prior, prior_cfg)
+    preds = {}
+    for dev in ("cpu", "cuda"):
+        preds[dev] = Predictor([model], {"tiny.th": prior_path}, device=dev)
+        preds[dev].setup()
+    cpu, card = preds["cpu"], preds["cuda"]
+    for key, perc in cpu.perceptors.items():
+        card.perceptors[key].module.load_state_dict(perc.module.state_dict())
+    for key, (cvq, _) in cpu.vqgans.items():
+        card_vq = card.vqgans[key][0]
+        card_vq.load_state_dict(cvq.state_dict())
+        card.vqgans[key] = (card_vq, latent_bounds(card_vq))
+
+    def png(pred, name, **kw):
+        out = pred.predict("hello", "tiny.th", seed=5, out_path=str(tmp_path / name), **kw)
+        with open(out, "rb") as f:
+            return decode_png(f.read()).astype(np.int32)
+
+    for grid in ("1x1", "2x2"):
+        got = png(card, "card.png", grid_size=grid, prior=True)
+        want = png(cpu, "cpu.png", grid_size=grid, prior=True)
+        assert got.shape == want.shape and np.abs(got - want).max() <= 2, grid
+        assert np.abs(got - png(card, "plain.png", grid_size=grid)).max() > 2, grid

@@ -45,6 +45,15 @@ def test_registry_copy_equals_jax_registry(name):
     assert getattr(registry, name) == getattr(jax_registry, name)
 
 
+def test_prior_files_and_pairing_equal_jax_registry():
+    """The released priors (the JAX registry's `prior_*` MODEL_URLS keys) and
+    the mapper -> prior pairing the Predictor defaults to."""
+    assert registry.PRIOR_MODELS == jax_registry.PRIOR_MODELS
+    assert registry.PRIOR_FILES == tuple(
+        name for name in jax_registry.MODEL_URLS if name.startswith("prior_"))
+    assert set(registry.PRIOR_MODELS.values()) <= set(registry.PRIOR_FILES)
+
+
 def test_released_models_equal_jax_model_urls():
     """The serving path's default model list: the JAX registry's mapper files."""
     assert registry.RELEASED_MODELS == tuple(

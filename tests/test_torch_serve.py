@@ -1,5 +1,8 @@
 """The port's serving path against the JAX package's: `.th` checkpoints, the
-`Predictor`, the `test` command and the app callback, at tiny size on the CPU.
+`Predictor`, the `test` command and the app callback, at tiny size on the CPU;
+with a flow prior (a tiny prior `.th` of numpy draws, tests/test_torch_flow.py)
+through both Predictors and Generators, the prior's z pinned on both sides
+(the mapper input within 2e-4 of max(1, max |JAX|)).
 
 A tiny Mixer mapper (numpy draws) is written by the port's `save_model`; the JAX
 side loads it with its own `io.checkpoint.load_model`. The JAX Predictor's CLIP
@@ -14,6 +17,7 @@ JAX Predictor on the CPU its per-block forward; the same function in float32).
 import gzip
 import importlib.util
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,12 +32,14 @@ from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import clip_text_state_dict, vqgan_state_dict
 from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png, encode_png
+from feed_forward_vqgan_clip_tpu_torch.models import flow
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds, load_vqgan, make_vqgan
 from feed_forward_vqgan_clip_tpu_torch.serve import app
 from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
 from feed_forward_vqgan_clip_tpu_torch.serve.predictor import Predictor
 from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+from test_torch_flow import random_prior
 
 TINY_VQ = dict(n_embed=32, embed_dim=8, z_channels=8, ch=8, ch_mult=(1, 2),
                num_res_blocks=1, attn_resolutions=(4,), resolution=8)
@@ -209,16 +215,111 @@ def test_predictor_grids_match_jax(bpe_table, model_path, tmp_path, monkeypatch)
         assert np.abs(got - want).max() <= 2, grid
 
 
-def test_predictor_prior_and_model_choice(bpe_table, model_path, tmp_path):
+@pytest.fixture
+def prior_path(tmp_path):
+    """A tiny prior `.th` in the reference's format: 2 flows over the tiny CLIP's
+    32-d embeddings, numpy draws."""
+    port, cfg = random_prior(32, 32, 2, seed=12)
+    return flow.save_prior(str(tmp_path / "tiny_prior.th"), port, cfg)
+
+
+def test_predictor_prior_and_model_choice(bpe_table, model_path, prior_path, tmp_path):
     pred = Predictor([model_path], device="cpu")
     pred.setup()
+    assert not pred.priors
     # prior=True with no prior loaded is ignored; model=None picks a loaded model
     a = _png(pred.predict(PROMPT, prior=True, seed=4, out_path=str(tmp_path / "a.png")))
     b = _png(pred.predict(PROMPT, model="tiny_mixer.th", seed=4,
                           out_path=str(tmp_path / "b.png")))
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        Predictor([model_path], {"tiny_mixer.th": "prior.th"}, device="cpu").setup()
+    # with a prior for the model, prior=True changes the images and prior=False does not
+    with_prior = Predictor([model_path], {"tiny_mixer.th": prior_path}, device="cpu")
+    with_prior.setup()
+    assert list(with_prior.priors) == [prior_path]
+    c = _png(with_prior.predict(PROMPT, prior=True, seed=4, out_path=str(tmp_path / "c.png")))
+    d = _png(with_prior.predict(PROMPT, seed=4, out_path=str(tmp_path / "d.png")))
+    np.testing.assert_array_equal(d, b)
+    assert np.abs(c - b).max() > 2
+
+
+def test_predictor_defaults_to_the_released_companion_prior(model_path, prior_path, tmp_path,
+                                                            monkeypatch):
+    """Without `prior_paths`, a model takes PRIOR_MODELS' prior where that file is
+    present; two models of one prior share one loaded copy."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(predictor_mod, "PRIOR_MODELS", {
+        "tiny_mixer.th": "tiny_prior.th", "other.th": "tiny_prior.th",
+        "third.th": "missing_prior.th"})
+    other = checkpoint.save_model(str(tmp_path / "other.th"), _mapper(CFG, 5), CFG)
+    third = checkpoint.save_model(str(tmp_path / "third.th"), _mapper(CFG, 6), CFG)
+    pred = Predictor([model_path, other, third], device="cpu")
+    pred.setup()
+    assert list(pred.priors) == ["tiny_prior.th"]
+    assert pred.model_prior == {"tiny_mixer.th": "tiny_prior.th", "other.th": "tiny_prior.th"}
+
+
+def _pin_jax_prior(jprior, z, record):
+    """The JAX prior's sample as the reverse of the pinned z, its output recorded."""
+    def sample(key, h):
+        out = jprior.flow.apply(jprior.variables, jnp.asarray(z), h, method=jprior.flow.reverse)
+        record.append(np.asarray(out))
+        return out
+
+    jprior.sample = sample
+
+
+def test_predictor_prior_sample_matches_jax(bpe_table, model_path, prior_path, tmp_path,
+                                            monkeypatch):
+    """prior=True at 2x2 with the prior's z pinned on both sides: the port's
+    mapper input equals JAX Prior.reverse's (float32, 2e-4 of max(1, max |JAX|)),
+    and the PNG grids agree within 2/255."""
+    jpred = JPredictor([model_path], {"tiny_mixer.th": prior_path})
+    jpred.setup()
+    pred = Predictor([model_path], {"tiny_mixer.th": prior_path}, device="cpu")
+    pred.setup()
+    _carry_jax_frozen(jpred, pred)
+    z = np.random.default_rng(13).normal(size=(4, 32)).astype(np.float32)
+    want = []
+    _pin_jax_prior(jpred.priors[prior_path], z, want)
+    pred.priors[prior_path].noise = lambda n, gen: torch.from_numpy(z[:n])
+    got = []
+    stream = predictor_mod.streamed_mixer_forward
+    monkeypatch.setattr(predictor_mod, "streamed_mixer_forward",
+                        lambda m, p, x: got.append(x.clone()) or stream(m, p, x))
+    a = _png(pred.predict(PROMPT, prior=True, grid_size="2x2", seed=0,
+                          out_path=str(tmp_path / "port.png")))
+    b = _png(jpred.predict(PROMPT, prior=True, grid_size="2x2", seed=0,
+                           out_path=str(tmp_path / "jax.png")))
+    (x,), (ref,) = got, want
+    assert x.shape == ref.shape == (4, 32)
+    assert float(np.abs(x.numpy() - ref).max()) <= 2e-4 * max(1.0, float(np.abs(ref).max()))
+    assert a.shape == b.shape and np.abs(a - b).max() <= 2
+
+
+def test_generator_with_prior_matches_jax(model_path, prior_path, monkeypatch):
+    """Generator.from_checkpoint(prior_path=...) on the CPU: the prior samples
+    after the tile and before the noise (noise_dim 4, no bank), its z pinned on
+    both sides; images within 2/255 of the JAX Generator's."""
+    import feed_forward_vqgan_clip_tpu.infer as jinfer
+
+    cfg = dict(CFG, noise_dim=4)
+    path = checkpoint.save_model(model_path.replace("tiny_mixer", "noisy"), _mapper(cfg, 14), cfg)
+    jgen = jinfer.Generator(path, prior_path=prior_path)
+    gen = infer.Generator.from_checkpoint(path, prior_path=prior_path, device="cpu")
+    gen.perceptor.module.load_state_dict(clip_text_state_dict(jgen.perceptor.params))
+    gen.vq.load_state_dict(vqgan_state_dict(jgen.vq_params))
+    z = np.random.default_rng(15).normal(size=(6, 32)).astype(np.float32)
+    _pin_jax_prior(jgen.prior, z, [])
+    gen.prior.noise = lambda n, g: torch.from_numpy(z[:n])
+    # the noise columns: the same Gaussian rows on both sides
+    nz = np.random.default_rng(16).normal(size=(6, 4)).astype(np.float32)
+    monkeypatch.setattr(jinfer.jax.random, "normal", lambda key, shape: jnp.asarray(nz))
+    monkeypatch.setattr(infer, "noise_rows", lambda *a: torch.from_numpy(nz))
+    h = np.random.default_rng(17).normal(size=(3, 32)).astype(np.float32)
+    want = np.asarray(jgen.generate(jnp.asarray(h), nb_repeats=2, seed=0))
+    got = gen.generate(torch.from_numpy(h), nb_repeats=2, seed=0).numpy()
+    assert got.shape == want.shape == (6, 8, 8, 3)
+    assert np.abs(got - want).max() <= 2 / 255
 
 
 def test_predictor_setup_dedups_and_skips_unported(model_path, tmp_path):

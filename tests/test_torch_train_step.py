@@ -18,7 +18,9 @@ io/from_jax.py. The loss and every mapper gradient must agree, three times:
     to 32-px crops (a warp whose output frame is not its input's, border
     padding), noise 0.
 
-Once with a VitGAN Generator in the Mixer's place (3 heads over dim 16, 8 x 8
+Twice with the diversity term (`diversity_coef` 0.5, both modes): VGG16
+features of 16-px renders from numpy weights on both sides. Once with a VitGAN
+Generator in the Mixer's place (3 heads over dim 16, 8 x 8
 latent tokens, 16-px renders), the default set at numpy-pinned draws. And once
 with the fused image tower (FFVC_FUSED_CLIP's path, K11's plain
 version on the CPU) against JAX's fused tower in interpret mode: augmentations
@@ -42,6 +44,8 @@ from feed_forward_vqgan_clip_tpu.config import vqgan_arch_config as j_vqgan_arch
 from feed_forward_vqgan_clip_tpu.models.mappers import build_mapper as j_build_mapper
 from feed_forward_vqgan_clip_tpu.models.perceptor import load_perceptor as j_load_perceptor
 from feed_forward_vqgan_clip_tpu.models.vqgan import make_vqgan as j_make_vqgan
+from feed_forward_vqgan_clip_tpu.io.torch_import import convert_vgg16
+from feed_forward_vqgan_clip_tpu.models.vgg import VGG16Features as JVGG16Features
 from feed_forward_vqgan_clip_tpu.ops import augment as jaug
 from feed_forward_vqgan_clip_tpu.models import clip_fused as jclip_fused
 from feed_forward_vqgan_clip_tpu.models import clip_vit as jclip
@@ -61,12 +65,14 @@ from feed_forward_vqgan_clip_tpu_torch.models import clip_fused
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip, make_clip_from_config
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor
+from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import make_vqgan
 from feed_forward_vqgan_clip_tpu_torch.ops import augment
 from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
 from feed_forward_vqgan_clip_tpu_torch.train import loop
 from feed_forward_vqgan_clip_tpu_torch.train.loop import FrozenModels, make_train_step
 from feed_forward_vqgan_clip_tpu_torch.train.state import make_optimizer, make_train_state
+from test_torch_vgg import vgg_state_dict
 
 TINY_VQ = dict(n_embed=32, embed_dim=8, z_channels=8, ch=8, ch_mult=(1, 2),
                num_res_blocks=1, attn_resolutions=(4,), resolution=8)
@@ -160,10 +166,11 @@ def _port_augs(d, geometric):
     return ([af, pe] if geometric else []) + [ji, er]
 
 
-def _rigs(clip_cfg=None, knobs=KNOBS):
+def _rigs(clip_cfg=None, knobs=KNOBS, vgg_sd=None):
     """The JAX loss_fn with its params, and the port's train step on the same
     weights; the "tiny" CLIP, or one built from `clip_cfg`; the mapper of
-    `knobs`."""
+    `knobs`; the VGG16 of the diversity term from the torchvision state dict
+    `vgg_sd`, where given."""
     cfg = j_make_config(augs=["Cc"], **knobs)
     if clip_cfg is None:
         perceptor = j_load_perceptor("tiny", dtype=jnp.float32)
@@ -186,13 +193,23 @@ def _rigs(clip_cfg=None, knobs=KNOBS):
     dec["conv_out"] = jax.tree.map(lambda a: 0.2 * a, dec["conv_out"])
     vq_params = {"params": {**vq_params["params"], "codebook": jnp.asarray(codebook),
                             "decoder": dec}}
-    frozen = jloop.FrozenModels(perceptor, vq, vq_params, None, None, None)
+    vgg_module = vgg_params = tvgg = None
+    if vgg_sd is not None:
+        vgg_module = JVGG16Features(dtype=jnp.float32)
+        vgg_params = convert_vgg16({k: v.numpy() for k, v in vgg_sd.items()})
+        tvgg = VGG16Features()
+        tvgg.load_state_dict(vgg_sd)
+        tvgg.eval().requires_grad_(False)
+    frozen = jloop.FrozenModels(perceptor, vq, vq_params, vgg_module, vgg_params, None)
     mapper = j_build_mapper(dict(cfg), vq_channels=8, dtype=jnp.float32)
-    params = jax.jit(mapper.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32)))
+    params = jax.jit(mapper.init)(jax.random.PRNGKey(1),
+                                  jnp.zeros((1, 32 + int(knobs["noise_dim"]))))
     jmc = JMakeCutouts(cut_size=SIZE, cutn=CUTN, augs=["Cc"], pool_size=SIZE, noise_fac=0.0)
     _, loss_fn = jloop.make_train_step(cfg, mapper, frozen, jmc, inp_is_tokens=True,
                                        out_is_tokens=True)
     fz = {"clip": perceptor.params, "vq": vq_params}
+    if vgg_params is not None:
+        fz["vgg"] = vgg_params
 
     clip = (make_clip("tiny", device="cpu", image=True) if clip_cfg is None
             else make_clip_from_config(clip_cfg, device="cpu", image=True))
@@ -200,7 +217,7 @@ def _rigs(clip_cfg=None, knobs=KNOBS):
     tvq = make_vqgan(TINY_VQ, device="cpu")
     tvq.load_state_dict(vqgan_state_dict(vq_params))
     tfrozen = FrozenModels(Perceptor(clip.eval().requires_grad_(False), "tiny", 32, 32),
-                           tvq.eval().requires_grad_(False))
+                           tvq.eval().requires_grad_(False), vgg=tvgg)
     tmap = build_mapper(dict(knobs), vq_channels=8, device="cpu")
     tmap.load_state_dict(MAPPER_STATE_DICT[knobs["model_type"]](params))
     mc = MakeCutouts(cut_size=SIZE, cutn=CUTN, pool_size=SIZE, augs=["Ji", "Er"],
@@ -266,6 +283,66 @@ def test_vitgan_train_step_matches_jax(rng):
     for n, g in want.items():
         err = float((got[n] - g).abs().max())
         assert err <= 1e-4 * (float(g.abs().max()) + 1e-3 * top), n
+
+
+@pytest.mark.parametrize("mode", ["between_same_prompts", "all"])
+def test_diversity_train_step_matches_jax(rng, mode):
+    """The step with `diversity_coef` 0.5: VGG16 features of the 16-px renders
+    (the Mixer over 8 x 8 tokens; relu5_3 at 1 x 1) from the same numpy weights on
+    both sides, noise_dim 4 with the batch's noise rows (one per repeat, so the
+    repeats of a prompt differ), the default augmentations Af, Pe, Ji, Er at
+    numpy-pinned draws: loss (1e-5 relative), the `diversity` metric (1e-4
+    relative, and > 0: the sum of the normalised differences of features that
+    went through 13 float32 convolutions of another library; 2.0e-5 read in
+    "all" mode) and every mapper gradient within 1e-4 of its max |JAX grad| plus
+    1e-6 of the
+    largest grad of all (the floor above is 1e-7: the token-FF output bias, zero
+    but for rounding, reads 1.2e-7 of the largest grad here, where the VGG16
+    term's grads add in)."""
+    knobs = dict(KNOBS, vq_image_size=8, noise_dim=4, diversity_coef=0.5, diversity_mode=mode)
+    (loss_fn, params, fz, jmc, _), (_, tloss_fn, tmap, mc, _) = _rigs(
+        knobs=knobs, vgg_sd=vgg_state_dict(9))
+    draws = _pinned_draws(rng)
+    jmc.augs = _jax_augs(draws, True)
+    mc.augs = _port_augs(draws, True)
+    toks = _tokens()
+    noise = rng.normal(size=(REPEAT, 4)).astype(np.float32)
+    (j_loss, j_metrics), j_grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params, fz, {"inp": jnp.asarray(toks), "out": jnp.asarray(toks),
+                     "noise": jnp.asarray(noise)}, jax.random.PRNGKey(0))
+    tt = torch.from_numpy(toks).long()
+    loss, metrics = tloss_fn({"inp": tt, "out": tt, "noise": torch.from_numpy(noise)},
+                             torch.Generator().manual_seed(0))
+    loss.backward()
+    assert float(j_metrics["diversity"]) > 0
+    assert abs(loss.item() - float(j_loss)) <= 1e-5 * abs(float(j_loss))
+    for k in ("dists", "l2", "tv"):
+        np.testing.assert_allclose(float(metrics[k]), float(j_metrics[k]), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(metrics["diversity"]), float(j_metrics["diversity"]),
+                               rtol=1e-4)
+    want = mixer_state_dict(jax.tree.map(np.asarray, j_grads))
+    got = {n: p.grad for n, p in tmap.named_parameters()}
+    assert sorted(want) == sorted(got)
+    top = max(float(g.abs().max()) for g in want.values())
+    for n, g in want.items():
+        err = float((got[n] - g).abs().max())
+        assert err <= 1e-4 * (float(g.abs().max()) + 1e-2 * top), n
+
+
+def test_build_frozen_draws_the_vgg_only_for_the_diversity_term(monkeypatch):
+    """build_frozen builds the VGG16 (random from seed + 1 without `vgg_path`)
+    where `diversity_coef` is set, and make_train_step needs it there."""
+    cfg = make_config(**dict(KNOBS, vq_image_size=8))
+    assert loop.build_frozen(cfg, torch.float32, device="cpu").vgg is None
+    frozen = loop.build_frozen(make_config(**dict(cfg, diversity_coef=1.0)), torch.float32,
+                               device="cpu", seed=3)
+    want = VGG16Features().init_random_(torch.Generator().manual_seed(4))
+    assert torch.equal(frozen.vgg.features[0].weight, want.features[0].weight)
+    mc = MakeCutouts(cut_size=SIZE, cutn=CUTN, pool_size=SIZE, augs=[], noise_fac=0.0)
+    with pytest.raises(ValueError, match="VGG16"):
+        make_train_step(make_config(**dict(cfg, diversity_coef=1.0)), build_mapper(
+            dict(cfg), vq_channels=8, device="cpu"), frozen._replace(vgg=None), mc,
+            inp_is_tokens=True, out_is_tokens=True)
 
 
 def test_train_entry_takes_another_mapper_and_perceptor():
