@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's prompt->image, serving, train-step and trainer paths
 (the default cutouts, then the unpooled crops), the released mapper families,
-the flow prior (served and trained), the diversity loss and the offline
-evaluation once on one NVIDIA GPU, in phases.
+the flow prior (served and trained), the diversity loss, the offline
+evaluation, the remaining perceptors, the JAX package's checkpoint formats and
+the data preparation once on one NVIDIA GPU, in phases.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
@@ -139,12 +140,41 @@ evaluation once on one NVIDIA GPU, in phases.
    CUDA-event ms a batch, the FID's host time; K1 once and K2 32 times a
    batch; the JSON's keys and finite values. Each of [prior] to [eval] draws
    from generators seeded apart from the shared one, so [stream]'s draws stay.
-23. Prints the card's line, the kernels' JSON line (K11's launches from the
-   [trainer] runs, the warps' from [train], [trainer-crops], [mappers] and
-   [diversity], with the rectangular warps' times, and their launches in
-   [trainer-crops] as the wrappers counted them, under "rect"; K1, K2, K4,
-   K6-K8 with [mappers]', [prior]'s, [diversity]'s and [eval]'s too), then
-   `{"ok": true, "device": {...}}` last.
+23. [perceptors] crowsonkb's CLOOB ViT-B/16 (cloob_laion_400m_vit_b_16_32_epochs)
+   at full width, random, written as a haiku pickle of numpy arrays and read
+   back bitwise: card vs CPU (two rows of each encode, float32, within 1e-4 of
+   max(1, max |CPU|)), bf16 encode ms and peak memory; the flagship Mixer served
+   with it from the pickle (1x1, 2x2: K1, K4) and trained one step through
+   entry.train_entry (K1, K6-K8 x 32, K9 x 2, K10 x 2), as [mappers] runs a
+   model. Then open_clip's ViT-B-16-plus-240 at its published widths, random,
+   as fp16 OpenCLIP state dicts, one with the text tower under `text.`: the
+   sniffed config equal to those widths, card vs CPU, encode ms.
+24. [native-ckpt] The flagship Mixer at noise_dim 128 with a noise bank written
+   as a `.th` and as a JAX checkpoint directory (io/from_jax.mixer_tree and the
+   port's msgpack writer): the directory's bytes and read seconds; one
+   Predictor serves both, 1x1 and 2x2 images and PNGs bitwise equal (K1, K4);
+   a legacy whole-module pickle of a stand-in mapper (the reference's module
+   name, not importable) loads with its config and noise, outputs bitwise.
+25. [encode] 4096 seeded 256-px JPEG / caption pairs in 4 tars (one corrupt)
+   through `cli encode-text-and-images-webdataset` with ViT-B/32 (random) at
+   batch 512 and the NIMA filter (IRv2, random, Cadene keys; threshold the
+   median MOS of a first scoring pass): pairs/s, CUDA-event ms per batch of the
+   text tower, image tower and NIMA, the host's share, the rows dropped; card
+   vs CPU features on 8 samples (float32); spill and no-prefetch runs equal to
+   the default; `cli merge-features` equal to the concatenation and read by
+   `train_prior` for 5 steps; the words the encoder's tokenizer merged and
+   how many of them reached the native BPE core; `cli tokenize` on 10000 lines
+   of random-letter words and of prompt-like English, the native BPE core
+   against pure Python on a synthetic letter-merge table (equal tokens, both
+   times, the words each core call took; the core must build).
+   Each of [perceptors] to [encode] draws from generators of its own.
+26. Prints the card's line, the kernels' JSON line (K11's launches from the
+   [trainer] runs, the warps' from [train], [trainer-crops], [mappers],
+   [diversity] and [perceptors], with the rectangular warps' times, and their
+   launches in [trainer-crops] as the wrappers counted them, under "rect"; K1,
+   K2, K4, K6-K8 with [mappers]', [prior]'s, [diversity]'s, [eval]'s,
+   [perceptors]' and [native-ckpt]'s too), then `{"ok": true, "device": {...}}`
+   last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -226,6 +256,38 @@ PRIOR_TRAIN_PAIRS = 16384
 DIVERSITY_SEED = 31
 EVAL_SEED = 41
 EVAL_PROMPTS, EVAL_BATCH = 256, 64
+# [perceptors], [native-ckpt] and [encode], each on generators of its own (so
+# [stream]'s draws stay):
+# [perceptors] crowsonkb's CLOOB ViT and an OpenCLIP arch outside the registry at
+# its published widths (open_clip's ViT-B-16-plus-240: image 240 px, patch 16,
+# width 896, 12 layers; text width 640, 12 layers; embedding 640)
+PERCEPTORS_SEED = 51
+CLOOB_NAME = "cloob_laion_400m_vit_b_16_32_epochs"
+OPENCLIP_NAME = "openclip/ViT-B-16-plus-240/laion400m_e32"
+OPENCLIP_PLUS_240 = dict(image_size=240, patch_size=16, vision_width=896, vision_layers=12,
+                         vision_heads=14, embed_dim=640, text_width=640, text_layers=12,
+                         text_heads=10, vocab_size=49408, context_length=77)
+# [native-ckpt]: the JAX checkpoint directory and a legacy pickle of the reference's class
+NATIVE_CKPT_SEED = 61
+LEGACY_MODULE = "mlp_mixer_pytorch"
+# [encode]: the data preparation at the JAX package's default batch
+ENCODE_SEED = 71
+ENCODE_PAIRS, ENCODE_BATCH = 4096, 512
+TOKENIZE_LINES = 10000
+# prompt-like English for `cli tokenize`: a vocabulary of the kind prompts draw on
+PROMPT_WORDS = """a an the of in on at with and by from under over above beside
+painting photo photograph drawing sketch illustration render portrait landscape
+cityscape still life poster cover concept art oil watercolor pencil charcoal digital
+red blue green yellow orange purple pink black white golden silver dark bright
+pastel neon misty foggy sunny rainy snowy stormy night sunset sunrise morning
+cat dog horse bird owl fox wolf dragon robot astronaut knight wizard girl boy woman
+man child king queen castle city street forest mountain river ocean lake beach desert
+island village house tower bridge garden flower tree sky cloud moon star planet space
+ship car train window door table chair book lamp candle mirror clock
+beautiful detailed intricate highly realistic photorealistic surreal abstract
+minimalist vintage retro futuristic ancient medieval cyberpunk steampunk fantasy
+epic cinematic dramatic lighting volumetric studio trending artstation unreal engine
+style by van gogh monet picasso greg rutkowski""".split()
 CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
@@ -1656,14 +1718,14 @@ def phase_reference():
 
 
 @contextlib.contextmanager
-def bpe_table(folder):
-    """BPE_MERGES written to `folder` as a .txt.gz and read through FFVC_BPE_PATH
-    while the block runs."""
+def bpe_table(folder, merges=BPE_MERGES):
+    """`merges` (BPE_MERGES) written to `folder` as a .txt.gz and read through
+    FFVC_BPE_PATH while the block runs."""
     from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
 
-    path = os.path.join(folder, "bpe_merges.txt.gz")
+    path = os.path.join(folder, f"bpe_merges_{len(merges)}.txt.gz")
     with gzip.open(path, "wt", encoding="utf-8") as fd:
-        fd.write("#version: 0.2\n" + "\n".join(BPE_MERGES) + "\n")
+        fd.write("#version: 0.2\n" + "\n".join(merges) + "\n")
     old = os.environ.get("FFVC_BPE_PATH")
     os.environ["FFVC_BPE_PATH"] = path
     bpe.get_tokenizer.cache_clear()
@@ -3086,6 +3148,621 @@ def phase_eval(smi):
     return launches
 
 
+# ---------------------------------------------------------------- [perceptors], [native-ckpt], [encode]
+
+
+def haiku_payload(sd, cfg):
+    """The port's CrowsonCLOOB state dict as the released haiku pickle's
+    {"params": (image_tree, text_tree)} of numpy arrays (models/cloob.py
+    `haiku_state_dict` inverted: Linear weights transposed to haiku's (in, out),
+    the patch kernel OIHW -> HWIO, LayerNorm biases as `offset`)."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    lin = (("query", "self_attention/multi_head_attention/query"),
+           ("key", "self_attention/multi_head_attention/key"),
+           ("value", "self_attention/multi_head_attention/value"),
+           ("out", "self_attention/multi_head_attention/linear"),
+           ("linear_0", "feed_forward/linear_0"), ("linear_1", "feed_forward/linear_1"))
+
+    def tower(prefix, base, n):
+        tree = {f"{base}/pos_embed": {"w": a[f"{prefix}.pos_embed"]},
+                f"{base}/proj": {"w": a[f"{prefix}.proj.weight"].T.copy(),
+                                 "b": a[f"{prefix}.proj.bias"]}}
+        for i in range(n):
+            p, h = f"{prefix}.layers.{i}", f"{base}/layer_{i}"
+            for port, hk in (("attn_norm", "self_attention/layer_norm"),
+                             ("ff_norm", "feed_forward/layer_norm")):
+                tree[f"{h}/{hk}"] = {"scale": a[f"{p}.{port}.weight"],
+                                     "offset": a[f"{p}.{port}.bias"]}
+            for port, hk in lin:
+                tree[f"{h}/{hk}"] = {"w": a[f"{p}.{port}.weight"].T.copy(),
+                                     "b": a[f"{p}.{port}.bias"]}
+        return tree
+
+    ib, tb = "vi_t_image_encoder", "text_encoder"
+    img = tower("image_encoder", ib, cfg["image_layers"])
+    img[ib] = {"class_embed": a["image_encoder.class_embed"]}
+    img[f"{ib}/embed"] = {"w": a["image_encoder.embed.weight"].transpose(2, 3, 1, 0).copy()}
+    txt = tower("text_encoder", tb, cfg["text_layers"])
+    txt[f"{tb}/embed"] = {"embeddings": a["text_encoder.embed.weight"]}
+    return {"params": (img, txt)}
+
+
+def perceptor_card_vs_cpu(label, name, path, size, smi):
+    """`load_perceptor(name, path)` in float32 on the card and on the CPU: two rows
+    of encode_text and encode_image within 1e-4 of max(1, max |CPU|); then in
+    bf16 on the card, encode_text and encode_image of 8 rows timed (CUDA events)
+    with the load's peak memory. -> {check: error}."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
+    from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
+
+    toks = example_tokens(2)
+    x = torch.from_numpy(np.random.default_rng(PERCEPTORS_SEED).normal(
+        size=(2, size, size, 3)).astype(np.float32))
+    errs = {}
+    cpu = load_perceptor(name, path, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        want = (cpu.encode_text(toks), cpu.encode_image(x))
+    del cpu
+    card = load_perceptor(name, path, dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        got = (card.encode_text(toks.cuda()).cpu(), card.encode_image(x.cuda()).cpu())
+    del card
+    for check, g, w in zip(("encode_text", "encode_image"), got, want):
+        err = (g - w).abs().max().item()
+        limit = 1e-4 * max(1.0, w.abs().max().item())
+        errs[check] = err
+        if not (np.isfinite(err) and err <= limit):
+            raise AssertionError(f"[perceptors] {label} {check}: card vs CPU {err:.3e} > "
+                                 f"{limit:.3e}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    p = load_perceptor(name, path, dtype=torch.bfloat16, device="cuda")
+    load_s = time.perf_counter() - t
+    toks8 = example_tokens(8, "cuda")
+    x8 = torch.randn(8, size, size, 3, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(PERCEPTORS_SEED))
+    with torch.no_grad():
+        text_ms = cuda_ms(lambda: p.encode_text(toks8), iters=5, warmup=2)
+        image_ms = cuda_ms(lambda: p.encode_image(x8), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[perceptors] {label}: card vs CPU (float32, 2 rows) encode_text "
+        f"{errs['encode_text']:.3e}, encode_image {errs['encode_image']:.3e}; bf16 on the card: "
+        f"loaded in {load_s:.1f} s, encode_text 8 rows {text_ms:.2f} ms, encode_image 8 x "
+        f"{size} px {image_ms:.2f} ms (CUDA events), peak {peak:.2f} GiB ({smi})")
+    del p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_perceptors(smi):
+    """[perceptors]: crowsonkb's CLOOB ViT-B/16 at full width, random from
+    PERCEPTORS_SEED, written as a haiku pickle and loaded by name and path: card
+    vs CPU, stage ms; the flagship Mixer served with it (1x1, 2x2: K1, K4) and
+    trained one step (K1, K6-K8 x 32, K9 x 2, K10 x 2) through `mapper_model_run`.
+    Then OpenCLIP ViT-B-16-plus-240 at its published widths, random, as fp16
+    OpenCLIP state dicts (one with the text tower under `text.`): the config
+    sniffed from each equal to those widths, card vs CPU, stage ms. -> the
+    kernels' launches."""
+    import pickle
+
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.io.clip_arch import sniff_clip_arch
+    from feed_forward_vqgan_clip_tpu_torch.models import cloob
+    from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cloob.CROWSON_CONFIGS[CLOOB_NAME]
+        t = time.perf_counter()
+        src = cloob.CrowsonCLOOB(cfg).init_random_(torch.Generator().manual_seed(PERCEPTORS_SEED))
+        path = os.path.join(tmp, f"{CLOOB_NAME}.pkl")
+        with open(path, "wb") as fd:
+            pickle.dump(haiku_payload(src.state_dict(), cfg), fd, protocol=4)
+        n_params = sum(p.numel() for p in src.parameters())
+        back = cloob.haiku_state_dict(cloob.read_haiku_pickle(path), cfg)
+        if any(not torch.equal(back[k], v) for k, v in src.state_dict().items()):
+            raise AssertionError("[perceptors] the haiku pickle does not read back bitwise")
+        log(f"[perceptors] {CLOOB_NAME}: {n_params / 1e6:.1f} M parameters (image 12 x 768 "
+            f"at 224 px, patch 16; text 12 x 512), haiku pickle "
+            f"{os.path.getsize(path) / 2**20:.1f} MiB written and read back bitwise in "
+            f"{time.perf_counter() - t:.1f} s ({smi})")
+        del src, back
+        perceptor_card_vs_cpu(CLOOB_NAME, CLOOB_NAME, path, 224, smi)
+        launches = mapper_model_run(
+            "mlp_mixer_32x1024_cloob_vit_b16",
+            dict(clip_model=CLOOB_NAME, clip_model_path=path, model_type="mlp_mixer", dim=1024,
+                 depth=32, vq_image_size=16), ("1x1", "2x2"), PERCEPTORS_SEED, smi)
+
+        width = OPENCLIP_PLUS_240
+        src = make_clip_from_config(width, act="gelu", image=True)
+        src.init_random_(torch.Generator().manual_seed(PERCEPTORS_SEED + 1))
+        sd = {k: v.half() for k, v in src.state_dict().items()}
+        del src
+        text_keys = ("token_embedding.weight", "positional_embedding", "ln_final.weight",
+                     "ln_final.bias", "text_projection")
+        layouts = {"openclip": sd, "text_nested": {
+            (f"text.{k}" if k.startswith("transformer.") or k in text_keys else k): v
+            for k, v in sd.items()}}
+        for layout, state in layouts.items():
+            path = os.path.join(tmp, f"open_clip_{layout}.pt")
+            torch.save(state, path)
+            family, got = sniff_clip_arch(torch.load(path, weights_only=True))
+            if family != "vit" or got != {k: width[k] for k in got}:
+                raise AssertionError(f"[perceptors] {OPENCLIP_NAME} ({layout}): sniffed "
+                                     f"{family} {got}, need {width}")
+            log(f"[perceptors] {OPENCLIP_NAME} ({layout} layout, fp16, "
+                f"{os.path.getsize(path) / 2**20:.1f} MiB): sniffed {family} {got}")
+            perceptor_card_vs_cpu(f"{OPENCLIP_NAME} ({layout})", OPENCLIP_NAME, path,
+                                  width["image_size"], smi)
+    log(f"[perceptors] launches {launches}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
+class _StandInModule:
+    """A stand-in for the reference's `mlp_mixer_pytorch` module while a mapper is
+    pickled whole (a legacy checkpoint), unregistered after."""
+
+    def __init__(self, mapper):
+        import types
+
+        self.mod = types.ModuleType(LEGACY_MODULE)
+        cls = type("MLPMixer", (type(mapper),), {"__module__": LEGACY_MODULE})
+        cls.__qualname__ = "MLPMixer"
+        self.mod.MLPMixer = cls
+        self.mapper = mapper
+
+    def save(self, path, cfg, noise):
+        import torch
+
+        sys.modules[LEGACY_MODULE] = self.mod
+        try:
+            self.mapper.__class__ = self.mod.MLPMixer
+            self.mapper.config, self.mapper.NOISE = dict(cfg), noise
+            torch.save(self.mapper, path)
+        finally:
+            del sys.modules[LEGACY_MODULE]
+
+
+def phase_native_ckpt(smi):
+    """[native-ckpt]: the flagship Mixer at noise_dim 128 (as [diversity]) with a
+    noise bank, random from NATIVE_CKPT_SEED, written as a `.th` and as a JAX
+    checkpoint directory (params.msgpack by io/from_jax.mixer_tree and the port's
+    msgpack writer, meta.json, noise.npy); one Predictor serves both: the 1x1 and
+    2x2 images and PNGs of the two bitwise equal (K1, K4). The directory's bytes
+    and read seconds. A legacy whole-module pickle of a stand-in mapper (a small
+    Mixer pickled as the reference's class) loads and gives the mapper's outputs
+    bitwise. -> the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
+    from feed_forward_vqgan_clip_tpu_torch.io.from_jax import mixer_tree
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
+
+    t_phase = time.perf_counter()
+    counters = serve_counters()
+    cfg = dict(FLAGSHIP_CONFIG, noise_dim=128)
+    bank = np.random.default_rng(NATIVE_CKPT_SEED).standard_normal((16, 128), dtype=np.float32)
+    record = []
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp), \
+            patched(predictor_mod, make_grid=recorded_images(record)):
+        mapper = build_mapper(make_config(**cfg), vq_channels=256, device="cuda")
+        mapper.init_random_(torch.Generator(device="cuda").manual_seed(NATIVE_CKPT_SEED))
+        n_params = sum(p.numel() for p in mapper.parameters())
+        th = ckpt_io.save_model(os.path.join(tmp, "flagship.th"), mapper, cfg, noise=bank)
+        t = time.perf_counter()
+        tree = mixer_tree(mapper.state_dict())
+        jdir = ckpt_io.save_checkpoint_dir(tmp, "flagship_jax", tree, cfg, step=1000, epoch=3,
+                                           noise=bank)
+        write_s = time.perf_counter() - t
+        del mapper, tree
+        torch.cuda.empty_cache()
+        msg = os.path.join(jdir, "params.msgpack")
+        t = time.perf_counter()
+        ckpt_io.load_pytree(msg)
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got_tree, got_cfg, step, epoch, noise = ckpt_io.load_checkpoint(jdir)
+        dir_s = time.perf_counter() - t
+        if (step, epoch) != (1000, 3) or not np.array_equal(noise.numpy(), bank):
+            raise AssertionError(f"[native-ckpt] meta or noise wrong: {step}, {epoch}")
+        del got_tree
+        log(f"[native-ckpt] the flagship Mixer at noise_dim 128 ({n_params / 1e6:.1f} M f32 "
+            f"parameters): params.msgpack {os.path.getsize(msg)} bytes "
+            f"({os.path.getsize(msg) / 2**30:.3f} GiB) written (mixer_tree + the msgpack writer)"
+            f" in {write_s:.2f} s; read by load_pytree in {read_s:.2f} s "
+            f"({os.path.getsize(msg) / 2**30 / read_s:.2f} GiB/s), the whole directory "
+            f"(meta.json, noise.npy) in {dir_s:.2f} s; `.th` {os.path.getsize(th)} bytes ({smi})")
+        t = time.perf_counter()
+        pred = predictor_mod.Predictor([th, jdir], device="cuda")
+        pred.setup()
+        setup_s = time.perf_counter() - t
+        if sorted(pred.models) != ["flagship.th", "flagship_jax"]:
+            raise AssertionError(f"[native-ckpt] Predictor loaded {sorted(pred.models)}")
+        for fn in counters.values():
+            fn.launches = 0
+        for grid in ("1x1", "2x2"):
+            imgs, pngs = [], []
+            for name in ("flagship.th", "flagship_jax"):
+                record.clear()
+                out = pred.predict(PROMPT, name, grid_size=grid, seed=NATIVE_CKPT_SEED,
+                                   out_path=os.path.join(tmp, f"{name}_{grid}.png"))
+                (img,) = record
+                imgs.append(img)
+                with open(out, "rb") as fd:
+                    pngs.append(fd.read())
+            if not (np.array_equal(imgs[0], imgs[1]) and pngs[0] == pngs[1]):
+                raise AssertionError(f"[native-ckpt] {grid}: the directory's images differ from "
+                                     "the .th's")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        need = {"vq_argmin": 4, "mixer_stream": 4, "mixer_block": 0}
+        if launches != need:
+            raise AssertionError(f"[native-ckpt] launches {launches}, need {need}")
+        log(f"[native-ckpt] Predictor.setup() on the `.th` and the directory {setup_s:.1f} s; "
+            f"1x1 and 2x2 images and PNGs bitwise equal between the two; launches {launches} "
+            f"({smi})")
+        del pred
+        torch.cuda.empty_cache()
+
+        small = dict(FLAGSHIP_CONFIG, dim=128, depth=2, compute_dtype="float32", noise_dim=8)
+        mapper = build_mapper(make_config(**small), vq_channels=256, device="cuda")
+        mapper.init_random_(torch.Generator(device="cuda").manual_seed(NATIVE_CKPT_SEED + 1))
+        x = torch.randn(3, 520, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(NATIVE_CKPT_SEED))
+        with torch.no_grad():
+            want = mapper(x)
+        legacy = os.path.join(tmp, "legacy.th")
+        _StandInModule(mapper).save(legacy, small, torch.from_numpy(bank[:4, :8]))
+        got, got_cfg, got_noise = ckpt_io.load_model(legacy, device="cuda")
+        same = all(torch.equal(got.state_dict()[k], v) for k, v in mapper.state_dict().items())
+        with torch.no_grad():
+            err = (got(x) - want).abs().max().item() / want.abs().max().item()
+        if not (same and err <= 1e-6 and got_cfg["dim"] == 128
+                and torch.equal(got_noise, torch.from_numpy(bank[:4, :8]))):
+            raise AssertionError(f"[native-ckpt] the legacy pickle does not load as pickled: "
+                                 f"parameters equal {same}, outputs {err:.3e}")
+        log(f"[native-ckpt] legacy whole-module pickle ({LEGACY_MODULE}.MLPMixer, not "
+            f"importable): loaded, parameters bitwise equal to the pickled mapper's, outputs "
+            f"{err:.3e} of max apart, config and NOISE back; phase "
+            f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def jpeg_pairs(folder, n, shards, seed):
+    """n seeded 256 x 256 JPEG / caption pairs in `shards` webdataset tars (sample 1
+    corrupt: its image bytes are no JPEG) -> the tars' glob pattern."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:256, 0:256]
+    words = ["a", "red", "blue", "cat", "dog", "on", "the", "hello", "world", "painting",
+             "of", "city", "at", "night"]
+    per = n // shards
+    for s in range(shards):
+        with tarfile.open(os.path.join(folder, f"shard-{s:03d}.tar"), "w") as tf:
+            for i in range(s * per, (s + 1) * per):
+                a, b, c = rng.integers(1, 7, size=3)
+                img = np.stack([(xx * a + yy * b) % 256, (xx * c + 40 * (i % 7)) % 256,
+                                (yy * a + xx * c) % 256], -1).astype(np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(img).save(buf, "JPEG", quality=90)
+                data = b"\xff\xd8 not a jpeg" if i == 1 else buf.getvalue()
+                text = " ".join(rng.choice(words, size=int(rng.integers(3, 9))))
+                for name, payload in ((f"{i:06d}.input.jpg", data),
+                                      (f"{i:06d}.output.txt", text.encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(payload)
+                    tf.addfile(info, io.BytesIO(payload))
+    return os.path.join(folder, "shard-*.tar")
+
+
+@contextlib.contextmanager
+def merge_counts():
+    """The words ClipTokenizer._merge_new is given, and the new ones it merges
+    through the native core, counted while the block runs."""
+    from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+
+    counts = {"words": 0, "core": 0}
+    merge_new = bpe.ClipTokenizer._merge_new
+
+    def counted(self, words):
+        before = len(self._id_cache)
+        merge_new(self, words)
+        counts["words"] += len(words)
+        if self.native is not None:
+            counts["core"] += len(self._id_cache) - before
+
+    with patched(bpe.ClipTokenizer, _merge_new=counted):
+        yield counts
+
+
+def tokenize_native_vs_python(tmp, label, lines):
+    """`cli tokenize` on `lines` with the native core and with pure Python, on
+    the table in force: equal tokens asserted; (seconds, words merged) of each."""
+    from feed_forward_vqgan_clip_tpu_torch import native
+    from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+
+    import numpy as np
+
+    prompts = os.path.join(tmp, f"prompts_{label}.txt")
+    with open(prompts, "w") as fd:
+        fd.write("\n".join(lines) + "\n")
+    secs, toks, counts = {}, {}, {}
+    for path, lib in (("native", native.get_lib()), ("python", None)):
+        bpe.get_tokenizer.cache_clear()
+        out = os.path.join(tmp, f"tok_{label}_{path}.npz")
+        with patched(native, _LIB=lib, _TRIED=True), merge_counts() as counts[path]:
+            t = time.perf_counter()
+            run_cli(["tokenize", prompts, "--out", out])
+            secs[path] = time.perf_counter() - t
+            if (bpe.get_tokenizer().native is None) != (lib is None):
+                raise AssertionError(f"[encode] tokenize {label} {path}: the wrong path ran")
+        with np.load(out) as z:
+            toks[path] = z["tokens"]
+    bpe.get_tokenizer.cache_clear()
+    if not np.array_equal(toks["native"], toks["python"]):
+        raise AssertionError(f"[encode] tokenize {label}: the native core's tokens differ")
+    return secs, counts["native"], int((toks["native"] > 0).sum())
+
+
+def letter_merges(seed, trigrams=2000):
+    """A synthetic merge table: the 26 x 26 letter bigrams, the same at a word's
+    end, and `trigrams` merges of a bigram and a letter (each also at a word's
+    end), in a seeded order; a word of random letters takes several merges, as
+    words do under the released table (which is not in the repository)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    pairs = [a + b for a in letters for b in letters]
+    merges = [f"{p[0]} {p[1]}" for p in rng.permutation(pairs)]
+    merges += [f"{p[0]} {p[1]}</w>" for p in rng.permutation(pairs)]
+    for t in rng.choice(len(pairs) * 26, size=trigrams, replace=False):
+        ab, c = pairs[t // 26], letters[t % 26]
+        merges += [f"{ab} {c}", f"{ab} {c}</w>"]
+    return merges
+
+
+def irv2_nima_file(path, seed):
+    """A NIMA on the IRv2 trunk, random from `seed`, saved in Cadene's key names
+    under pyiqa's `base_model.` with the head as `classifier.2` -> `path`."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.models import nima
+
+    model = nima.NIMA("inception_resnet_v2").init_random_(torch.Generator().manual_seed(seed))
+    sd = {(f"base_model.{k[len('backbone.'):]}" if k.startswith("backbone.")
+           else k.replace("classifier.", "classifier.2.")): v
+          for k, v in model.state_dict().items()}
+    torch.save(sd, path)
+    return path
+
+
+def phase_encode(smi):
+    """[encode]: ENCODE_PAIRS seeded 256-px JPEG / caption pairs in 4 tars (one
+    corrupt) through `cli encode-text-and-images-webdataset` with ViT-B/32
+    (random from ENCODE_SEED, a torch file) at the JAX default batch of 512 and
+    the NIMA filter on the IRv2
+    trunk (random, Cadene keys), its threshold the median MOS of a first scoring
+    pass over the first batch's images: pairs/s, CUDA-event ms per batch of the
+    text tower, the image tower and NIMA, the host's share of the loop, the
+    rows dropped. Checks: the card's features against the CPU's on 8 samples
+    (float32); on one tar, spill (spill_rows 1000) and no prefetch each equal to
+    the default run, bitwise; `cli merge-features` of two outputs equal to their
+    concatenation, read by `train/prior.py` for a few steps with a finite loss;
+    `cli tokenize` on 10000 lines, native BPE core against pure Python, equal."""
+    import io
+    import tarfile
+    import types
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.data import encode as encode_mod
+    from feed_forward_vqgan_clip_tpu_torch.models import nima as nima_mod
+    from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip
+    from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+    from feed_forward_vqgan_clip_tpu_torch.train import prior as prior_mod
+
+    t_phase = time.perf_counter()
+    events = {"text": [], "image": [], "nima": []}
+
+    def timed(stage, fn):
+        def run(*a):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a)
+            end.record()
+            events[stage].append((start, end))
+            return out
+
+        return run
+
+    load_perceptor, make_nima_fn = encode_mod.load_perceptor, nima_mod.make_nima_fn
+
+    def timed_perceptor(*a, **k):
+        p = load_perceptor(*a, **k)
+        return p._replace(module=types.SimpleNamespace(
+            encode_text=timed("text", p.module.encode_text),
+            encode_image=timed("image", p.module.encode_image)))
+
+    def timed_nima(*a, **k):
+        return timed("nima", make_nima_fn(*a, **k))
+
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+        t = time.perf_counter()
+        pattern = jpeg_pairs(tmp, ENCODE_PAIRS, 4, ENCODE_SEED)
+        made_s = time.perf_counter() - t
+        if bpe.get_tokenizer().native is None:
+            raise AssertionError("[encode] the native BPE core did not build on this machine")
+        weights = irv2_nima_file(os.path.join(tmp, "nima_irv2.pth"), ENCODE_SEED)
+        clip = make_clip("ViT-B/32", image=True).init_random_(
+            torch.Generator().manual_seed(ENCODE_SEED))
+        clip_path = os.path.join(tmp, "vit_b32.pt")
+        torch.save(clip.state_dict(), clip_path)
+        del clip
+        first = sorted(p for p in os.listdir(tmp) if p.endswith(".tar"))[0]
+        with tarfile.open(os.path.join(tmp, first)) as tf:
+            imgs = []
+            for m in tf.getmembers():
+                if m.name.endswith(".jpg") and len(imgs) < ENCODE_BATCH:
+                    try:
+                        imgs.append(encode_mod.preprocess_image(
+                            Image.open(io.BytesIO(tf.extractfile(m).read()))))
+                    except Exception:  # the corrupt sample, skipped as the encoder skips it
+                        pass
+        x01 = np.stack(imgs) * np.asarray(encode_mod.CLIP_STD, np.float32) + np.asarray(
+            encode_mod.CLIP_MEAN, np.float32)
+        with torch.no_grad():
+            scores = make_nima_fn(weights, device="cuda")(torch.from_numpy(x01).cuda()).cpu()
+        threshold = float(scores.median())
+        log(f"[encode] {ENCODE_PAIRS} pairs (256 x 256 JPEG) in 4 tars made in {made_s:.1f} s; "
+            f"NIMA (IRv2, random, Cadene keys) first scoring pass over {len(imgs)} images: MOS "
+            f"{scores.min().item():.5f} .. {scores.max().item():.5f}, threshold (median) "
+            f"{threshold:.6f}")
+        out = os.path.join(tmp, "features.npz")
+        torch.cuda.synchronize()
+        with patched(encode_mod, load_perceptor=timed_perceptor), \
+                patched(nima_mod, make_nima_fn=timed_nima), merge_counts() as merged_words:
+            t = time.perf_counter()
+            run_cli(["encode-text-and-images-webdataset", pattern, "--clip-path", clip_path,
+                     "--batch-size", str(ENCODE_BATCH), "--out", out,
+                     "--image-quality-threshold", repr(threshold), "--nima-weights-path",
+                     weights])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        x, y = encode_mod._load_pairs(out)
+        batches = -(-(ENCODE_PAIRS - 1) // ENCODE_BATCH)
+        ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in events.items()}
+        if len(ms["nima"]) != batches or not (0 < len(x) < ENCODE_PAIRS - 1):
+            raise AssertionError(f"[encode] {len(ms['nima'])} NIMA batches, {len(x)} rows kept")
+        if x.shape[1:] != (512,) or y.shape != x.shape or not (np.isfinite(x).all()
+                                                                and np.isfinite(y).all()):
+            raise AssertionError(f"[encode] features {x.shape} {y.shape}, not finite (N, 512)")
+        device_s = sum(sum(v) for v in ms.values()) / 1e3
+        dropped = ENCODE_PAIRS - 1 - len(x)
+
+        def med(v):
+            return sorted(v)[len(v) // 2]
+
+        log(f"[encode] `cli encode-text-and-images-webdataset`, ViT-B/32 (random, bf16), batch "
+            f"{ENCODE_BATCH}, NIMA filter: {ENCODE_PAIRS - 1} valid pairs in {wall:.2f} s = "
+            f"{(ENCODE_PAIRS - 1) / wall:.1f} pairs/s; kept {len(x)}, dropped {dropped}, the "
+            f"corrupt one skipped; median ms per batch (CUDA events): text tower "
+            f"{med(ms['text']):.2f}, image tower {med(ms['image']):.2f}, NIMA "
+            f"{med(ms['nima']):.2f}; device stages {device_s:.2f} s of the loop's {wall:.2f} s: "
+            f"host share {1 - device_s / wall:.3f}; the captions' {merged_words['words']} words "
+            f"took the native BPE core {merged_words['core']} times, the id cache the rest "
+            f"({smi})")
+
+        # the card against the CPU on 8 samples, float32
+        small = os.path.join(tmp, "small")
+        os.makedirs(small)
+        with tarfile.open(os.path.join(tmp, first)) as src, \
+                tarfile.open(os.path.join(small, "s-000.tar"), "w") as dst:
+            members = [m for m in src.getmembers() if int(m.name[:6]) in range(2, 10)]
+            for m in members:
+                dst.addfile(m, io.BytesIO(src.extractfile(m).read()))
+        feats = {}
+        f32 = lambda *a, **k: load_perceptor(*a, **{**k, "dtype": torch.float32})  # noqa: E731
+        with patched(encode_mod, load_perceptor=f32):
+            for dev in ("cpu", "cuda"):
+                feats[dev] = encode_mod._load_pairs(encode_mod.encode_text_and_images_webdataset(
+                    os.path.join(small, "s-*.tar"), clip_path=clip_path, batch_size=8,
+                    device=dev, out=os.path.join(small, f"f_{dev}.npz")))
+        errs = []
+        for got, want in zip(feats["cuda"], feats["cpu"]):
+            err = float(np.abs(got - want).max())
+            errs.append(err)
+            if got.shape != (8, 512) or not err <= 1e-4 * max(1.0, float(np.abs(want).max())):
+                raise AssertionError(f"[encode] card vs CPU {got.shape} {err:.3e}")
+
+        # spill and no prefetch against the default run, one tar
+        one = os.path.join(tmp, first)
+        runs = {}
+        for label, kw in (("default", {}), ("spill", dict(spill_rows=1000)),
+                          ("sequential", dict(prefetch=False))):
+            t = time.perf_counter()
+            runs[label] = encode_mod._load_pairs(encode_mod.encode_text_and_images_webdataset(
+                one, clip_path=clip_path, batch_size=ENCODE_BATCH,
+                out=os.path.join(tmp, f"one_{label}.npz"), **kw))
+            runs[label] += (time.perf_counter() - t,)
+        for label in ("spill", "sequential"):
+            if not all(np.array_equal(a, b) for a, b in zip(runs[label][:2], runs["default"][:2])):
+                raise AssertionError(f"[encode] {label} differs from the default run")
+        merged = os.path.join(tmp, "merged.npz")
+        run_cli(["merge-features", os.path.join(tmp, "one_default.npz"), out, "--out", merged])
+        mx, my = encode_mod._load_pairs(merged)
+        if not (np.array_equal(mx, np.concatenate([runs["default"][0], x]))
+                and np.array_equal(my, np.concatenate([runs["default"][1], y]))):
+            raise AssertionError("[encode] merge-features is not the concatenation")
+        losses = []
+        step = prior_mod.make_prior_step
+
+        def kept_loss(flow, state):
+            fn = step(flow, state)
+
+            def run(xb, yb):
+                metrics = fn(xb, yb)
+                losses.append(metrics["loss"].item())
+                return metrics
+
+            return run
+
+        with patched(prior_mod, make_prior_step=kept_loss):
+            prior_mod.train_prior(make_config(
+                folder=os.path.join(tmp, "prior"), seed=ENCODE_SEED,
+                data={"path": merged, "batch_size": 128}, model=PRIOR_MODEL,
+                optim={"lr": 1e-4, "epochs": 1}, logging={"log_interval": 1000}, max_steps=5),
+                device="cuda")
+        if len(losses) != 5 or not np.isfinite(losses).all():
+            raise AssertionError(f"[encode] the prior trainer on the merged file: {losses}")
+        log(f"[encode] card vs CPU (8 samples, float32): text {errs[0]:.3e}, image "
+            f"{errs[1]:.3e}; one tar ({len(runs['default'][0])} pairs): default "
+            f"{runs['default'][2]:.2f} s, spill_rows 1000 {runs['spill'][2]:.2f} s, no prefetch "
+            f"{runs['sequential'][2]:.2f} s, both bitwise equal to the default; merge-features "
+            f"of two outputs ({len(mx)} rows) equal to their concatenation; train_prior on it, "
+            f"5 steps, loss {losses[0]:.4f} .. {losses[-1]:.4f} ({smi})")
+
+        # cli tokenize: the native core against pure Python, on a synthetic table of
+        # letter merges (the released table is not in the repository), over random
+        # letter words and over prompt-like English
+        rng = np.random.default_rng(ENCODE_SEED)
+        letters = list("abcdefghijklmnopqrstuvwxyz")
+        texts = {
+            "letters": [" ".join("".join(rng.choice(letters, size=int(rng.integers(2, 9))))
+                                 for _ in range(int(rng.integers(3, 12))))
+                        for _ in range(TOKENIZE_LINES)],
+            "english": [" ".join(rng.choice(PROMPT_WORDS, size=int(rng.integers(3, 12))))
+                        for _ in range(TOKENIZE_LINES)],
+        }
+        merges = letter_merges(ENCODE_SEED)
+        with bpe_table(tmp, merges):
+            for label, lines in texts.items():
+                secs, core, ids = tokenize_native_vs_python(tmp, label, lines)
+                log(f"[encode] `cli tokenize` on {TOKENIZE_LINES} lines of {label} words "
+                    f"({len(merges)} synthetic letter merges, {ids} ids; {core['words']} words, "
+                    f"{core['core']} of them through the native core): native BPE core "
+                    f"{secs['native']:.2f} s, pure Python {secs['python']:.2f} s "
+                    f"({secs['python'] / secs['native']:.2f}x), tokens equal ({smi})")
+        log(f"[encode] phase {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+
 def torch_pools():
     """The cutouts' pools as torch's F.adaptive_{avg,max}_pool2d (atomic CUDA
     backwards: the port's pools before the matmul formulation) while the block
@@ -3231,7 +3908,10 @@ def main():
     phase_prior_train(smi)
     diversity = phase_diversity(smi)
     evals = phase_eval(smi)
-    for phase in (mappers, prior, diversity, evals):
+    perceptors = phase_perceptors(smi)
+    native_ckpt = phase_native_ckpt(smi)
+    phase_encode(smi)
+    for phase in (mappers, prior, diversity, evals, perceptors, native_ckpt):
         for name, n in phase.items():
             if not name.startswith("mlp_ln"):  # K11's row: [trainer]'s launches
                 launches["vq" if name == "vq_argmin" else name] += n

@@ -1,1 +1,2 @@
-"""Training data: datasets and per-epoch batching."""
+"""Data: training datasets and batching, and the data preparation (tokenize,
+the CLIP feature encoders, merge-features)."""

@@ -1,1 +1,2 @@
-"""Weight conversion from the JAX package and image writing."""
+"""Checkpoints (the reference's `.th`, the JAX package's msgpack directories),
+weight conversion from the JAX package, CLIP layouts, and image writing."""

@@ -1,13 +1,17 @@
 """JAX parameter pytrees -> state dicts of the port's modules.
 
 The inverse of the JAX package's torch converters (io/torch_import.py) for the
-modules of the served and trained paths: the mappers (MLP-Mixer, the VitGAN
-generators and their SineLayer and Discriminator, the x-transformer), the VQGAN
-decoder, the CLIP towers (ViT and ModifiedResNet) and the flow prior (whose
-variables hold 'buffers' beside 'params'). Parity tests use these to run the
-JAX module and its port on the same weights. Inputs are the pytrees as the
-JAX modules' `init` returns them (with or without the top-level 'params'),
-leaves as numpy arrays (or anything np.asarray takes). Layouts:
+mappers (MLP-Mixer, the VitGAN generators and their SineLayer and
+Discriminator, the x-transformer; `mapper_state_dict` by model_type), the VQGAN
+decoder, the CLIP towers (ViT and ModifiedResNet), crowsonkb's CLOOB ViT, the
+Inception trunks and NIMA, and the flow prior (whose variables hold 'buffers'
+beside 'params'). Parity tests use these to run the JAX module and its port on
+the same weights, and the loaders of the JAX package's checkpoint directories
+(io/checkpoint.py, models/vqgan.py, models/perceptor.py, models/flow.py) read
+its trees through them; `mixer_tree` goes the other way, for writing such a
+directory. Inputs are the pytrees as the JAX modules' `init` returns them (with
+or without the top-level 'params'), leaves as numpy arrays (`numpy_leaves`
+turns msgpack's bfloat16 tensors into them). Layouts:
 
   * Dense kernel (in, out)      -> Linear weight (out, in)
   * conv kernel HWIO            -> Conv2d weight OIHW
@@ -25,6 +29,40 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import StackedMix
 
 def _params(tree):
     return tree["params"] if "params" in tree else tree
+
+
+def numpy_leaves(tree):
+    """`tree` with its torch tensor leaves (msgpack's bfloat16 arrays) as float32
+    numpy arrays: exact, bf16 widens to f32 without rounding."""
+    if isinstance(tree, dict):
+        return {k: numpy_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().numpy()
+    return tree
+
+
+def mapper_state_dict(tree, cfg):
+    """A JAX mapper's parameter tree -> the port's state dict, by the config's
+    `model_type` (the JAX package's `convert_mapper_state_dict`, inverted)."""
+    mt = cfg.get("model_type")
+    if mt == "mlp_mixer":
+        return mixer_state_dict(tree)
+    if mt in ("vitgan", "simple_vitgan"):
+        return vitgan_generator_state_dict(tree)
+    if mt == "xtransformer":
+        return xtransformer_state_dict(tree, add_input=bool(cfg.get("add_input", False)))
+    raise NotImplementedError(f"no converter for model_type={mt!r}")
+
+
+def migrate_groupnorm_layout(tree):
+    """The older nested {'GroupNorm_0': {scale, bias}} GroupNorm layout of the
+    JAX package's VQGAN directories flattened to {scale, bias} (JAX
+    train/loop.py `_migrate_groupnorm_layout`)."""
+    if isinstance(tree, dict):
+        if set(tree) == {"GroupNorm_0"}:
+            return dict(tree["GroupNorm_0"])
+        return {k: migrate_groupnorm_layout(v) for k, v in tree.items()}
+    return tree
 
 
 def _t(a):
@@ -68,6 +106,43 @@ def mixer_state_dict(tree):
     _norm(sd, f"mixer.{2 + depth}", p["final_norm"])
     _linear(sd, "final_proj", p["final_proj"])
     return sd
+
+
+def _sorted(tree):
+    """Dicts in sorted key order, as jax.tree.map leaves them in a saved tree."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def mixer_tree(sd):
+    """The port's Mixer state dict -> the JAX Mixer's {"params": ...} tree, float32
+    numpy leaves, keys sorted: the inverse of mixer_state_dict, for writing a
+    JAX checkpoint directory without JAX."""
+    a = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    depth = sum(1 for k in a if k.endswith(".0.fn.0.weight"))
+
+    def dense(prefix):
+        return {"kernel": np.ascontiguousarray(a[f"{prefix}.weight"].T),
+                "bias": a[f"{prefix}.bias"]}
+
+    def norm(prefix):
+        return {"scale": a[f"{prefix}.weight"], "bias": a[f"{prefix}.bias"]}
+
+    p = {"proj": dense("proj"), "embed": dense("mixer.1"),
+         "final_norm": norm(f"mixer.{2 + depth}"), "final_proj": dense("final_proj")}
+    for i in range(depth):
+        pre = f"mixer.{2 + i}"
+        p[f"block_{i}"] = {
+            "token_norm": norm(f"{pre}.0.norm"),
+            "token_fc1": np.ascontiguousarray(a[f"{pre}.0.fn.0.weight"][:, :, 0].T),
+            "token_fc1_bias": a[f"{pre}.0.fn.0.bias"],
+            "token_fc2": np.ascontiguousarray(a[f"{pre}.0.fn.3.weight"][:, :, 0].T),
+            "token_fc2_bias": a[f"{pre}.0.fn.3.bias"],
+            "channel_norm": norm(f"{pre}.1.norm"),
+            "channel_fc1": dense(f"{pre}.1.fn.0"), "channel_fc2": dense(f"{pre}.1.fn.3"),
+        }
+    return _sorted({"params": p})
 
 
 def stacked_mixer_weights(sp, dtype=torch.float32):
@@ -335,4 +410,67 @@ def flow_state_dict(variables):
         perm = torch.from_numpy(np.asarray(buffers[f"flow_{i}"]["shuffle"]).astype(np.int64))
         sd[f"{pre}.shuffle.forward_shuffle_idx"] = perm
         sd[f"{pre}.shuffle.backward_shuffle_idx"] = torch.argsort(perm)
+    return sd
+
+
+def _cloob_tower(sd, prefix, p):
+    n = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(n):
+        blk, pre = p[f"layer_{i}"], f"{prefix}.layers.{i}"
+        _norm(sd, f"{pre}.attn_norm", blk["attn_norm"])
+        _norm(sd, f"{pre}.ff_norm", blk["ff_norm"])
+        for name in ("query", "key", "value", "out", "linear_0", "linear_1"):
+            _linear(sd, f"{pre}.{name}", blk[name])
+    sd[f"{prefix}.pos_embed"] = _t(p["pos_embed"])
+    _linear(sd, f"{prefix}.proj", p["proj"])
+
+
+def crowson_cloob_state_dict(tree):
+    """models.cloob.CrowsonCLOOB params -> the port's CrowsonCLOOB state dict."""
+    p = _params(tree)
+    img, txt = p["image_encoder"], p["text_encoder"]
+    sd = {"image_encoder.class_embed": _t(img["class_embed"]),
+          "text_encoder.embed.weight": _t(txt["embed"]),
+          "logit_scale": _t(p["logit_scale"]).reshape(())}
+    _conv(sd, "image_encoder.embed", img["embed"])
+    _cloob_tower(sd, "image_encoder", img)
+    _cloob_tower(sd, "text_encoder", txt)
+    return sd
+
+
+def _inception_path(name):
+    """A JAX Inception module name -> its torch path: `repeat_1_3` -> `repeat_1.3`,
+    `repeat_4` -> `repeat.4`, `branch1_0` -> `branch1.0` (Cadene's Sequentials);
+    torchvision's names (`Mixed_5b`, `branch3x3dbl_1`) unchanged."""
+    m = re.fullmatch(r"(repeat(?:_[12])?|branch\d)_(\d+)", name)
+    return f"{m.group(1)}.{m.group(2)}" if m else name
+
+
+def inception_state_dict(tree):
+    """models.inception.InceptionV3Features or models.inception_resnet.
+    InceptionResNetV2Features params -> the port's trunk state dict (torchvision's
+    or Cadene's names): each BasicConv2d's {conv, bn}, the residual blocks'
+    biased `conv2d`."""
+    sd = {}
+
+    def walk(prefix, node):
+        for name, sub in node.items():
+            path = f"{prefix}{_inception_path(name)}"
+            if name == "conv2d":
+                _conv(sd, path, sub)
+            elif "conv" in sub and "bn" in sub:
+                _conv(sd, f"{path}.conv", sub["conv"])
+                _frozen_bn(sd, f"{path}.bn", sub["bn"])
+            else:
+                walk(f"{path}.", sub)
+
+    walk("", _params(tree))
+    return sd
+
+
+def nima_state_dict(tree):
+    """models.nima.NIMA params (either trunk) -> the port's NIMA state dict."""
+    p = _params(tree)
+    sd = {f"backbone.{k}": v for k, v in inception_state_dict(p["backbone"]).items()}
+    _linear(sd, "classifier", p["classifier"])
     return sd

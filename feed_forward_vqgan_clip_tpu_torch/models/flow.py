@@ -11,7 +11,8 @@ conditioning once, shared by every block. Flat (B, C) vectors throughout; the
 reference's (B, C, 1, 1) shape lives only in the ActNorm parameters. float32.
 
 Attribute names are net2net's state-dict keys, so a reference prior `.th`
-({model, step, input_size, output_size, config}) loads with load_state_dict:
+({model, step, input_size, output_size, config}) loads with load_state_dict (a
+JAX prior directory, meta.json and params.msgpack, through io/from_jax.py):
 `embedder.main.N`, `sub_layers.{i}.norm_layer.{loc, scale}` of shape
 (1, C, 1, 1) with the buffer `initialized`, `sub_layers.{i}.coupling.{s, t}.{j}.
 main.N` and `sub_layers.{i}.shuffle.{forward, backward}_shuffle_idx`.
@@ -23,11 +24,16 @@ matrix products are plain torch.nn.functional.linear: the JAX package computes
 them outside any Pallas kernel.
 """
 
+import json
 import os
 
 import numpy as np
 import torch
 from torch import nn
+
+from feed_forward_vqgan_clip_tpu_torch.io import msgpack
+from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import load_th, plain_config
+from feed_forward_vqgan_clip_tpu_torch.io.from_jax import flow_state_dict, numpy_leaves
 
 
 class BasicFC(nn.Module):
@@ -218,12 +224,6 @@ def build_prior_model(config: dict, input_size: int, output_size: int,
         hidden_depth=int(m["hidden_depth"]), n_flows=int(m["n_flows"]), device=device)
 
 
-def plain_config(cfg) -> dict:
-    """A checkpoint's config (a dict, or an OmegaConf DictConfig in the
-    reference's files) as plain dicts."""
-    return {k: dict(v) if hasattr(v, "keys") else v for k, v in dict(cfg).items()}
-
-
 def complete_state_dict(sd: dict) -> dict:
     """`sd` with the buffers net2net files may lack filled in: ActNorm's
     `initialized` (1) and each shuffle's `backward_shuffle_idx` (the inverse of
@@ -239,12 +239,16 @@ def complete_state_dict(sd: dict) -> dict:
 
 def load_prior_model(prior_path: str, *, device="cuda") -> Prior:
     """A prior from a reference torch `.th` ({model, step, input_size,
-    output_size, config}) on `device`, eval mode, no grad."""
+    output_size, config}) or a JAX prior directory (`meta.json` with config,
+    input_size and output_size; `params.msgpack` the flow's {params, buffers})
+    on `device`, eval mode, no grad."""
     if os.path.isdir(prior_path):
-        raise NotImplementedError(
-            f"{prior_path} is a native (flax msgpack) prior directory; the port reads "
-            "reference .th priors only (ROADMAP A16f)")
-    ckpt = torch.load(prior_path, map_location="cpu", weights_only=False)
+        with open(os.path.join(prior_path, "meta.json")) as fd:
+            ckpt = json.load(fd)
+        variables = msgpack.load(os.path.join(prior_path, "params.msgpack"))
+        ckpt["model"] = flow_state_dict(numpy_leaves(variables))
+    else:
+        ckpt = load_th(prior_path)
     flow = build_prior_model(plain_config(ckpt["config"]), int(ckpt["input_size"]),
                              int(ckpt["output_size"]), device=device)
     flow.load_state_dict(complete_state_dict(ckpt["model"]))

@@ -7,6 +7,8 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.vitgan import Generator, SimpleGenerator
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.xtransformer import XTransformer
 
+MAPPER_TYPES = ("mlp_mixer", "vitgan", "simple_vitgan", "xtransformer")
+
 
 def build_mapper(config: dict, *, vq_channels: int = 256, dtype=torch.float32, device=None):
     """config: the training-config keys the JAX `build_mapper` reads.

@@ -94,8 +94,9 @@ def load_vgg16(path: Optional[str] = None, *, dtype=torch.float32, device="cuda"
     random from `seed` with the JAX package's warning; no grad, eval mode."""
     vgg = VGG16Features(dtype=dtype, device=device)
     if path and os.path.isdir(path):
-        raise NotImplementedError(f"{path} is a native (flax msgpack) VGG16 directory; the "
-                                  "port reads torch files only (ROADMAP A16f)")
+        # the JAX package reads VGG16 weights from a torch file only, too
+        raise NotImplementedError(f"{path} is a directory; VGG16 weights are read from a "
+                                  "torch file")
     if path and os.path.exists(path):
         obj = torch.load(path, map_location="cpu", weights_only=False)
         if "state_dict" in obj and isinstance(obj["state_dict"], dict):

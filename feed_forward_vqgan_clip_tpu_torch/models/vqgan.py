@@ -23,6 +23,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from feed_forward_vqgan_clip_tpu_torch.config import TrainConfig, vqgan_arch_config
+from feed_forward_vqgan_clip_tpu_torch.io import msgpack
+from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
+    migrate_groupnorm_layout,
+    numpy_leaves,
+    vqgan_state_dict,
+)
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.quantize import vector_quantize
 
@@ -269,17 +275,18 @@ def load_vqgan(cfg: TrainConfig, dtype=torch.bfloat16, *, device="cuda", seed: i
     weights of the taming checkpoint at `vqgan_checkpoint` (a `.ckpt` or state
     dict; Lightning's {"state_dict": ...} wrapper, a Net2NetTransformer's
     `first_stage_model.` prefix and GumbelVQ's `quantize.embed` name are taken
-    as the JAX package takes them), else random from `seed`. Port of JAX
-    train/loop.py `load_vqgan`; native msgpack directories are not read
-    (ROADMAP A16f)."""
+    as the JAX package takes them) or of the JAX package's directory there
+    (`params.msgpack`'s "params", the older nested GroupNorm layout
+    flattened), else random from `seed`. Port of JAX train/loop.py
+    `load_vqgan`."""
     vq = make_vqgan(vqgan_arch_config(cfg), dtype=dtype, device=device)
     path = cfg.get("vqgan_checkpoint")
+    keys = set(vq.state_dict())  # the decode path: no encoder, no loss
     if path and os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a native (flax msgpack) VQGAN directory; the port reads torch "
-            "files only (ROADMAP A16f)"
-        )
-    if path:
+        tree = msgpack.load(os.path.join(path, "params.msgpack"))["params"]
+        sd = vqgan_state_dict(migrate_groupnorm_layout(numpy_leaves(tree)))
+        vq.load_state_dict({k: v for k, v in sd.items() if k in keys})
+    elif path:
         obj = torch.load(path, map_location="cpu", weights_only=False)
         if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
             obj = obj["state_dict"]
@@ -288,7 +295,6 @@ def load_vqgan(cfg: TrainConfig, dtype=torch.bfloat16, *, device="cuda", seed: i
                    if k.startswith("first_stage_model.")}
         if "quantize.embed.weight" in obj and "quantize.embedding.weight" not in obj:
             obj = {**obj, "quantize.embedding.weight": obj["quantize.embed.weight"]}
-        keys = set(vq.state_dict())  # the decode path: no encoder, no loss
         vq.load_state_dict({k: v.float() for k, v in obj.items() if k in keys})
     else:
         log.warning("No VQGAN weights — random init (smoke/bench only).")

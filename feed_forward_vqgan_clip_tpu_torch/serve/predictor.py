@@ -1,7 +1,8 @@
 """Serving predictor: prompt -> PNG grid, with deduplicated frozen-model caches.
 
 Port of feed_forward_vqgan_clip_tpu/serve/predictor.py. `setup()` loads every
-mapper checkpoint (reference `.th` files) and caches perceptors by
+mapper checkpoint (reference `.th` files, legacy whole-module pickles or the JAX
+package's checkpoint directories) and caches perceptors by
 (clip_model, clip_model_path) and VQGANs by checkpoint and architecture, with
 their latent bounds; for each Mixer mapper it also stacks and folds the weights
 once for the streamed forward. The other mapper families (VitGAN, x-transformer)
@@ -64,7 +65,7 @@ def _vqgan_key(cfg) -> str:
 class Predictor:
     def __init__(self, model_paths: Optional[Sequence[str]] = None,
                  prior_paths: Optional[Dict[str, str]] = None, *, device="cuda"):
-        """model_paths: mapper checkpoints (reference .th files); defaults to the
+        """model_paths: mapper checkpoints (.th files or JAX directories); defaults to the
         released ones present locally. prior_paths: {model basename: prior
         .th path}; a model it does not name takes its released companion prior
         (PRIOR_MODELS) where that file is present locally."""
@@ -85,8 +86,10 @@ class Predictor:
             try:
                 mapper, cfg, noise = checkpoint.load_model(path, device=self.device)
             except NotImplementedError as e:
-                # a checkpoint format the port does not read yet (ROADMAP A16f):
-                # serve the loadable models instead of failing
+                # an unknown model_type (a future or foreign checkpoint; every
+                # released family loads, from a .th, a legacy pickle or a JAX
+                # directory): serve the loadable models instead of failing, as
+                # the JAX Predictor does; a damaged file still fails setup()
                 log.warning("skipping %s: %s", name, e)
                 continue
             self.models[name] = (mapper, cfg, noise)

@@ -1,11 +1,11 @@
 """CLIP byte-level BPE tokenizer (pure host code).
 
-The port's own copy of the pure-Python path of
-feed_forward_vqgan_clip_tpu/tokenizer/bpe.py: the `clip.tokenize` /
-`SimpleTokenizer.decode` surface (77-token context, <|startoftext|> /
-<|endoftext|> framing, truncation, zero padding). The JAX package's optional
-g++-built merge core (`native/bpe_core.cc`) is not ported: every word goes
-through `ClipTokenizer.bpe`, with the same ids.
+The port's own copy of feed_forward_vqgan_clip_tpu/tokenizer/bpe.py: the
+`clip.tokenize` / `SimpleTokenizer.decode` surface (77-token context,
+<|startoftext|> / <|endoftext|> framing, truncation, zero padding). The words
+of a text not seen before go, in one call, through the g++-built merge core
+(native/, `ClipTokenizer.native`) where it builds, else through the
+pure-Python `ClipTokenizer.bpe`; both give the same ids.
 
 The merge table is data, not code: pass the standard `bpe_simple_vocab_16e6.txt.gz`
 (the file OpenAI CLIP ships) via `bpe_path` or the FFVC_BPE_PATH environment
@@ -23,6 +23,7 @@ from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from feed_forward_vqgan_clip_tpu_torch import native as native_core
 from feed_forward_vqgan_clip_tpu_torch.tokenizer.text_fix import fix_text
 
 CONTEXT_LENGTH = 77
@@ -119,14 +120,23 @@ class ClipTokenizer:
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
         self.decoder = {i: tok for tok, i in self.encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merge_tuples)}
-        self.cache = {SOT_TOKEN: SOT_TOKEN, EOT_TOKEN: EOT_TOKEN}
         self.sot = self.encoder[SOT_TOKEN]
         self.eot = self.encoder[EOT_TOKEN]
         self.vocab_size = len(self.encoder)
+        # word -> its merged ids, the one cache of both merge paths
+        self._id_cache = {SOT_TOKEN: [self.sot], EOT_TOKEN: [self.eot]}
+        self.native = None  # the C++ core's table, None on the pure-Python path
+        lib = native_core.get_lib()
+        if lib is not None:
+            # every merge's operands and result are vocabulary entries: the
+            # table lowers to integer ids for the C++ core
+            self.native = native_core.NativeBPE(
+                [(self.encoder[a], self.encoder[b], rank, self.encoder[a + b])
+                 for (a, b), rank in self.bpe_ranks.items()], lib)
 
     def bpe(self, token: str) -> str:
-        if token in self.cache:
-            return self.cache[token]
+        """The pure-Python merge loop: `token`'s merged symbols, space-joined
+        (uncached; `_merge_new` caches the ids)."""
         word = tuple(token[:-1]) + (token[-1] + "</w>",)
         pairs = _pairs(word)
         if not pairs:
@@ -156,16 +166,31 @@ class ClipTokenizer:
             if len(word) == 1:
                 break
             pairs = _pairs(word)
-        out = " ".join(word)
-        self.cache[token] = out
-        return out
+        return " ".join(word)
+
+    def _syms(self, word: str) -> List[int]:
+        return [self.encoder[c] for c in word[:-1]] + [self.encoder[word[-1] + "</w>"]]
+
+    def _words(self, text: str) -> List[str]:
+        """The text cleaned and split into words, each as byte-level symbols."""
+        return ["".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+                for tok in _WORD_PAT.findall(_clean(text))]
+
+    def _merge_new(self, words: Sequence[str]) -> None:
+        """The merged ids of every word not seen before into the id cache: one
+        call of the native core for all of them, else the Python loop per word."""
+        cache = self._id_cache
+        missing = [w for w in dict.fromkeys(words) if w not in cache]
+        if missing and self.native is not None:
+            cache.update(zip(missing, self.native.apply_batch([self._syms(w) for w in missing])))
+        else:
+            for w in missing:
+                cache[w] = [self.encoder[t] for t in self.bpe(w).split(" ")]
 
     def encode(self, text: str) -> List[int]:
-        tokens: List[int] = []
-        for tok in _WORD_PAT.findall(_clean(text)):
-            word = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
-            tokens.extend(self.encoder[t] for t in self.bpe(word).split(" "))
-        return tokens
+        words = self._words(text)
+        self._merge_new(words)
+        return [i for w in words for i in self._id_cache[w]]
 
     def decode(self, token_ids: Iterable[int]) -> str:
         # stop at the first eot: padding zeros after it are positional, and vocab
@@ -192,9 +217,11 @@ class ClipTokenizer:
         last slot forced to eot."""
         if isinstance(texts, str):
             texts = [texts]
+        words = [self._words(text) for text in texts]
+        self._merge_new([w for ws in words for w in ws])  # the batch's new words at once
         out = np.zeros((len(texts), context_length), dtype=np.int32)
-        for i, text in enumerate(texts):
-            toks = [self.sot] + self.encode(text) + [self.eot]
+        for i, (text, ws) in enumerate(zip(texts, words)):
+            toks = [self.sot] + [t for w in ws for t in self._id_cache[w]] + [self.eot]
             if len(toks) > context_length:
                 if not truncate:
                     raise RuntimeError(

@@ -71,8 +71,8 @@ def test_load_perceptor_random_init_is_seeded(caplog, tmp_path):
     assert (a.size, a.dim) == (32, 32)
     toks = torch.from_numpy(_tokens(np.random.default_rng(0), 2)).long()
     np.testing.assert_array_equal(a.encode_text(toks).numpy(), b.encode_text(toks).numpy())
-    # a native (msgpack) CLIP directory is not read
-    with pytest.raises(NotImplementedError):
+    # a directory is read as the JAX package's (its params.msgpack must be there)
+    with pytest.raises(FileNotFoundError):
         load_perceptor("tiny", str(tmp_path), device="cpu")
 
 

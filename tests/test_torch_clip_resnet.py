@@ -10,6 +10,8 @@ tokens and images numpy draws. A tiny RN (64 px, one Bottleneck a stage, width
 Tolerance, as max |port - JAX|: 2e-4 * max(1, max |JAX|) in float32.
 """
 
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,6 +196,15 @@ def test_registry_sizes_build():
 
 @pytest.mark.parametrize("name", ["cloob_laion_400m_vit_b_16_32_epochs",
                                   "openclip/convnext_base/laion400m"])
-def test_unported_perceptors_raise(name):
-    with pytest.raises(NotImplementedError, match="A15b"):
-        load_perceptor(name, dtype=torch.float32, device="cpu")
+def test_unported_perceptors_raise(name, tmp_path):
+    """Where the JAX package raises: a crowsonkb CLOOB file that is no haiku
+    pickle (here a torch zip); an OpenCLIP arch outside the registry with no
+    checkpoint to sniff it from."""
+    if name.startswith("cloob"):
+        torch.save({"x": torch.zeros(1)}, tmp_path / "not_haiku.pt")
+        with pytest.raises(pickle.UnpicklingError):
+            load_perceptor(name, str(tmp_path / "not_haiku.pt"), dtype=torch.float32,
+                           device="cpu")
+    else:
+        with pytest.raises(ValueError, match="sniffed from the weights"):
+            load_perceptor(name, dtype=torch.float32, device="cpu")

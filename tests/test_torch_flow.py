@@ -202,5 +202,5 @@ def test_save_prior_round_trips_and_dirs_raise(tmp_path):
     loaded = flow.load_prior_model(path, device="cpu").flow
     for k, v in port.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a directory is a JAX prior: meta.json needed
         flow.load_prior_model(str(tmp_path), device="cpu")

@@ -28,6 +28,10 @@ The flow prior's reverse (float32 matrix products, TF32 off) within
 1e-4 of max(1, max |CPU|); the VGG16 features float32 within 1e-3 and bf16
 within 2e-2 of max |CPU| per slice; a tiny Predictor's prior=True request
 (K4 and K1 on the card) within 2/255 of the CPU's PNG, and unlike prior=False.
+The crowsonkb CLOOB ViT and a sniffed OpenCLIP ViT (an fp16 file with a
+`module.` prefix), float32, within 1e-4 of max(1, max |CPU|); a JAX checkpoint
+directory served byte for byte like its `.th`; the webdataset encoder's
+features within 1e-4 of the CPU's; the native BPE core built.
 """
 
 import copy
@@ -106,7 +110,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import (
     warp_forward,
     warp_forward_plain,
 )
-from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_RESNET_CONFIGS
+from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_RESNET_CONFIGS, CLIP_VIT_CONFIGS
 from feed_forward_vqgan_clip_tpu_torch.serve.predictor import Predictor
 from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
 from feed_forward_vqgan_clip_tpu_torch.train import loop
@@ -983,3 +987,124 @@ def test_predictor_prior_request_on_card(cuda, tmp_path, monkeypatch):
         want = png(cpu, "cpu.png", grid_size=grid, prior=True)
         assert got.shape == want.shape and np.abs(got - want).max() <= 2, grid
         assert np.abs(got - png(card, "plain.png", grid_size=grid)).max() > 2, grid
+
+
+# crowsonkb's CLOOB ViT at a small config (the full one is chip_smoke.py's [perceptors])
+CLOOB_SMALL = dict(d_embed=64, image_layers=2, image_d_model=128, image_heads=4,
+                   image_size=64, patch_size=16, text_layers=2, text_d_model=128,
+                   text_heads=2, text_size=77, vocab_size=49408)
+# an OpenCLIP ViT outside the registry, read by sniffing its file's shapes
+SNIFFED_VIT = dict(image_size=64, patch_size=16, vision_width=128, vision_layers=2,
+                   vision_heads=2, embed_dim=64, text_width=128, text_layers=2,
+                   text_heads=2, vocab_size=49408, context_length=77)
+
+
+def _card_against_cpu(load, cuda, size):
+    """encode_text and encode_image of load(device) on the card against the CPU,
+    float32: within 1e-4 of max(1, max |CPU|)."""
+    cpu, card = load("cpu"), load(cuda)
+    toks = example_tokens(2)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(2, size, size, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        for got, want in ((card.encode_text(toks.to(cuda)), cpu.encode_text(toks)),
+                          (card.encode_image(x.to(cuda)), cpu.encode_image(x))):
+            err = (got.cpu() - want).abs().max().item()
+            assert err <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_cloob_vit_and_sniffed_tower_on_card_match_cpu(cuda, tmp_path, monkeypatch):
+    from feed_forward_vqgan_clip_tpu_torch.models import cloob
+    from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
+
+    src = cloob.CrowsonCLOOB(CLOOB_SMALL).init_random_(torch.Generator().manual_seed(1))
+    _card_against_cpu(lambda dev: copy.deepcopy(src).to(dev).eval(), cuda, 64)
+    src = make_clip_from_config(SNIFFED_VIT, act="gelu", image=True)
+    src.init_random_(torch.Generator().manual_seed(2))
+    path = str(tmp_path / "sniffed.pt")
+    torch.save({f"module.{k}": v.half() for k, v in src.state_dict().items()}, path)
+    _card_against_cpu(lambda dev: load_perceptor("openclip/ViT-S-16-custom/x", path,
+                                                 dtype=torch.float32, device=dev), cuda, 64)
+
+
+def test_jax_checkpoint_dir_serves_bitwise_like_its_th(cuda, tmp_path, monkeypatch):
+    """A tiny Mixer written as a `.th` and as a JAX checkpoint directory (the
+    port's msgpack writer): the card's Predictor renders the same PNGs from
+    both, byte for byte (K4 at 1x1, 2x2; K2 at 3x3)."""
+    from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_checkpoint_dir
+    from feed_forward_vqgan_clip_tpu_torch.io.from_jax import mixer_tree
+
+    path = tmp_path / "merges.txt.gz"
+    with gzip.open(path, "wt", encoding="utf-8") as fd:
+        fd.write("#version: 0.2\nh e\nl l\nhe ll\nhell o</w>\n")
+    monkeypatch.setenv("FFVC_BPE_PATH", str(path))
+    bpe.get_tokenizer.cache_clear()
+    vq = dict(n_embed=32, embed_dim=8, z_channels=8, ch=32, ch_mult=(1, 2),
+              num_res_blocks=1, attn_resolutions=(4,), resolution=8)
+    cfg = dict(clip_model="tiny", vqgan_arch=vq, model_type="mlp_mixer", dim=64, depth=2,
+               dropout=0, vq_image_size=4, compute_dtype="bfloat16", noise_dim=0)
+    mapper = build_mapper(make_config(**cfg), vq_channels=8)
+    mapper.init_random_(torch.Generator().manual_seed(5))
+    th = save_model(str(tmp_path / "tiny.th"), mapper, cfg)
+    jdir = save_checkpoint_dir(str(tmp_path), "tiny_dir", mixer_tree(mapper.state_dict()), cfg,
+                               step=1, epoch=0)
+    pred = Predictor([th, jdir], device=cuda)
+    pred.setup()
+    for grid in ("1x1", "2x2", "3x3"):
+        outs = [pred.predict("hello", name, grid_size=grid, seed=7,
+                             out_path=str(tmp_path / f"{name}.png"))
+                for name in ("tiny.th", "tiny_dir")]
+        with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+            assert a.read() == b.read(), grid
+
+
+def test_encoder_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The webdataset encoder with the registry's tiny CLIP (random from a seed),
+    float32: the card's features within 1e-4 of max(1, max |CPU|), same rows."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    from feed_forward_vqgan_clip_tpu_torch.data import encode
+
+    path = tmp_path / "merges.txt.gz"
+    with gzip.open(path, "wt", encoding="utf-8") as fd:
+        fd.write("#version: 0.2\nh e\nl l\nhe ll\nhell o</w>\n")
+    monkeypatch.setenv("FFVC_BPE_PATH", str(path))
+    bpe.get_tokenizer.cache_clear()
+    rng = np.random.default_rng(4)
+    with tarfile.open(tmp_path / "shard-000.tar", "w") as tf:
+        for i in range(9):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, size=(40, 48, 3), dtype=np.uint8)).save(
+                buf, "JPEG")
+            for name, data in ((f"{i:03d}.input.jpg", buf.getvalue()),
+                               (f"{i:03d}.output.txt", f"hello {i}".encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    clip = make_clip_from_config(CLIP_VIT_CONFIGS["tiny"], image=True)
+    clip.init_random_(torch.Generator().manual_seed(6))  # one draw for both devices
+    clip_path = str(tmp_path / "tiny_clip.pt")
+    torch.save(clip.state_dict(), clip_path)
+    load = encode.load_perceptor
+    monkeypatch.setattr(encode, "load_perceptor",
+                        lambda *a, **k: load(*a, **{**k, "dtype": torch.float32}))
+    outs = {}
+    for dev in ("cpu", cuda):
+        outs[str(dev)] = encode._load_pairs(encode.encode_text_and_images_webdataset(
+            str(tmp_path / "shard-*.tar"), clip_model="tiny", clip_path=clip_path, batch_size=4,
+            device=dev, out=str(tmp_path / f"f_{dev}.npz")))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.shape == want.shape == (9, 32)
+        assert np.abs(got - want).max() <= 1e-4 * max(1.0, float(np.abs(want).max()))
+
+
+def test_native_tokenizer_is_active(cuda):
+    """The g++-built BPE core builds on the card's machine: no silent fallback."""
+    merges = ["h e", "l l", "he ll", "hell o</w>"]
+    tok, pure = bpe.ClipTokenizer(merges=merges), bpe.ClipTokenizer(merges=merges)
+    assert tok.native is not None
+    pure.native = None
+    assert tok.encode("hello hello") == pure.encode("hello hello")

@@ -58,3 +58,11 @@ def test_released_models_equal_jax_model_urls():
     """The serving path's default model list: the JAX registry's mapper files."""
     assert registry.RELEASED_MODELS == tuple(
         name for name in jax_registry.MODEL_URLS if not name.startswith("prior_"))
+
+
+def test_crowson_cloob_configs_equal_jax():
+    """models/cloob.py's copy of the crowsonkb CLOOB configs."""
+    from feed_forward_vqgan_clip_tpu.models import cloob as jax_cloob
+    from feed_forward_vqgan_clip_tpu_torch.models import cloob
+
+    assert cloob.CROWSON_CONFIGS == jax_cloob.CROWSON_CONFIGS

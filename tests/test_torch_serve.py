@@ -179,10 +179,17 @@ def test_predictor_serves_other_families_like_jax(family, bpe_table, tmp_path):
 
 
 def test_load_model_raises_on_formats_it_does_not_read(tmp_path):
-    with pytest.raises(NotImplementedError):  # a native msgpack checkpoint directory
+    """An unknown model_type raises NotImplementedError (the Predictor skips it,
+    as the JAX Predictor does); a directory without meta.json, or a whole
+    module without a `.config`, is no checkpoint at all."""
+    bad = dict(CFG, model_type="transformer")
+    torch.save({"state_dict": {}, "config": bad, "step": 0, "epoch": 0}, tmp_path / "bad.th")
+    with pytest.raises(NotImplementedError, match="model_type"):
+        checkpoint.load_model(str(tmp_path / "bad.th"), device="cpu")
+    with pytest.raises(FileNotFoundError):  # a directory without params.msgpack / meta.json
         checkpoint.load_model(str(tmp_path), device="cpu")
-    torch.save(_mapper(CFG, 0), tmp_path / "legacy.th")  # a whole-module pickle
-    with pytest.raises(NotImplementedError):
+    torch.save(_mapper(CFG, 0), tmp_path / "legacy.th")  # a whole module with no .config
+    with pytest.raises(ValueError, match="config"):
         checkpoint.load_model(str(tmp_path / "legacy.th"), device="cpu")
 
 
@@ -324,9 +331,10 @@ def test_generator_with_prior_matches_jax(model_path, prior_path, monkeypatch):
 
 def test_predictor_setup_dedups_and_skips_unported(model_path, tmp_path):
     other = checkpoint.save_model(str(tmp_path / "other.th"), _mapper(CFG, 5), CFG)
-    legacy = str(tmp_path / "legacy.th")  # a whole-module pickle: a format not ported
-    torch.save(_mapper(CFG, 6), legacy)
-    pred = Predictor([model_path, other, legacy], device="cpu")
+    unknown = str(tmp_path / "unknown.th")  # a model_type no package builds: skipped
+    torch.save({"state_dict": {}, "config": dict(CFG, model_type="transformer"), "step": 0,
+                "epoch": 0}, unknown)
+    pred = Predictor([model_path, other, unknown], device="cpu")
     pred.setup()
     assert sorted(pred.models) == ["other.th", "tiny_mixer.th"]
     assert len(pred.perceptors) == 1 and len(pred.vqgans) == 1
