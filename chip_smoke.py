@@ -2,8 +2,9 @@
 """Drive the PyTorch port's prompt->image, serving, train-step and trainer paths
 (the default cutouts, then the unpooled crops), the released mapper families,
 the flow prior (served and trained), the diversity loss, the offline
-evaluation, the remaining perceptors, the JAX package's checkpoint formats and
-the data preparation once on one NVIDIA GPU, in phases.
+evaluation, the remaining perceptors, the JAX package's checkpoint formats, the
+data preparation, the trainers over a mesh of processes and the weights'
+verification once on one NVIDIA GPU, in phases.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --step-ab   # the determinism repairs' cost (step_ab)
@@ -168,13 +169,33 @@ the data preparation once on one NVIDIA GPU, in phases.
    against pure Python on a synthetic letter-merge table (equal tokens, both
    times, the words each core call took; the core must build).
    Each of [perceptors] to [encode] draws from generators of its own.
-26. Prints the card's line, the kernels' JSON line (K11's launches from the
+26. [parallel] The trainers over a parallel/mesh.py mesh, each part in real
+   processes started by parallel/multiproc.py (one H100: NCCL at world size 1,
+   or ranks sharing the card over Gloo): train() at the flagship with
+   mesh_shape {data: 1} in an NCCL group of one, bitwise equal to the run
+   without mesh_shape, step ms, K1 +1, K6-K8 +32, K9/K10 +2 a step; 2 ranks
+   {data: 2}: one step at B=4 a rank against one rank at B=8 (DP_LOSS_RTOL,
+   DP_GRAD_TOL), then train() 2 steps, ranks bitwise equal, files written by
+   rank 0 alone; 2 ranks {model: 2}: the split mapper (module path: K1, K9,
+   K10, no Mixer kernel): the mapper's output and vector-Jacobian gradients
+   and the step's gathered gradients against the unsharded module path
+   (TP_OUT_RTOL, TP_GRAD_RTOL, TP_STEP_GRAD_RTOL, each under the gap of a
+   control without the row-parallel all-reduce) and the loss (TP_LOSS_RTOL),
+   train() one step, its gathered .th served at 1x1;
+   train_prior on 2 ranks against one process (PRIOR_DP_RTOL).
+27. [verify-weights] `cli verify-weights` on the flagship .th (CLIP and VQGAN as
+   files from VERIFY_SEED): goldens written on the card, then matched; goldens
+   written on the CPU matched on the card within the default atol (the file at
+   compute_dtype float32; the bf16 file's CPU goldens on the card are logged,
+   not asserted); a perturbed weight a mismatch (exit code 1). [parallel] and
+   [verify-weights] draw from generators of their own.
+28. Prints the card's line, the kernels' JSON line (K11's launches from the
    [trainer] runs, the warps' from [train], [trainer-crops], [mappers],
-   [diversity] and [perceptors], with the rectangular warps' times, and their
-   launches in [trainer-crops] as the wrappers counted them, under "rect"; K1,
-   K2, K4, K6-K8 with [mappers]', [prior]'s, [diversity]'s, [eval]'s,
-   [perceptors]' and [native-ckpt]'s too), then `{"ok": true, "device": {...}}`
-   last.
+   [diversity], [perceptors] and [parallel], with the rectangular warps' times,
+   and their launches in [trainer-crops] as the wrappers counted them, under
+   "rect"; K1, K2, K4, K6-K8 with [mappers]', [prior]'s, [diversity]'s,
+   [eval]'s, [perceptors]', [native-ckpt]'s, [parallel]'s and
+   [verify-weights]' too), then `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -182,6 +203,7 @@ imports nothing of JAX.
 
 import contextlib
 import gzip
+import io
 import json
 import logging
 import os
@@ -288,6 +310,34 @@ beautiful detailed intricate highly realistic photorealistic surreal abstract
 minimalist vintage retro futuristic ancient medieval cyberpunk steampunk fantasy
 epic cinematic dramatic lighting volumetric studio trending artstation unreal engine
 style by van gogh monet picasso greg rutkowski""".split()
+# [parallel]: the trainer over a mesh (parallel/), each part in processes of its own
+PARALLEL_SEED = 81
+PARALLEL_STEPS = 3  # NCCL at world size 1: steps of each run
+PARALLEL_PROMPTS = 32
+# two Gloo ranks at B=4 against one rank at B=8, augmentations neutralised, bf16:
+# the loss within this relative gap, every gradient within this share of the
+# largest (PERF.md section 6, multi-device training); each must stay under the
+# gap of rank 0's local gradients before the all-reduce (a missing all-reduce)
+DP_LOSS_RTOL = 5e-3
+DP_GRAD_TOL = 5e-2
+# two model ranks against the unsharded module path, bf16: the split FFNs round
+# their partial outputs to bf16 before the sum, so results move as with any
+# other order of bf16 sums; the unsharded kernel path's gaps, logged beside
+# them, are the yardstick (PERF.md section 6, multi-device training). By
+# ||got - want|| / ||want||, each limit under the gap of the control, the split
+# mapper without the row-parallel all-reduce: the mapper alone (random biases
+# too), its output and the gradients of a seeded vector-Jacobian product; the
+# whole step's gathered gradients, where the VQ's near ties set the yardstick
+# at 0.3 (the step's limit twice that). The step's loss is held to gross
+# faults only: a random CLIP's loss barely moves, and its control stays under
+# the limit
+TP_OUT_RTOL = 5e-2
+TP_GRAD_RTOL = 1e-1
+TP_STEP_GRAD_RTOL = 6e-1
+TP_LOSS_RTOL = 5e-3
+PRIOR_DP_RTOL = 1e-4  # train_prior on two ranks against one, float32
+# [verify-weights]: the flagship's probes, CPU goldens on the card
+VERIFY_SEED = 91
 CLIP_BLOCKS = 12  # ViT-B/32's image tower: one K11 forward and backward per block
 MLP_SHAPE = (3200, 768, 3072)  # K11 at the train loss: 64 crops x 50 tokens, D, E
 TRAINER_LR = 1e-3
@@ -2905,8 +2955,8 @@ def phase_prior_train(smi):
     runs = {}
     make_step = prior_mod.make_prior_step
 
-    def timed_step(flow, state):
-        step = make_step(flow, state)
+    def timed_step(flow, state, *a, **k):
+        step = make_step(flow, state, *a, **k)
         run = runs[current[0]]
 
         def timed(xb, yb):
@@ -3713,8 +3763,8 @@ def phase_encode(smi):
         losses = []
         step = prior_mod.make_prior_step
 
-        def kept_loss(flow, state):
-            fn = step(flow, state)
+        def kept_loss(flow, state, *a, **k):
+            fn = step(flow, state, *a, **k)
 
             def run(xb, yb):
                 metrics = fn(xb, yb)
@@ -3761,6 +3811,665 @@ def phase_encode(smi):
                     f"({secs['python'] / secs['native']:.2f}x), tokens equal ({smi})")
         log(f"[encode] phase {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
+
+
+def parallel_tokens(folder, n=PARALLEL_PROMPTS):
+    """`n` distinct prompts [SOT, 320 + i, EOT] as a token file in `folder`; -> its
+    path."""
+    import numpy as np
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT
+
+    toks = np.zeros((n, 77), np.int32)
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + np.arange(n), EOT
+    path = os.path.join(folder, "parallel_tokens.npz")
+    np.savez(path, tokens=toks)
+    return path
+
+
+def _rank():
+    import torch
+
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _dump(tmp, name, obj):
+    with open(os.path.join(tmp, f"{name}_{_rank()}.json"), "w") as fd:
+        json.dump(obj, fd)
+
+
+def _read(tmp, name, rank=0):
+    with open(os.path.join(tmp, f"{name}_{rank}.json")) as fd:
+        return json.load(fd)
+
+
+def timed_trainer(records, counters, label):
+    """loop.make_train_step and loop.all_reduce_grads_mean wrapped: each step's
+    host ms (synchronized after it) and kernel launches, and each all-reduce's
+    ms, appended to records[label] while the block runs."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    real_step, real_reduce = loop.make_train_step, loop.all_reduce_grads_mean
+    rec = records.setdefault(label, {"step_ms": [], "launches": [], "allreduce_ms": []})
+
+    def make_train_step(*a, **k):
+        step_fn, loss_fn = real_step(*a, **k)
+
+        def timed(state, batch, gen, mark=None, **kw):
+            before = {name: fn.launches for name, fn in counters.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(state, batch, gen, mark, **kw)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t) * 1e3)
+            rec["launches"].append({n: fn.launches - before[n] for n, fn in counters.items()})
+            return out
+
+        return timed, loss_fn
+
+    def reduce(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_reduce(*a, **k)
+        torch.cuda.synchronize()
+        rec["allreduce_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    return patched(loop, make_train_step=make_train_step, all_reduce_grads_mean=reduce)
+
+
+def checkpoint_tensors(folder):
+    """The run folder's parameters, EMA and Adam moments, by name (CPU)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
+
+    out = {}
+    for name in ("checkpoint", "checkpoint_ema"):
+        obj = torch.load(os.path.join(folder, f"{name}.th"), map_location="cpu",
+                         weights_only=False, mmap=True)
+        out.update({f"{name}.{k}": v for k, v in obj["state_dict"].items()})
+    opt = ckpt_io.load_optimizer(folder)
+    for m in ("mu", "nu"):
+        out.update({f"{m}.{k}": v for k, v in opt[m].items()})
+    return out
+
+
+def parallel_world1_worker(tmp, device):
+    """[parallel] 1: train() at the flagship for PARALLEL_STEPS steps, first
+    without mesh_shape (no process group, no collective), then with
+    mesh_shape {data: 1} in an NCCL group of one rank (the mean over one rank
+    is the identity: all_reduce_grads_mean sends nothing): step ms and the
+    call's ms, launches, the two runs' files compared bitwise."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    path = os.path.join(tmp, "parallel_tokens.npz")
+    records = {}
+    counters = train_counters()
+    for label, mesh_shape in (("plain", None), ("nccl", {"data": 1})):
+        if mesh_shape is not None:
+            torch.distributed.init_process_group(
+                "nccl", init_method=f"file://{tmp}/rdzv_world1", world_size=1, rank=0)
+        cfg = trainer_config(os.path.join(tmp, label), path, max_steps=PARALLEL_STEPS,
+                             log_interval=100, seed=PARALLEL_SEED, mesh_shape=mesh_shape)
+        with timed_trainer(records, counters, label):
+            loop.train(cfg, device="cuda")
+        torch.cuda.empty_cache()
+    a, b = (checkpoint_tensors(os.path.join(tmp, label)) for label in ("plain", "nccl"))
+    records["bitwise"] = sorted(a) == sorted(b) and all(torch.equal(v, b[k]) for k, v in a.items())
+    records["tensors"] = len(a)
+    records["backend"] = torch.distributed.get_backend()
+    _dump(tmp, "world1", records)
+
+
+def flagship_step_rig(mesh, neutral=True, device="cuda"):
+    """The flagship train step of entry.train_entry at B=8 (the config's global
+    batch), cutn 8, 224-px cutouts (the augmentations and the cutouts' noise
+    neutralised where `neutral`), the mapper random from PARALLEL_SEED, on
+    `mesh` (None: one device). -> (step_fn, loss_fn, mapper, state)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config, vqgan_arch_config
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.ops.cutouts import MakeCutouts
+    from feed_forward_vqgan_clip_tpu_torch.parallel.tensor_parallel import shard_mapper_
+    from feed_forward_vqgan_clip_tpu_torch.train.loop import build_frozen, make_train_step
+    from feed_forward_vqgan_clip_tpu_torch.train.state import make_optimizer, make_train_state
+
+    cfg = make_config(**dict(FLAGSHIP_CONFIG, batch_size=8, cutn=8))
+    frozen = build_frozen(cfg, torch.bfloat16, device=device, seed=PARALLEL_SEED)
+    mapper = build_mapper(dict(cfg), vq_channels=int(vqgan_arch_config(cfg)["z_channels"]),
+                          dtype=torch.bfloat16, device=device)
+    mapper.init_random_(torch.Generator(device=device).manual_seed(PARALLEL_SEED))
+    if mesh is not None:
+        shard_mapper_(mapper, mesh)
+    cutouts = MakeCutouts(cut_size=224, cutn=8, pool_size=224,
+                          **({"noise_fac": 0.0} if neutral else {}))
+    if neutral:
+        cutouts.augs = []
+    step_fn, loss_fn = make_train_step(cfg, mapper, frozen, cutouts, inp_is_tokens=True,
+                                       out_is_tokens=True, same_io=True, mesh=mesh)
+    state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
+    return step_fn, loss_fn, mapper, state
+
+
+def grad_gap(got, want):
+    """max |got - want| over every gradient / max |want|."""
+    top = max(float(w.abs().max()) for w in want)
+    return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)) / top
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| over every tensor (dicts by name, or tensors)."""
+    if isinstance(want, dict):
+        got, want = [got[k] for k in sorted(want)], [want[k] for k in sorted(want)]
+    elif not isinstance(want, (list, tuple)):
+        got, want = [got], [want]
+    num = sum(float((g.float() - w.float()).square().sum()) for g, w in zip(got, want))
+    return (num / sum(float(w.float().square().sum()) for w in want)) ** 0.5
+
+
+def ranks_bitwise(tensors):
+    """Whether every rank's `tensors` equal rank 0's, bit for bit (collective)."""
+    import torch
+
+    dist = torch.distributed
+    same = True
+    for t in tensors:
+        ref = t.detach().clone()
+        dist.broadcast(ref, 0)
+        same = same and torch.equal(ref, t.detach())
+    flag = torch.tensor([int(same)], device=tensors[0].device)
+    dist.all_reduce(flag, dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def parallel_dp_worker(tmp, device):
+    """[parallel] 2, on 2 Gloo ranks sharing the card, {data: 2}: one flagship
+    step at B=4 a rank (augmentations neutralised) against one rank at B=8 (on
+    rank 0), the gap of rank 0's local gradients (before the all-reduce) beside
+    it; then train() for 2 steps with the default augmentations: step and
+    all-reduce ms, launches, both ranks' parameters bitwise equal, the files
+    written by rank 0 alone."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT
+    from feed_forward_vqgan_clip_tpu_torch.parallel import multiproc
+    from feed_forward_vqgan_clip_tpu_torch.parallel.mesh import make_mesh
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    rank = torch.distributed.get_rank()
+    mesh = make_mesh({"data": 2})
+    toks = torch.zeros(8, 77, dtype=torch.long, device="cuda")
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + torch.arange(8), EOT
+    local = toks[4 * rank: 4 * rank + 4]
+    counters = train_counters()
+    records, snapshot = {}, []
+    real_reduce = loop.all_reduce_grads_mean
+
+    def keep_local(params, *a, **k):
+        snapshot.extend(p.grad.detach().float().clone() for p in params)
+        return real_reduce(params, *a, **k)
+
+    step_fn, _, mapper, state = flagship_step_rig(mesh)
+    with patched(loop, all_reduce_grads_mean=keep_local):
+        state, metrics = step_fn(state, {"inp": local, "out": local},
+                                 torch.Generator(device="cuda").manual_seed(0))
+    got = [p.grad.detach().float().clone() for p in state.params]
+    out = {"loss": float(metrics["loss"])}
+    del step_fn, mapper, state
+    torch.cuda.empty_cache()
+    if rank == 0:  # one rank at the global batch, the same weights
+        _, loss_fn, mapper, state = flagship_step_rig(None)
+        loss, _ = loss_fn({"inp": toks, "out": toks}, torch.Generator(device="cuda").manual_seed(0))
+        loss.backward()
+        want = [p.grad for p in state.params]
+        out.update(one_loss=loss.item(), grad_gap=grad_gap(got, want),
+                   local_gap=grad_gap(snapshot, want))
+        del loss, want, mapper, state
+    del got, snapshot[:]
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+    writes = multiproc.record_writes()
+    path = os.path.join(tmp, "parallel_tokens.npz")
+    cfg = trainer_config(os.path.join(tmp, "dp_run"), path, max_steps=2, log_interval=100,
+                         seed=PARALLEL_SEED, mesh_shape={"data": 2})
+    with timed_trainer(records, counters, "dp"):
+        state = loop.train(cfg, device="cuda")
+    out.update(records["dp"], writes=writes, equal=ranks_bitwise(state.params),
+               files=sorted(os.listdir(os.path.join(tmp, "dp_run"))),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    _dump(tmp, "dp", out)
+
+
+def tp_mapper(mesh):
+    """The flagship's Mixer (bf16 compute) with its weights and (unlike its init)
+    its biases random from PARALLEL_SEED, split over `mesh` (None: whole)."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config, vqgan_arch_config
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+    from feed_forward_vqgan_clip_tpu_torch.parallel.tensor_parallel import shard_mapper_
+
+    cfg = make_config(**FLAGSHIP_CONFIG)
+    mapper = build_mapper(dict(cfg), vq_channels=int(vqgan_arch_config(cfg)["z_channels"]),
+                          dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    mapper.init_random_(gen)
+    with torch.no_grad():
+        for name, p in mapper.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.1, generator=gen)
+    return mapper if mesh is None else shard_mapper_(mapper, mesh)
+
+
+def vjp(apply, mapper, x, r):
+    """apply(x) and the gradients of sum(apply(x) * r) left in `mapper`'s .grad;
+    -> the output (float32)."""
+    for p in mapper.parameters():
+        p.grad = None
+    z = apply(x)
+    (z.float() * r).sum().backward()
+    return z.detach().float()
+
+
+def gathered_grads(mapper, mesh):
+    """The mapper's gradients by name, the split ones gathered over the model
+    group (collective over it)."""
+    from feed_forward_vqgan_clip_tpu_torch.parallel.mesh import gather_params, mapper_tp_plan
+
+    grads = {name: p.grad.detach() for name, p in mapper.named_parameters()}
+    return gather_params(grads, mapper_tp_plan(mapper), mesh)
+
+
+def parallel_tp_worker(tmp, device):
+    """[parallel] 3, on 2 Gloo ranks sharing the card, {model: 2}, the Mixer's
+    FFNs split (its module path): the mapper alone (tp_mapper), its output and
+    the gathered gradients of a seeded vector-Jacobian product, and the
+    flagship step at B=8 with the default augmentations (the ranks and the
+    references draw them from one seed), its loss and gathered gradients; each
+    against the unsharded module path on rank 0, beside it the unsharded kernel
+    path (the same function, bf16 sums in another order: the yardstick of the
+    gaps) and the control (the split mapper without the row-parallel
+    all-reduce: each rank's partial FFN outputs alone); the launches of the
+    split step (K1 and the warps, no Mixer kernel); then train() for one step
+    and the gathered .th served at 1x1 by a Predictor on rank 0."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.entry import EOT, SOT
+    from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
+    from feed_forward_vqgan_clip_tpu_torch.parallel import tensor_parallel
+    from feed_forward_vqgan_clip_tpu_torch.parallel.mesh import make_mesh
+    from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
+    from feed_forward_vqgan_clip_tpu_torch.train import loop
+
+    rank = torch.distributed.get_rank()
+    mesh = make_mesh({"model": 2})
+    toks = torch.zeros(8, 77, dtype=torch.long, device="cuda")
+    toks[:, 0], toks[:, 1], toks[:, 2] = SOT, 320 + torch.arange(8), EOT
+    batch = {"inp": toks, "out": toks}
+    counters = dict(train_counters(), mixer_block=serve_counters()["mixer_block"])
+
+    def without_reduce():  # the control
+        return patched(tensor_parallel, reduce_from_model=lambda y, group: y)
+
+    split = tp_mapper(mesh)  # the mapper alone
+    gen = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    x = torch.randn(8, split.input_dim, device="cuda", generator=gen)
+    r = torch.randn(8, split.image_size, split.image_size, split.channels, device="cuda",
+                    generator=gen)
+    alone = {"": (vjp(split, split, x, r), gathered_grads(split, mesh))}
+    with without_reduce():
+        alone["control_"] = (vjp(split, split, x, r), gathered_grads(split, mesh))
+    del split
+    out = {}
+    if rank == 0:
+        full = tp_mapper(None)
+        z_want = vjp(full, full, x, r)
+        want = {name: p.grad.clone() for name, p in full.named_parameters()}
+        alone["kernel_"] = (vjp(loop.make_mapper_train_apply(full), full, x, r),
+                            {name: p.grad for name, p in full.named_parameters()})
+        for label, (z, grads) in alone.items():
+            out.update({f"{label}out_rel": rel_l2(z, z_want),
+                        f"{label}vjp_rel": rel_l2(grads, want)})
+        del full, want, z_want
+    del alone
+    torch.cuda.empty_cache()
+
+    step_fn, loss_fn, mapper, state = flagship_step_rig(mesh, neutral=False)
+    with without_reduce():
+        loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(0))[0]
+        loss.backward()
+    control = {"loss": loss.item(), "grads": gathered_grads(mapper, mesh)}
+    del loss
+    before = {n: fn.launches for n, fn in counters.items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, metrics = step_fn(state, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out.update(loss=float(metrics["loss"]), step_ms=(time.perf_counter() - t) * 1e3,
+               launches={n: fn.launches - before[n] for n, fn in counters.items()},
+               shard_mib=sum(p.numel() for p in state.params) * 4 / 2**20,
+               control_loss=control["loss"])
+    got = gathered_grads(mapper, mesh)
+    del step_fn, loss_fn, mapper, state
+    torch.cuda.empty_cache()
+    if rank == 0:  # the unsharded mapper on its module path, then on its kernels
+        for key, apply in (("one", lambda m: m), ("kernel", None)):
+            with patched(loop, make_mapper_train_apply=apply or loop.make_mapper_train_apply):
+                _, loss_fn, mapper, state = flagship_step_rig(None, neutral=False)
+            loss = loss_fn(batch, torch.Generator(device="cuda").manual_seed(0))[0]
+            loss.backward()
+            out[f"{key}_loss"] = loss.item()
+            grads = {name: p.grad for name, p in mapper.named_parameters()}
+            if key == "one":
+                want = grads
+                out.update(step_rel=rel_l2(got, want),
+                           control_step_rel=rel_l2(control["grads"], want))
+            else:
+                out["kernel_step_rel"] = rel_l2(grads, want)
+            del loss, loss_fn, mapper, state, grads
+            torch.cuda.empty_cache()
+        del want
+    del got, control
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    path = os.path.join(tmp, "parallel_tokens.npz")
+    folder = os.path.join(tmp, "tp_run")
+    loop.train(trainer_config(folder, path, max_steps=1, log_interval=100, seed=PARALLEL_SEED,
+                              mesh_shape={"model": 2}), device="cuda")
+    if rank == 0:
+        sd = ckpt_io.load_checkpoint(os.path.join(folder, "checkpoint.th"))[0]
+        out["ckpt_shapes"] = {k: list(sd[k].shape) for k in ("mixer.2.0.fn.0.weight",
+                                                              "mixer.2.1.fn.3.weight")}
+        served = serve_counters()
+        before = {n: fn.launches for n, fn in served.items()}
+        pred = predictor_mod.Predictor([os.path.join(folder, "checkpoint.th")], device="cuda")
+        pred.setup()
+        png = pred.predict(PROMPT, "checkpoint.th", grid_size="1x1", seed=SEED,
+                           out_path=os.path.join(tmp, "tp_1x1.png"))
+        img = read_png(png)
+        out.update(serve_launches={n: fn.launches - before[n] for n, fn in served.items()},
+                   png_shape=list(img.shape), png_std=float(np.std(img)))
+    _dump(tmp, "tp", out)
+
+
+def parallel_prior_worker(tmp, device):
+    """[parallel] 4: train_prior at [prior-train]'s size for 5 steps, losses
+    printed each step (rank 0)."""
+    from feed_forward_vqgan_clip_tpu_torch.train import prior as prior_mod
+
+    prior_mod.train_prior(prior_dp_config(tmp, {"data": 2}), device="cuda")
+
+
+def prior_dp_config(tmp, mesh_shape):
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+
+    return make_config(folder=os.path.join(tmp, f"prior_{bool(mesh_shape)}"), seed=PRIOR_SEED,
+                       data={"path": os.path.join(tmp, "prior_pairs.npz"), "batch_size": 128},
+                       model=PRIOR_MODEL, optim={"lr": 1e-4, "epochs": 100},
+                       logging={"log_interval": 1}, max_steps=5, mesh_shape=mesh_shape)
+
+
+def step_losses(text):
+    """The `epoch step loss` lines train_prior printed -> {step: loss}."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 3 and parts[0].isdigit() and parts[1].isdigit():
+            out[int(parts[1])] = float(parts[2])
+    return out
+
+
+def phase_parallel(smi):
+    """[parallel]: the trainers over a parallel/mesh.py mesh, each part in real
+    processes started by parallel/multiproc.py (the card's one H100: NCCL at
+    world size 1, or ranks sharing the card over Gloo, FFVC_DIST_BACKEND=gloo).
+    1. NCCL, world size 1, mesh_shape {data: 1}: train() for PARALLEL_STEPS steps
+       at the flagship, files bitwise equal to the run without mesh_shape; step
+       ms of both; K1 +1, K6-K8 +32, K9/K10 +2 a step.
+    2. 2 Gloo ranks {data: 2}: one step at B=4 a rank against one rank at B=8
+       (DP_LOSS_RTOL, DP_GRAD_TOL, each under the local gradients' gap); then
+       train() for 2 steps: ranks bitwise equal, files written once.
+    3. 2 Gloo ranks {model: 2}: the split mapper's step (K1, K9, K10 launch, no
+       Mixer kernel): the mapper's output and gradients, the step's gradients
+       against the unsharded module path (TP_OUT_RTOL, TP_GRAD_RTOL,
+       TP_STEP_GRAD_RTOL, each under the control's gap), the loss
+       (TP_LOSS_RTOL); train() one step; the gathered .th served at 1x1.
+    4. train_prior on 2 Gloo ranks at [prior-train]'s size, 5 steps, against
+       one process (PRIOR_DP_RTOL).
+    -> the kernels' launches in these runs (K1, K2, K4, K6-K10)."""
+    import numpy as np
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.parallel.multiproc import run_processes
+    from feed_forward_vqgan_clip_tpu_torch.train import prior as prior_mod
+
+    t_phase = time.perf_counter()
+    gloo = {"FFVC_DIST_BACKEND": "gloo"}
+    launches = {}
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] = launches.get(k, 0) + v
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+        parallel_tokens(tmp)
+        t = time.perf_counter()
+        run_processes(1, "chip_smoke:parallel_world1_worker", tmp=tmp, timeout=400,
+                      device="cuda")
+        w1 = _read(tmp, "world1")
+        t_w1 = time.perf_counter() - t
+        med = {k: sorted(w1[k]["step_ms"][1:])[len(w1[k]["step_ms"][1:]) // 2]
+               for k in ("plain", "nccl")}
+        want = {"vq_argmin": 1, "mixer_fwd_res": 32, "mixer_channel_bwd": 32,
+                "mixer_token_bwd": 32, "warp_forward": 2, "warp_adjoint": 2, "mlp_ln": 0,
+                "mlp_ln_bwd": 0}
+        log(f"[parallel] world 1, backend {w1['backend']}: train() {PARALLEL_STEPS} steps, "
+            f"step ms without mesh_shape {', '.join(f'{v:.2f}' for v in w1['plain']['step_ms'])}"
+            f" / mesh_shape {{data: 1}} {', '.join(f'{v:.2f}' for v in w1['nccl']['step_ms'])}"
+            f" (host clock, synchronized; medians after step 0 {med['plain']:.2f} / "
+            f"{med['nccl']:.2f}); all_reduce_grads_mean at d = 1 (the identity, nothing sent) "
+            f"{', '.join(f'{v:.3f}' for v in w1['nccl']['allreduce_ms'])} ms; checkpoint, EMA "
+            f"and Adam ({w1['tensors']} tensors) bitwise equal: {w1['bitwise']}; "
+            f"{t_w1:.1f} s with the process ({smi})")
+        if not w1["bitwise"]:
+            raise AssertionError(f"[parallel] world 1: {w1}")
+        if any(lc != want for lc in w1["nccl"]["launches"]):
+            raise AssertionError(f"[parallel] world 1 launches {w1['nccl']['launches']}, need "
+                                 f"{want} a step")
+        for lc in w1["nccl"]["launches"]:
+            add(lc)
+
+        t = time.perf_counter()
+        run_processes(2, "chip_smoke:parallel_dp_worker", tmp=tmp, timeout=600, device="cuda",
+                      env=gloo)
+        dp = [_read(tmp, "dp", r) for r in range(2)]
+        t_dp = time.perf_counter() - t
+        d0 = dp[0]
+        loss_gap = abs(d0["loss"] - d0["one_loss"]) / abs(d0["one_loss"])
+        log(f"[parallel] 2 Gloo ranks {{data: 2}} sharing the card, one flagship step at B=4 a "
+            f"rank (augmentations neutralised) against one rank at B=8: loss {d0['loss']:.6f} / "
+            f"{d0['one_loss']:.6f} (relative gap {loss_gap:.3e}, limit {DP_LOSS_RTOL}); max "
+            f"gradient gap / max |gradient| {d0['grad_gap']:.3e} (limit {DP_GRAD_TOL}); rank 0's "
+            f"local gradients before the all-reduce {d0['local_gap']:.3e} ({smi})")
+        log(f"[parallel] {{data: 2}} train() 2 steps: step ms rank 0 "
+            f"{', '.join(f'{v:.1f}' for v in d0['step_ms'])}, rank 1 "
+            f"{', '.join(f'{v:.1f}' for v in dp[1]['step_ms'])}; Gloo all-reduce of the "
+            f"gradients ms rank 0 {', '.join(f'{v:.1f}' for v in d0['allreduce_ms'])}; ranks "
+            f"bitwise equal: {d0['equal']}; writes rank 0 {d0['writes']} rank 1 "
+            f"{dp[1]['writes']}; peak device memory a rank {d0['peak_gib']:.2f} / "
+            f"{dp[1]['peak_gib']:.2f} GiB; {t_dp:.1f} s with the processes ({smi})")
+        if not (loss_gap <= DP_LOSS_RTOL and d0["grad_gap"] <= DP_GRAD_TOL
+                and DP_GRAD_TOL < d0["local_gap"]):
+            raise AssertionError(f"[parallel] {{data: 2}} against one rank: {d0}")
+        want_dp = dict(want)
+        if not (d0["equal"] and dp[1]["equal"] and all(d0["writes"].values())
+                and not any(dp[1]["writes"].values())
+                and all(lc == want_dp for d in dp for lc in d["launches"])):
+            raise AssertionError(f"[parallel] {{data: 2}} train(): {dp}")
+        for d in dp:
+            for lc in d["launches"]:
+                add(lc)
+
+        t = time.perf_counter()
+        run_processes(2, "chip_smoke:parallel_tp_worker", tmp=tmp, timeout=600, device="cuda",
+                      env=gloo)
+        tp = [_read(tmp, "tp", r) for r in range(2)]
+        t_tp = time.perf_counter() - t
+        t0 = tp[0]
+        tp_gap, yard, ctrl = (abs(t0[k] - t0["one_loss"]) / abs(t0["one_loss"])
+                              for k in ("loss", "kernel_loss", "control_loss"))
+
+        def gaps(label):
+            return (f"mapper output {t0[label + 'out_rel']:.3e}, its gradients "
+                    f"{t0[label + 'vjp_rel']:.3e}, the step's {t0[label + 'step_rel']:.3e}")
+
+        log(f"[parallel] 2 Gloo ranks {{model: 2}}: the split mapper's step at B=8 "
+            f"{t0['step_ms']:.1f} / {tp[1]['step_ms']:.1f} ms, {t0['shard_mib']:.0f} MiB of "
+            f"mapper parameters a rank; against the unsharded module path, ||got - want|| / "
+            f"||want||: {gaps('')} (limits {TP_OUT_RTOL}, {TP_GRAD_RTOL}, "
+            f"{TP_STEP_GRAD_RTOL}), loss {t0['loss']:.6f} / {t0['one_loss']:.6f} (relative "
+            f"gap {tp_gap:.3e}, limit {TP_LOSS_RTOL}); the unsharded kernel path's "
+            f"{gaps('kernel_')}, loss {yard:.3e}; the control without the row-parallel "
+            f"all-reduce {gaps('control_')}, loss {ctrl:.3e}; launches {t0['launches']}; the "
+            f"gathered .th {t0['ckpt_shapes']} served at 1x1: PNG {t0['png_shape']} (std "
+            f"{t0['png_std']:.2f}), launches {t0['serve_launches']}; {t_tp:.1f} s with the "
+            f"processes ({smi})")
+        mixer = ("mixer_fwd_res", "mixer_channel_bwd", "mixer_token_bwd", "mixer_block")
+        if not (t0["out_rel"] <= TP_OUT_RTOL < t0["control_out_rel"]
+                and t0["vjp_rel"] <= TP_GRAD_RTOL < t0["control_vjp_rel"]
+                and t0["step_rel"] <= TP_STEP_GRAD_RTOL < t0["control_step_rel"]
+                and tp_gap <= TP_LOSS_RTOL and tp[1]["loss"] == t0["loss"]
+                and all(d["launches"][k] == 0 for d in tp for k in mixer)
+                and all(d["launches"][k] == want[k] for d in tp
+                        for k in ("vq_argmin", "warp_forward", "warp_adjoint"))
+                and t0["ckpt_shapes"]["mixer.2.0.fn.0.weight"] == [1024, 256, 1]
+                and t0["ckpt_shapes"]["mixer.2.1.fn.3.weight"] == [1024, 4096]
+                and t0["png_shape"] == [260, 260, 3] and t0["png_std"] > 0
+                and t0["serve_launches"] == serve_want(1)):
+            raise AssertionError(f"[parallel] {{model: 2}}: {tp}")
+        for d in tp:
+            add({k: d["launches"][k] for k in ("vq_argmin", "warp_forward", "warp_adjoint")})
+        add(t0["serve_launches"])
+
+        rng = np.random.default_rng(PRIOR_SEED)
+        x = rng.standard_normal((PRIOR_TRAIN_PAIRS, 512), dtype=np.float32)
+        w = rng.standard_normal((512, 512), dtype=np.float32) / np.sqrt(512.0)
+        y = x @ w + 0.1 * rng.standard_normal((PRIOR_TRAIN_PAIRS, 512), dtype=np.float32)
+        np.savez(os.path.join(tmp, "prior_pairs.npz"), x=x, y=y)
+        t = time.perf_counter()
+        outs = run_processes(2, "chip_smoke:parallel_prior_worker", tmp=tmp, timeout=300,
+                             device="cuda", env=gloo)
+        t_prior = time.perf_counter() - t
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            prior_mod.train_prior(prior_dp_config(tmp, None), device="cuda")
+        two, one = step_losses(outs[0]), step_losses(buf.getvalue())
+        gap = max(abs(two[s] - v) / abs(v) for s, v in one.items())
+        log(f"[parallel] train_prior on 2 Gloo ranks (64 pairs a rank) against one process "
+            f"(128): losses {', '.join(f'{two[s]:.6f}/{one[s]:.6f}' for s in sorted(one))}, "
+            f"largest relative gap {gap:.3e} (limit {PRIOR_DP_RTOL}); {t_prior:.1f} s with the "
+            f"processes ({smi})")
+        if sorted(one) != list(range(5)) or sorted(two) != sorted(one) or gap > PRIOR_DP_RTOL \
+                or step_losses(outs[1]):
+            raise AssertionError(f"[parallel] train_prior: {two} against {one}")
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return launches
+
+
+def phase_verify_weights(smi):
+    """[verify-weights]: the flagship `.th` of [serve] (its CLIP ViT-B/32 and VQGAN
+    f16-16384 random from VERIFY_SEED, written as files its config names, so the
+    CPU loads the card's weights): `cli verify-weights --update-goldens` on the
+    card, then a second run that passes; goldens written on the CPU verify on
+    the card within the default --atol, with the same file at compute_dtype
+    float32 (in bf16 the two devices' roundings and the VQ's near ties move the
+    prompt's image: PERF.md section 6, multi-device training; the bf16 file's
+    CPU goldens on the card are logged, not asserted); one perturbed weight is
+    a mismatch. -> the kernels' launches in the card's runs."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch import verify_weights as vw
+    from feed_forward_vqgan_clip_tpu_torch.config import make_config
+    from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip
+    from feed_forward_vqgan_clip_tpu_torch.models.vqgan import load_vqgan
+
+    t_phase = time.perf_counter()
+    counters = serve_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, bpe_table(tmp):
+        clip_path = os.path.join(tmp, "vit_b32.pt")
+        torch.save(make_clip("ViT-B/32", image=True).init_random_(
+            torch.Generator().manual_seed(VERIFY_SEED)).state_dict(), clip_path)
+        vq = load_vqgan(make_config(**FLAGSHIP_CONFIG), torch.float32, device="cpu",
+                        seed=VERIFY_SEED)
+        torch.save({"state_dict": vq.state_dict()}, os.path.join(tmp, "vqgan.ckpt"))
+        del vq
+        path = save_flagship(tmp, SEED)
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        obj["config"] = dict(obj["config"], clip_model_path=clip_path,
+                             vqgan_checkpoint=os.path.join(tmp, "vqgan.ckpt"))
+        torch.save(obj, path)
+        argv = ["verify-weights", "--models", path, "--goldens-dir", os.path.join(tmp, "g_card"),
+                "--out", os.path.join(tmp, "report.json")]
+        t = time.perf_counter()
+        run_cli(argv + ["--update-goldens"])
+        t_first = time.perf_counter() - t
+        run_cli(argv)
+        with open(os.path.join(tmp, "report.json")) as fd:
+            second = json.load(fd)["models"]["flagship_mixer.th"]
+        # the bf16 file's CPU goldens on the card: recorded, not asserted (goldens
+        # hold across devices at float32 only; README, ROADMAP section C)
+        vw.verify_weights(models=[path], goldens_dir=os.path.join(tmp, "g_cpu16"),
+                          update_goldens=True, out=os.path.join(tmp, "cpu16.json"), device="cpu")
+        across16 = vw.verify_weights(models=[path], goldens_dir=os.path.join(tmp, "g_cpu16"),
+                                     out=os.path.join(tmp, "across16.json"),
+                                     device="cuda")["models"]["flagship_mixer.th"]
+        path32 = os.path.join(tmp, "flagship_mixer_f32.th")
+        torch.save(dict(obj, config=dict(obj["config"], compute_dtype="float32")), path32)
+        t = time.perf_counter()
+        vw.verify_weights(models=[path32], goldens_dir=os.path.join(tmp, "g_cpu"),
+                          update_goldens=True, out=os.path.join(tmp, "cpu.json"), device="cpu")
+        t_cpu = time.perf_counter() - t
+        across = vw.verify_weights(models=[path32], goldens_dir=os.path.join(tmp, "g_cpu"),
+                                   out=os.path.join(tmp, "across.json"),
+                                   device="cuda")["models"]["flagship_mixer_f32.th"]
+        launches = {k: fn.launches for k, fn in counters.items()}
+        g = torch.Generator().manual_seed(VERIFY_SEED)
+        w = obj["state_dict"]["final_proj.weight"]
+        w += w.std() * torch.randn(w.shape, generator=g)
+        torch.save(obj, path)
+        try:
+            run_cli(argv)
+            bad = None
+        except SystemExit as e:
+            bad = e.code
+        with open(os.path.join(tmp, "report.json")) as fd:
+            perturbed = json.load(fd)["models"]["flagship_mixer.th"]
+    diffs, diffs16 = ({k: v.get("max_abs_diff", v["status"]) for k, v in a["probes"].items()}
+                      for a in (across, across16))
+    log(f"[verify-weights] the flagship .th (bf16): goldens written on the card in "
+        f"{t_first:.1f} s, the second run {second['status']}; its CPU goldens on the card "
+        f"(recorded, not asserted): {across16['status']}, {diffs16}; at float32, CPU goldens "
+        f"({t_cpu:.1f} s on the CPU) on the card: {across['status']}, {diffs} (atol 2e-2); "
+        f"a perturbed final_proj: exit code {bad}, prompt_thumb "
+        f"{perturbed['probes']['prompt_thumb']}; launches {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    if not (second["status"] == "ok" and across["status"] == "ok" and bad == 1
+            and perturbed["status"] == "FAIL"
+            and perturbed["probes"]["prompt_thumb"]["status"] == "mismatch"):
+        raise AssertionError(f"[verify-weights] {second} {across} {perturbed}")
+    return launches
 
 
 def torch_pools():
@@ -3911,7 +4620,9 @@ def main():
     perceptors = phase_perceptors(smi)
     native_ckpt = phase_native_ckpt(smi)
     phase_encode(smi)
-    for phase in (mappers, prior, diversity, evals, perceptors, native_ckpt):
+    parallel = phase_parallel(smi)
+    verified = phase_verify_weights(smi)
+    for phase in (mappers, prior, diversity, evals, perceptors, native_ckpt, parallel, verified):
         for name, n in phase.items():
             if not name.startswith("mlp_ln"):  # K11's row: [trainer]'s launches
                 launches["vq" if name == "vq_argmin" else name] += n

@@ -11,16 +11,30 @@ feed_forward_vqgan_clip_tpu/cli.py (dashes and underscores both accepted):
     merge-features <shards...> --out <file>     data/encode.merge_features
     evaluate <model> <prompts> [...]            eval/evaluate.evaluate (CLIP score, FID)
     train-prior <config.yaml>                   train/prior.train_prior
+    verify-weights [--models ...] [...]         verify_weights.verify_weights
+    download-weights                            download_weights.download_all (network)
     serve [model ...]                           serve/app.py (needs gradio)
 
-A model is a `.th` file or a JAX checkpoint directory. The JAX package's
-weight and bench subcommands are not registered (they need the network or
-the benchmark). Every command that computes on a device runs on the card
-unless `--device cpu` is given.
+A model is a `.th` file or a JAX checkpoint directory. Every command that
+computes on a device runs on the card unless `--device cpu` is given.
+`verify-weights` runs offline on local checkpoints and goldens it writes
+itself (`--update-goldens`); only `download-weights` and `verify-weights
+--download` need the network. The JAX package's `bench` is not registered.
+
+Before the command runs, `main` joins the process group the environment
+declares (utils.maybe_initialize_distributed; NCCL for `--device cuda`, Gloo
+for `--device cpu`), so a multi-process run is launched as
+
+    torchrun --nproc_per_node N -m feed_forward_vqgan_clip_tpu_torch.cli train cfg.yaml
+
+with `mesh_shape` in the config (train, train-prior), or with the FFVC_*
+variables; `encode-text-and-images-webdataset` then splits the tars by rank
+and merges on rank 0.
 """
 
 import argparse
 import logging
+import sys
 
 
 def _cmd_train(args):
@@ -90,6 +104,23 @@ def _cmd_train_prior(args):
     from feed_forward_vqgan_clip_tpu_torch.train.prior import train_prior
 
     train_prior(load_config(args.config_file), device=args.device)
+
+
+def _cmd_verify_weights(args):
+    from feed_forward_vqgan_clip_tpu_torch.verify_weights import verify_weights
+
+    report = verify_weights(args.weights_dir, goldens_dir=args.goldens_dir,
+                            models=args.models or None, download=args.download,
+                            update_goldens=args.update_goldens, atol=args.atol, out=args.out,
+                            device=args.device)
+    if report["summary"]["fail"]:
+        sys.exit(1)
+
+
+def _cmd_download_weights(args):
+    from feed_forward_vqgan_clip_tpu_torch.download_weights import download_all
+
+    download_all()
 
 
 def _cmd_serve(args):
@@ -179,12 +210,27 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("config_file")
     t.set_defaults(fn=_cmd_train_prior)
 
+    t = sub.add_parser("download-weights", aliases=["download_weights"],
+                       help="fetch the released model zoo")
+    t.set_defaults(fn=_cmd_download_weights)
+
+    t = sub.add_parser("verify-weights", aliases=["verify_weights"],
+                       help="probe checkpoints deterministically, diff against goldens")
+    t.add_argument("--weights-dir", default=None, help="default $FFVC_WEIGHTS_DIR or ./weights")
+    t.add_argument("--goldens-dir", default="goldens")
+    t.add_argument("--models", nargs="*", help="zoo names or paths (default: all mappers)")
+    t.add_argument("--download", action="store_true", help="fetch missing zoo files first")
+    t.add_argument("--update-goldens", action="store_true")
+    t.add_argument("--atol", type=float, default=2e-2)
+    t.add_argument("--out", default="verify_weights_report.json")
+    t.set_defaults(fn=_cmd_verify_weights)
+
     t = sub.add_parser("serve", help="gradio web app over local checkpoints")
     t.add_argument("model_paths", nargs="*", help="mapper checkpoints (default: *.th here)")
     t.set_defaults(fn=_cmd_serve)
 
     for name in ("train", "test", "encode-text-and-images", "encode-text-and-images-webdataset",
-                 "evaluate", "train-prior", "serve"):
+                 "evaluate", "train-prior", "verify-weights", "serve"):
         sub.choices[name].add_argument("--device", default="cuda",
                                        help="torch device (default: cuda)")
     return p
@@ -193,7 +239,19 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.utils import maybe_initialize_distributed
+
+    # the rendezvous precedes any use of the device; a no-op for one process. A
+    # group this call made is this call's to end
+    ours = not torch.distributed.is_initialized()
+    joined = maybe_initialize_distributed(getattr(args, "device", None)) and ours
+    try:
+        args.fn(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ one device:
     straight-through VQ -> VQGAN f16-16384 decode -> [0, 1] image);
   * `train_entry`: the set-up of the JAX package's train bench
     (`bench.train_bench`), one train step of the mapper at B=8, cutn=8, 224-px
-    cutouts, ViT-B/32 spherical loss, Adam with bf16 moments.
+    cutouts, ViT-B/32 spherical loss, Adam with bf16 moments;
+  * `dryrun_multichip`: the counterpart of `__graft_entry__.dryrun_multichip`,
+    the whole trainer on n processes of one mesh (parallel/multiproc.py).
 """
 
 from typing import Optional
@@ -77,3 +79,19 @@ def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0,
     tokens = torch.zeros(batch, 77, dtype=torch.long, device=device)
     tokens[:, 0], tokens[:, 2] = SOT, EOT
     return step_fn, state, {"inp": tokens, "out": tokens}
+
+
+def dryrun_multichip(n_devices: int, *, device="cuda", timeout: float = 900) -> str:
+    """The whole trainer, tiny, on `n_devices` processes of one process group,
+    {data: n/2, model: 2} where n is even and at least 4, else {data: n}
+    (parallel/multiproc.run_dryrun: equal parameters on every rank, files
+    written by rank 0 alone, the in-train eval run); -> the run's folder. On
+    CUDA the processes share the card through Gloo (FFVC_DIST_BACKEND=gloo),
+    as NCCL refuses two ranks on one device."""
+    from feed_forward_vqgan_clip_tpu_torch.parallel.multiproc import run_dryrun
+
+    env = {"FFVC_DIST_BACKEND": "gloo"} if torch.device(device).type == "cuda" else None
+    tmp = run_dryrun(n_devices, device=device, timeout=timeout, env=env)
+    print(f"dryrun_multichip OK: {n_devices} processes, DP+TP train steps, identical "
+          f"params on every rank ({tmp})")
+    return tmp

@@ -46,9 +46,10 @@ def fused_mixer_forward(mapper: Mixer, x, block_weights):
 
 
 def fused_supported(mapper) -> bool:
-    """The block kernels take a Mixer of any shape; every other mapper runs as
-    its module."""
-    return isinstance(mapper, Mixer)
+    """The block kernels take a Mixer of any shape, but whole weight tensors: a
+    Mixer split for tensor parallelism (parallel/tensor_parallel.py marks it
+    `tp`) and every other mapper run as modules."""
+    return isinstance(mapper, Mixer) and getattr(mapper, "tp", None) is None
 
 
 def make_mapper_apply(mapper):

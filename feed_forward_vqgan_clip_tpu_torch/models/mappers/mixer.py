@@ -13,6 +13,10 @@ The forward here is the module path: on the card the mapper's blocks go through
 the kernel instead (models/mappers/fused.py).
 """
 
+import contextlib
+import contextvars
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -45,21 +49,58 @@ class LeanLayerNorm(nn.Module):
         return lean_layer_norm(x, self.weight, self.bias, self.dtype)
 
 
+class _GlobalRows(NamedTuple):
+    index: torch.Tensor  # this rank's rows of the global batch
+    total: int  # the global batch's rows
+
+
+_GLOBAL_ROWS: contextvars.ContextVar = contextvars.ContextVar("ffvc_dropout_rows",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def global_rows(index: torch.Tensor, total: int):
+    """While the block runs, every Dropout draws its mask at the global batch's
+    `total` rows and keeps the rows `index`: a rank of a data-parallel step then
+    draws what a single device draws for those rows of the global batch."""
+    token = _GLOBAL_ROWS.set(_GlobalRows(index, int(total)))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS.reset(token)
+
+
 class Dropout(nn.Module):
     """flax's nn.Dropout with its mask drawn from the torch.Generator the forward
     is given: each element kept with probability 1 - p and scaled by 1 / (1 - p).
     With no generator (inference, and the kernel paths) it is the identity, as a
     flax forward with deterministic=True. No parameters, so the state-dict keys
-    stay those of the reference's nn.Dropout."""
+    stay those of the reference's nn.Dropout.
+
+    The mask is drawn at the shape of the whole tensor and cut down to the part
+    this forward holds: the rows of `global_rows`, and with `shard=(axis, index,
+    parts)` (a tensor-parallel hidden layer) part `index` along `axis`; so a
+    sharded step draws the single device's masks."""
 
     def __init__(self, p=0.0):
         super().__init__()
         self.p = p
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, shard=None):
         if generator is None or self.p == 0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.p
+        shape, rows = list(x.shape), _GLOBAL_ROWS.get()
+        if rows is not None:
+            shape[0] = rows.total
+        if shard is not None:
+            shape[shard[0]] *= shard[2]
+        u = torch.rand(shape, generator=generator, device=x.device)
+        if rows is not None:
+            u = u[rows.index]
+        if shard is not None:
+            axis, index, _ = shard
+            u = u.narrow(axis, index * x.shape[axis], x.shape[axis])
+        keep = u < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))
 

@@ -1,6 +1,7 @@
 """Frozen-model constants the port reads: CLIP input sizes and embedding widths,
 pixel normalisation, the CLIP ViT and ResNet architectures, the VQGAN decoder
-configs, and the released mapper and prior file names.
+configs, the released mapper and prior file names, and the URLs of the
+released weights (download_weights.py).
 
 The port's own copy of the entries it uses from feed_forward_vqgan_clip_tpu/
 registry.py (the port imports nothing of the JAX package);
@@ -140,3 +141,31 @@ PRIOR_MODELS = {
     "cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th": "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
     "cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th": "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
 }
+
+# Where the released weights are (download_weights.py): every mapper and prior
+# file name above -> its release URL; the VQGAN f16-16384 config and checkpoint
+# and the ml-jku CLOOB RN50 checkpoint; the CLIP BPE merge table.
+_REL = "https://github.com/mehdidc/feed_forward_vqgan_clip/releases/download"
+
+MODEL_URLS = {
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.1.th": f"{_REL}/0.1/cc12m_32x1024.th",
+    "cc12m_32x1024_vitgan_clip_ViTB32_256x256_v0.2.th": f"{_REL}/0.2/cc12m_32x1024_vitgan.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.2.th": f"{_REL}/0.2/cc12m_32x1024_mlp_mixer.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.3.th": f"{_REL}/0.3/cc12m_32x1024_mlp_mixer_clip_ViTB32_256x256_v0.3.th",
+    "cc12m_32x1024_mlp_mixer_cloob_rn50_256x256_v0.3.th": f"{_REL}/0.3/cc12m_32x1024_mlp_mixer_cloob_rn50_256x256_v0.3.th",
+    "cc12m_256x16_xtransformer_clip_ViTB32_512x512_v0.3.th": f"{_REL}/0.3/cc12m_256x16_xtransformer_clip_ViTB32_512x512_v0.3.th",
+    "cc12m_32x1024_mlp_mixer_clip_ViTB32_pixelrecons_256x256_v0.4.th": f"{_REL}/0.4/cc12m_32x1024_mlp_mixer_clip_ViTB32_pixelrecons_256x256_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_ViTB32_256x256_v0.4.th": f"{_REL}/0.4/cc12m_32x1024_mlp_mixer_openclip_laion2b_ViTB32_256x256_v0.4.th",
+    "cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th": f"{_REL}/0.4/cc12m_32x1024_mlp_mixer_openclip_laion2b_imgEmb_ViTB32_256x256_v0.4.th",
+    "cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th": f"{_REL}/0.4/cc12m_1x1024_mlp_mixer_openclip_laion2b_ViTB32_512x512_v0.4.th",
+    "prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th": f"{_REL}/0.4/prior_cc12m_2x1024_openclip_laion2b_ViTB32_v0.4.th",
+    "prior_cc12m_2x1024_clip_ViTB32_v0.4.th": f"{_REL}/0.4/prior_cc12m_2x1024_clip_ViTB32_v0.4.th",
+}
+
+AUX_URLS = (
+    f"{_REL}/0.1/vqgan_imagenet_f16_16384.yaml",
+    f"{_REL}/0.1/vqgan_imagenet_f16_16384.ckpt",
+    "https://ml.jku.at/research/CLOOB/downloads/checkpoints/cloob_rn50_yfcc_epoch_28.pt",
+)
+
+BPE_URL = "https://github.com/openai/CLIP/raw/main/clip/bpe_simple_vocab_16e6.txt.gz"

@@ -1,2 +1,2 @@
-"""Training: the train state, the single-device train step and trainer, and the
-flow-prior trainer."""
+"""Training: the train state, the train step and trainer, and the flow-prior
+trainer, on one device or over a parallel/mesh.py mesh."""

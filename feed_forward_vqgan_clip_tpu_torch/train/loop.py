@@ -1,4 +1,4 @@
-"""The amortized VQGAN-CLIP trainer, on one device.
+"""The amortized VQGAN-CLIP trainer, on one device or over a mesh of them.
 
 Port of feed_forward_vqgan_clip_tpu/train/loop.py. `make_train_step`: text
 encode (frozen CLIP, no grad; once when the input and the target are the same
@@ -20,8 +20,34 @@ counterpart of `fold_in(root_key, step)`), the device-side loss EMA and the
 per-log-interval scalar flush, previews, in-train eval, TensorBoard / wandb,
 checkpoints in the reference's layout (io/checkpoint.py) written by a background
 thread, and a resume that skips the batches already consumed, so an interrupted
-and resumed run repeats the uninterrupted one. The mesh, multi-process and
-tensor-parallel paths wait for ROADMAP A12.
+and resumed run repeats the uninterrupted one.
+
+With `mesh_shape` (or several processes) the run spans a parallel/mesh.py mesh
+of d x m processes, one device each, as JAX's ('data', 'model') mesh:
+
+  * `batch_size` is the global batch; each data index takes its rows of every
+    global batch (epoch_shard_batches' strided split over d) and tiles them
+    repeat-major; a batch that d does not divide raises;
+  * the augmentations draw from a generator that folds in the data index (at
+    index 0 the single device's); noise without a bank and dropout masks come
+    from the rank-independent step generator at the global batch's shape, each
+    rank keeping its rows, and the noise bank's rows are the same on every rank,
+    so a d-rank step equals the single-device step on the same global batch;
+    with `diversity_mode: all` the VGG16 features are gathered over the data
+    group (with their gradient), so the term is the global batch's;
+  * the gradients (and the step's metrics) are averaged over the data group
+    before clipping, whose global norm counts every split tensor across the
+    model group and every replicated one once; Adam, the EMA and the loss EMA
+    then run on every rank, which stay bitwise equal;
+  * with m > 1 the mapper's FFNs are split over the model group
+    (parallel/tensor_parallel.py) and the mapper runs as modules;
+  * the previews, in-train eval and checkpoints run on the ranks of data index
+    0 (the primary's model group, whose collectives stay inside it): the
+    checkpoint gathers the split tensors, Adam's moments too, so the files on
+    disk are always the unsharded ones of one device; only rank 0 writes files,
+    TensorBoard, wandb and stdout; a barrier follows the final save. On resume
+    every rank reads the files and splits them anew, so a run resumes at any
+    mesh.
 """
 
 import contextlib
@@ -47,6 +73,7 @@ from feed_forward_vqgan_clip_tpu_torch.io import checkpoint as ckpt_io
 from feed_forward_vqgan_clip_tpu_torch.io.images import save_grid
 from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import make_clip_image_apply
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import global_rows
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     make_mapper_apply,
     make_mapper_train_apply,
@@ -64,6 +91,21 @@ from feed_forward_vqgan_clip_tpu_torch.ops.losses import (
     spherical_dist,
     spherical_dist_loss,
     tv_loss,
+)
+from feed_forward_vqgan_clip_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_grads_mean,
+    broadcast_params,
+    gather_params,
+    is_primary,
+    make_mesh,
+    mapper_tp_plan,
+    shard_params,
+    world_size,
+)
+from feed_forward_vqgan_clip_tpu_torch.parallel.tensor_parallel import (
+    shard_mapper_,
+    tp_grad_norm,
 )
 from feed_forward_vqgan_clip_tpu_torch.registry import CLIP_MEAN, CLIP_STD
 from feed_forward_vqgan_clip_tpu_torch.train.state import (
@@ -109,17 +151,56 @@ def build_frozen(cfg: TrainConfig, dtype, *, device="cuda", seed: int = 0) -> Fr
                         vgg)
 
 
+class _GatherRows(torch.autograd.Function):
+    """x (n, ...) of every data rank -> (d, n, ...); backward: the gradient
+    summed over the data group, this rank's part (the loss on every rank is
+    the same function of the gathered tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh):
+        ctx.mesh = mesh
+        parts = [torch.empty_like(x) for _ in range(mesh.data)]
+        torch.distributed.all_gather(parts, x.contiguous(), group=mesh.data_group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        torch.distributed.all_reduce(g, group=ctx.mesh.data_group)
+        return g[ctx.mesh.data_index], None
+
+
+def gather_rows(x, mesh: Mesh, repeat: int):
+    """This data rank's repeat-major rows (repeat * b, ...) -> the global batch's
+    (repeat * d * b, ...), in the single device's order, differentiable."""
+    g = _GatherRows.apply(x, mesh)  # (d, repeat * b, ...)
+    g = g.reshape(mesh.data, repeat, -1, *x.shape[1:]).transpose(0, 1)
+    return g.reshape(-1, *x.shape[1:])
+
+
+def global_row_index(repeat: int, b: int, mesh: Mesh, device):
+    """This data rank's rows of the global repeat-major batch: r * d * b + i * b
+    + j for repeat r and local row j."""
+    j = torch.arange(b, device=device) + mesh.data_index * b
+    return (torch.arange(repeat, device=device)[:, None] * (mesh.data * b) + j).reshape(-1)
+
+
 def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts: MakeCutouts,
-                    *, inp_is_tokens: bool, out_is_tokens: bool, same_io: bool = False):
+                    *, inp_is_tokens: bool, out_is_tokens: bool, same_io: bool = False,
+                    mesh: Optional[Mesh] = None):
     """-> (train_step, loss_fn).
 
-    loss_fn(batch, generator, mark=None) -> (loss, metrics), differentiable in the
-    mapper's parameters; train_step(state, batch, generator, mark=None) ->
-    (state, metrics) runs it, the backward and Adam, updating `state` in place.
-    `batch` holds "inp" and "out" (token ids (B, 77) or features (B, dim)) and
-    optionally "noise" (repeat, noise_dim) bank rows. `mark(stage)`, where given,
-    is called as each stage of STAGES has been enqueued (for per-stage timing).
-    Metrics are 0-d tensors on the device: loss, dists, diversity, l2, tv."""
+    loss_fn(batch, generator, mark=None, aug_generator=None) -> (loss, metrics),
+    differentiable in the mapper's parameters; train_step(state, batch,
+    generator, mark=None, aug_generator=None) -> (state, metrics) runs it, the
+    backward, the mean of the gradients over `mesh`'s data group (where it has
+    one) and Adam, updating `state` in place. `batch` holds "inp" and "out"
+    (token ids (B, 77) or features (B, dim); this rank's rows) and optionally
+    "noise" (repeat, noise_dim) bank rows. The cutouts draw from
+    `aug_generator` (default `generator`). `mark(stage)`, where given, is called
+    as each stage of STAGES has been enqueued (for per-stage timing). Metrics are
+    0-d tensors on the device: loss, dists, diversity, l2, tv (the data group's
+    means, after a train_step)."""
     repeat = int(cfg.get("repeat"))
     cutn = int(cfg.get("cutn"))
     noise_dim = int(cfg.get("noise_dim") or 0)
@@ -140,13 +221,17 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
     # the image encode of the cutouts: the module path unless FFVC_FUSED_CLIP=1
     # routes it through the K11 sublayers (models/clip_fused.py)
     clip_image_apply = make_clip_image_apply(perceptor.module)
+    data_parallel = mesh is not None and mesh.data > 1
 
-    def loss_fn(batch, generator: torch.Generator, mark: Optional[Callable] = None):
+    def loss_fn(batch, generator: torch.Generator, mark: Optional[Callable] = None,
+                aug_generator: Optional[torch.Generator] = None):
         mark = mark or (lambda stage: None)
         z_lo, z_hi = latent_bounds(vq)
         inp, out = batch["inp"], batch["out"]
         bs = inp.shape[0]
         dev = inp.device
+        # this rank's rows of the global batch, whose shape the draws take
+        rows = global_row_index(repeat, bs, mesh, dev) if data_parallel else None
         inp_feats = perceptor.encode_text(inp).float() if inp_is_tokens else inp.float()
         # text-only datasets feed the same tokens as input and target: encode once
         if same_io:
@@ -164,13 +249,18 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         if noise_dim:
             if "noise" in batch:  # fixed bank rows (repeat, noise_dim)
                 noise = batch["noise"].repeat_interleave(bs, dim=0)
-            else:
+            elif rows is None:
                 noise = torch.randn(repeat * bs, noise_dim, generator=generator, device=dev)
+            else:
+                noise = torch.randn(repeat * bs * mesh.data, noise_dim, generator=generator,
+                                    device=dev)[rows]
             net_in = torch.cat([inp_feats, noise.to(inp_feats.dtype)], dim=1)
         else:
             net_in = inp_feats
         if dropout > 0:  # the module path, its masks drawn from the step's generator
-            z = mapper(net_in, generator)
+            with (global_rows(rows, repeat * bs * mesh.data) if data_parallel
+                  else contextlib.nullcontext()):
+                z = mapper(net_in, generator)
         else:
             z = mapper_train_apply(net_in)  # (repeat*bs, S, S, C)
         l2 = l2_loss(z) if l2_coef > 0 else torch.zeros((), device=dev)
@@ -183,12 +273,17 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         mean = torch.tensor(CLIP_MEAN, device=dev)
         std = torch.tensor(CLIP_STD, device=dev)
         if diversity_coef:
-            feats = frozen.vgg((xr - mean) / std)
-            div = diversity_loss([f.float() for f in feats], repeat, bs, diversity_mode)
+            feats = [f.float() for f in frozen.vgg((xr - mean) / std)]
+            if data_parallel and diversity_mode == "all":  # the global batch's pairs
+                feats = [gather_rows(f, mesh, repeat) for f in feats]
+                div = diversity_loss(feats, repeat, bs * mesh.data, diversity_mode)
+            else:
+                div = diversity_loss(feats, repeat, bs, diversity_mode)
         else:
             div = torch.zeros((), device=dev)
         mark("diversity")
-        x = make_cutouts(generator, xr.to(aug_dtype))  # (cutn*repeat*bs, h, w, 3)
+        # (cutn*repeat*bs, h, w, 3)
+        x = make_cutouts(aug_generator or generator, xr.to(aug_dtype))
         x = (x - mean.to(aug_dtype)) / std.to(aug_dtype)
         mark("cutouts")
         embed = normalize(clip_image_apply(x).float())
@@ -204,13 +299,16 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         return loss, {k: v.detach().float() for k, v in metrics.items()}
 
     def train_step(state: TrainState, batch, generator: torch.Generator,
-                   mark: Optional[Callable] = None):
+                   mark: Optional[Callable] = None,
+                   aug_generator: Optional[torch.Generator] = None):
         mark = mark or (lambda stage: None)
         for p in state.params:
             p.grad = None
-        loss, metrics = loss_fn(batch, generator, mark)
+        loss, metrics = loss_fn(batch, generator, mark, aug_generator)
         loss.backward()
         mark("backward")
+        if mesh is not None:
+            metrics = all_reduce_grads_mean(state.params, mesh, metrics)
         state.apply_gradients()
         # the loss EMA stays on the device: no host sync per step
         state.avg_loss = metrics["loss"] * 0.01 + state.avg_loss * 0.99
@@ -306,10 +404,13 @@ def noise_bank_rows(seed: int, step: int, bank_size: int, repeat: int) -> np.nda
     return np.random.default_rng((seed, step)).permutation(bank_size)[:repeat]
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, data_index: int = 0) -> torch.Generator:
     """The generator of step `step` (augmentations, noise factors, dropout masks,
-    noise rows without a bank), seeded from (seed, step) alone."""
-    state = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    noise rows without a bank), seeded from (seed, step) alone; with a data index
+    > 0, the augmentations' generator of that data rank, which folds it in (as
+    JAX folds axis_index('data')). Index 0 is the single device's."""
+    entropy = [seed, step] + ([data_index] if data_index else [])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         (int(state[0]) << 31) ^ int(state[1]))
 
@@ -351,17 +452,27 @@ def _host_copy(state_dict):
 
 
 def _save_all(folder, cfg, state: TrainState, mapper, ema_mapper, names, epoch, noise_bank,
-              saver: Optional[_AsyncSaver] = None):
+              saver: Optional[_AsyncSaver] = None, mesh: Optional[Mesh] = None):
     """Checkpoint the mapper, its EMA and Adam (io/checkpoint.py's layout). The
     device->host copies are made here, synchronously; with `saver` the file
     writes run on its thread. The stored step is state.step, the number of
-    updates in the saved parameters."""
+    updates in the saved parameters. With a model axis the split tensors (Adam's
+    moments too) are gathered first, so the files are the unsharded ones:
+    collective over the model group; only the primary writes."""
     step = int(state.step)
-    params = _host_copy(mapper.state_dict())
-    ema = _host_copy(ema_mapper.state_dict()) if ema_mapper is not None else None
+    plan = mapper_tp_plan(mapper) if mesh is not None and mesh.model > 1 else {}
+
+    def whole(sd):
+        return gather_params(sd, plan, mesh) if plan else sd
+
+    params = _host_copy(whole(mapper.state_dict()))
+    ema = _host_copy(whole(ema_mapper.state_dict())) if ema_mapper is not None else None
     opt = state.opt_state
-    opt = type(opt)(opt.count, [m.detach().to("cpu", copy=True) for m in opt.mu],
-                    [v.detach().to("cpu", copy=True) for v in opt.nu])
+    mu, nu = whole(dict(zip(names, opt.mu))), whole(dict(zip(names, opt.nu)))
+    opt = type(opt)(opt.count, [mu[n].detach().to("cpu", copy=True) for n in names],
+                    [nu[n].detach().to("cpu", copy=True) for n in names])
+    if not is_primary():
+        return
     config = dict(cfg)
 
     def write():
@@ -380,11 +491,14 @@ def _save_all(folder, cfg, state: TrainState, mapper, ema_mapper, names, epoch, 
 
 def _log_step_artifacts(cfg, folder, mapper, ema_mapper, frozen, state, batch, render, step,
                         epoch, noise_bank, decode_tokens, fixed_inp, noise_dim, inp_is_tokens,
-                        names, saver=None):
+                        names, saver=None, mesh=None):
     """The log step's previews, prompt sidecars and checkpoints: progress.png
-    (the step's batch, current parameters), progress.txt, fixed_batch_progress.png
-    (the first batch, EMA parameters where kept) and fixed_batch.txt at step 0."""
+    (the step's global batch, current parameters), progress.txt,
+    fixed_batch_progress.png (the first batch, EMA parameters where kept) and
+    fixed_batch.txt at step 0. Over a mesh, the ranks of data index 0 render and
+    the primary writes."""
     bs, repeat = int(cfg.get("batch_size")), int(cfg.get("repeat"))
+    primary = is_primary()
     dev = batch["inp"].device
     net_in = _features_for(frozen, batch["inp"], inp_is_tokens, cfg).repeat(repeat, 1)
     if noise_dim:
@@ -395,15 +509,16 @@ def _log_step_artifacts(cfg, folder, mapper, ema_mapper, frozen, state, batch, r
                                 generator=torch.Generator(device=dev).manual_seed(step))
         net_in = torch.cat([net_in, noise.to(net_in.dtype)], dim=1)
     xr = render(mapper, net_in).cpu().numpy()
-    save_grid(xr, os.path.join(folder, "progress.png"), nrow=bs)
-    save_grid(xr, os.path.join(folder, f"progress_{step:010d}.png"), nrow=bs)
-    if inp_is_tokens and decode_tokens is not None:
+    if primary:
+        save_grid(xr, os.path.join(folder, "progress.png"), nrow=bs)
+        save_grid(xr, os.path.join(folder, f"progress_{step:010d}.png"), nrow=bs)
+    if primary and inp_is_tokens and decode_tokens is not None:
         text = "\n".join(decode_tokens(t) for t in batch["inp"].cpu().numpy())
         for name in ("progress.txt", f"progress_{step:010d}.txt"):
             with open(os.path.join(folder, name), "w") as fd:
                 fd.write(text)
 
-    _save_all(folder, cfg, state, mapper, ema_mapper, names, epoch, noise_bank, saver)
+    _save_all(folder, cfg, state, mapper, ema_mapper, names, epoch, noise_bank, saver, mesh)
 
     net_in = _features_for(frozen, fixed_inp, inp_is_tokens, cfg)
     if noise_dim:
@@ -415,6 +530,8 @@ def _log_step_artifacts(cfg, folder, mapper, ema_mapper, frozen, state, batch, r
                              generator=torch.Generator(device=dev).manual_seed(0))
         net_in = torch.cat([net_in, nz.to(net_in.dtype)], dim=1)
     xf = render(ema_mapper if ema_mapper is not None else mapper, net_in).cpu().numpy()
+    if not primary:
+        return
     save_grid(xf, os.path.join(folder, "fixed_batch_progress.png"), nrow=bs)
     save_grid(xf, os.path.join(folder, f"fixed_batch_progress_{step:010d}.png"), nrow=bs)
     if step == 0 and inp_is_tokens and decode_tokens is not None:
@@ -454,8 +571,11 @@ def train(cfg: TrainConfig, *, device="cuda") -> TrainState:
 
 
 def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop, as JAX's
-    if cfg.get("mesh_shape"):
-        raise NotImplementedError("mesh_shape: multi-device training is ROADMAP A12")
+    # a mesh where the config or the process group asks for one: a world of one
+    # without mesh_shape stays the single device, with no collective
+    mesh = (make_mesh(cfg.get("mesh_shape")) if cfg.get("mesh_shape") or world_size() > 1
+            else Mesh())
+    primary = is_primary()
     dtype = dtype_of(cfg)
     folder = cfg.get("folder") or "."
     os.makedirs(folder, exist_ok=True)
@@ -500,9 +620,18 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
         ema_mapper = copy.deepcopy(mapper).requires_grad_(False)
         if ema_sd is not None:
             ema_mapper.load_state_dict(ema_sd)
+    if world_size() > 1:  # rank 0's weights everywhere, then each model rank's part
+        broadcast_params(list(mapper.parameters()) + (
+            list(ema_mapper.parameters()) if ema_mapper is not None else []))
+    plan = mapper_tp_plan(mapper) if mesh.model > 1 else {}
+    shard_mapper_(mapper, mesh)
+    if ema_mapper is not None:
+        shard_mapper_(ema_mapper, mesh)
     tx = make_optimizer(float(cfg.get("lr")), scheduler=cfg.get("scheduler"),
                         max_steps=cfg.get("max_steps"), clip_grad_norm=cfg.get("clip_grad_norm"),
                         opt_dtype=cfg.get("opt_dtype"))
+    if plan:
+        tx.global_norm = tp_grad_norm(mapper, mesh)
     state = make_train_state(
         mapper.parameters(), tx, use_ema=ema_mapper is not None,
         ema_decay=float(cfg.get("ema_decay")), ema_warmup=bool(cfg.get("ema_warmup", True)),
@@ -514,9 +643,10 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
     elif opt is not None:
         log.info("Resuming optimizer state from %s", folder)
         state.opt_state.count = int(opt["count"])
+        mu, nu = shard_params(opt["mu"], plan, mesh), shard_params(opt["nu"], plan, mesh)
         for n, m, v in zip(names, state.opt_state.mu, state.opt_state.nu):
-            m.copy_(opt["mu"][n])
-            v.copy_(opt["nu"][n])
+            m.copy_(mu[n])
+            v.copy_(nu[n])
 
     make_cutouts = MakeCutouts(
         cut_size=int(cfg.get("cut_size") or clip_size), cutn=int(cfg.get("cutn")),
@@ -527,7 +657,7 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
         noise_fac=float(cfg.get("noise_fac")), fuse_geometric=bool(cfg.get("fuse_geometric")))
     train_step, _ = make_train_step(cfg, mapper, frozen, make_cutouts,
                                     inp_is_tokens=inp_is_tokens, out_is_tokens=out_is_tokens,
-                                    same_io=same_io)
+                                    same_io=same_io, mesh=mesh)
     render = make_render_fn(frozen)
     eval_data = None
     if cfg.get("eval_path"):
@@ -536,13 +666,14 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
         eval_step = make_eval_step(frozen, eval_p)
 
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if primary:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(folder)
-    except Exception as e:  # pragma: no cover
-        log.warning("TensorBoard writer unavailable: %s", e)
-    use_wandb = bool(cfg.get("use_wandb"))
+            writer = SummaryWriter(folder)
+        except Exception as e:  # pragma: no cover
+            log.warning("TensorBoard writer unavailable: %s", e)
+    use_wandb = bool(cfg.get("use_wandb")) and primary
     wandb_run = None
     if use_wandb:
         try:
@@ -560,9 +691,25 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
     max_steps = cfg.get("max_steps")
     epochs = int(cfg.get("epochs"))
     n_examples = len(inp_all)
+    d = mesh.data
+    if bs % d:
+        raise ValueError(f"batch_size={bs} (global) must be divisible by the data mesh axis "
+                         f"({d}): every data rank takes an equal part")
+    bs_local = bs // d
+    # the ranks of data index 0 (the primary's model group) render the previews
+    # and the eval and gather the checkpoints
+    renders = mesh.data_index == 0
 
     def epoch_ids(epoch):
-        return epoch_shard_batches(n_examples, bs, seed=seed, epoch=epoch)
+        """The epoch's global batches: data index i's rows at [i*b, (i+1)*b)."""
+        if d == 1:
+            return epoch_shard_batches(n_examples, bs, seed=seed, epoch=epoch)
+        per = [epoch_shard_batches(n_examples, bs_local, seed=seed, epoch=epoch,
+                                   process_index=i, process_count=d) for i in range(d)]
+        return [np.concatenate(parts) for parts in zip(*per)]
+
+    def local(ids):
+        return ids if d == 1 else ids[mesh.data_index * bs_local: (mesh.data_index + 1) * bs_local]
 
     def batch_for(ids, step_):
         b_inp = _as_rows(inp_all[ids], device)
@@ -600,10 +747,14 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
 
     def save_final(epoch):
         flush_scalars()
-        _save_all(folder, cfg, state, mapper, ema_mapper, names, epoch, noise_bank, saver)
+        if renders:
+            _save_all(folder, cfg, state, mapper, ema_mapper, names, epoch, noise_bank, saver,
+                      mesh)
         saver.wait()  # the files are complete before train returns
         if writer:
             writer.close()
+        if mesh.data_group is not None:  # ... on every rank
+            torch.distributed.barrier()
 
     t_start = time.time()
     saver = _AsyncSaver()
@@ -613,14 +764,17 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
         # epoch consumed before the checkpoint
         done_here = step - epoch * len(epoch_batches)
         for ids in epoch_batches[max(done_here, 0):]:
-            if profile_dir and step == PROFILE_STEPS[0]:
+            if profile_dir and primary and step == PROFILE_STEPS[0]:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if torch.device(device).type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 profiler = torch.profiler.profile(activities=activities)
                 profiler.start()
-            batch = batch_for(ids, step)
-            state, metrics = train_step(state, batch, step_generator(seed, step, device))
+            batch = batch_for(local(ids), step)
+            # data index 0 draws its augmentations from the step generator itself
+            aug = ({} if mesh.data_index == 0 else
+                   {"aug_generator": step_generator(seed, step, device, mesh.data_index)})
+            state, metrics = train_step(state, batch, step_generator(seed, step, device), **aug)
             pending.append((step, metrics))
             if profiler is not None and step == PROFILE_STEPS[1]:
                 if torch.device(device).type == "cuda":
@@ -634,16 +788,20 @@ def _train(cfg: TrainConfig, *, device) -> TrainState:  # noqa: C901 - one loop,
             if step % log_interval == 0:
                 m = flush_scalars()
                 avg_loss = float(state.avg_loss)
-                print(f"epoch:{epoch:03d}, step:{step:05d}, avg_loss:{avg_loss:.3f}, "
-                      f"loss:{m['loss']:.3f}, dists:{m['dists']:.3f}, "
-                      f"div:{m['diversity']:.3f}, l2:{m['l2']:.3f} tv:{m['tv']}", flush=True)
-                _log_step_artifacts(cfg, folder, mapper, ema_mapper, frozen, state, batch,
-                                    render, step, epoch, noise_bank, decode_tokens, fixed_inp,
-                                    noise_dim, inp_is_tokens, names, saver)
-                if eval_data is not None:
+                if primary:
+                    print(f"epoch:{epoch:03d}, step:{step:05d}, avg_loss:{avg_loss:.3f}, "
+                          f"loss:{m['loss']:.3f}, dists:{m['dists']:.3f}, "
+                          f"div:{m['diversity']:.3f}, l2:{m['l2']:.3f} tv:{m['tv']}", flush=True)
+                if renders:
+                    _log_step_artifacts(cfg, folder, mapper, ema_mapper, frozen, state,
+                                        batch if d == 1 else batch_for(ids, step), render, step,
+                                        epoch, noise_bank, decode_tokens, fixed_inp, noise_dim,
+                                        inp_is_tokens, names, saver, mesh=mesh)
+                if eval_data is not None and renders:
                     ed, es = _run_eval(eval_step, mapper, eval_data, eval_p, bs, noise_dim,
                                        device)
-                    print(f"Eval dists: {ed:.3f}\nEval clip score: {es:.3f}", flush=True)
+                    if primary:
+                        print(f"Eval dists: {ed:.3f}\nEval clip score: {es:.3f}", flush=True)
                     if writer:
                         writer.add_scalar("eval_dists", ed, step)
                         writer.add_scalar("eval_clip_score", es, step)

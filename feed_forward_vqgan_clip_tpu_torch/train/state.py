@@ -63,6 +63,9 @@ class CastStateAdam:
         self.lr = lr
         self.state_dtype = state_dtype
         self.clip_grad_norm = clip_grad_norm
+        # grads -> their global norm, where some are parts of tensors split over
+        # devices (parallel/tensor_parallel.tp_grad_norm); None: the grads are whole
+        self.global_norm: Optional[Callable] = None
 
     def init(self, params) -> AdamState:
         zeros = [torch.zeros_like(p, dtype=self.state_dtype) for p in params]
@@ -75,7 +78,10 @@ class CastStateAdam:
         if self.clip_grad_norm:
             # optax.clip_by_global_norm: g * max_norm / ||g|| where ||g|| >= max_norm,
             # decided on the device (no host sync)
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if self.global_norm is not None:
+                norm = self.global_norm(grads)
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             factor = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
                                  self.clip_grad_norm / norm)
             grads = torch._foreach_mul(grads, factor)

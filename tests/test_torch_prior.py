@@ -148,9 +148,11 @@ def test_load_pairs_matches_jax(tmp_path):
 
 
 def test_mesh_shape_raises(tmp_path):
+    """A mesh the process group cannot cover raises JAX make_mesh's error (one
+    process here; tests/test_torch_parallel.py runs the prior on two)."""
     data = tmp_path / "pairs.npz"
     _pairs(data)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
         prior.train_prior(_cfg(tmp_path, data, mesh_shape={"data": 2}), device="cpu")
 
 
