@@ -1,4 +1,4 @@
-"""CLI: the subcommands the port has so far.
+"""CLI: every subcommand of the JAX package's.
 
 `python -m feed_forward_vqgan_clip_tpu_torch.cli <command>`, the counterpart of
 feed_forward_vqgan_clip_tpu/cli.py (dashes and underscores both accepted):
@@ -14,12 +14,14 @@ feed_forward_vqgan_clip_tpu/cli.py (dashes and underscores both accepted):
     verify-weights [--models ...] [...]         verify_weights.verify_weights
     download-weights                            download_weights.download_all (network)
     serve [model ...]                           serve/app.py (needs gradio)
+    bench [--mode ...] [--batch ...] [...]      bench.run (the JAX bench.py's lines)
 
 A model is a `.th` file or a JAX checkpoint directory. Every command that
 computes on a device runs on the card unless `--device cpu` is given.
 `verify-weights` runs offline on local checkpoints and goldens it writes
 itself (`--update-goldens`); only `download-weights` and `verify-weights
---download` need the network. The JAX package's `bench` is not registered.
+--download` need the network. `bench` is the port's own harness (bench.py),
+where the JAX package's runs its root `bench.py`.
 
 Before the command runs, `main` joins the process group the environment
 declares (utils.maybe_initialize_distributed; NCCL for `--device cuda`, Gloo
@@ -121,6 +123,12 @@ def _cmd_download_weights(args):
     from feed_forward_vqgan_clip_tpu_torch.download_weights import download_all
 
     download_all()
+
+
+def _cmd_bench(args):
+    from feed_forward_vqgan_clip_tpu_torch import bench
+
+    bench.run(args)
 
 
 def _cmd_serve(args):
@@ -225,12 +233,23 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--out", default="verify_weights_report.json")
     t.set_defaults(fn=_cmd_verify_weights)
 
+    t = sub.add_parser("bench", help="the benchmark: prompt->image img/s, batch-1 latency, "
+                       "train step (bench.py)")
+    t.add_argument("--mode", choices=("all", "infer", "latency", "train"), default="all")
+    t.add_argument("--batch", type=int, default=256, help="the infer leg's prompts a call")
+    t.add_argument("--train-batch", type=int, default=8)
+    t.add_argument("--fuse-augs", action="store_true",
+                   help="the train leg's Af and Pe as one warp (fuse_geometric)")
+    t.add_argument("--opt-dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="the dtype of Adam's moments in the train leg")
+    t.set_defaults(fn=_cmd_bench)
+
     t = sub.add_parser("serve", help="gradio web app over local checkpoints")
     t.add_argument("model_paths", nargs="*", help="mapper checkpoints (default: *.th here)")
     t.set_defaults(fn=_cmd_serve)
 
     for name in ("train", "test", "encode-text-and-images", "encode-text-and-images-webdataset",
-                 "evaluate", "train-prior", "verify-weights", "serve"):
+                 "evaluate", "train-prior", "verify-weights", "serve", "bench"):
         sub.choices[name].add_argument("--device", default="cuda",
                                        help="torch device (default: cuda)")
     return p

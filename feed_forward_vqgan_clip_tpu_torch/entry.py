@@ -48,19 +48,22 @@ def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0,
 
 
 def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0,
-                mapper_config: Optional[dict] = None):
+                mapper_config: Optional[dict] = None, fuse_geometric: bool = False,
+                opt_dtype: str = "bfloat16"):
     """-> (step_fn, state, batch_dict): `step_fn(state, batch_dict, generator,
     mark=None)` runs one train step and returns (state, metrics).
 
     The geometry of `bench.train_bench`: CLIP ViT-B/32 (both towers, frozen),
     Mixer dim 1024 depth 32 over 16x16 tokens, noise_dim 0, dropout 0, VQGAN
     f16-16384 (frozen), bf16 compute with float32 master weights, Adam lr 1e-3
-    with bf16 moments, `cutn` 224-px pooled cutouts with additive noise, one
+    with bf16 moments (`opt_dtype`), `cutn` 224-px pooled cutouts with additive noise, one
     text encode per step (same_io), tokens `[SOT, 0, EOT, 0...]`, and the
     default augmentations `Af`, `Pe`, `Ji`, `Er`. `mapper_config`: config keys
     that replace the flagship's (`model_type`, `dim`, `depth`, `vq_image_size`,
     `num_heads`, `clip_model`: another released mapper and its perceptor, whose
-    input size the cutouts take)."""
+    input size the cutouts take). `fuse_geometric` and `opt_dtype` are the JAX
+    bench's FFVC_BENCH_FUSE_AUGS and FFVC_BENCH_OPT_DTYPE: the cutouts' Af and
+    Pe as one warp, and the dtype of Adam's moments."""
     dtype = torch.bfloat16
     cfg = make_config(**{**dict(clip_model="ViT-B/32", model_type="mlp_mixer", dim=1024,
                                 depth=32, dropout=0, vq_image_size=16, noise_dim=0),
@@ -71,9 +74,9 @@ def train_entry(device="cuda", *, batch: int = 8, cutn: int = 8, seed: int = 0,
     mapper = build_mapper(dict(cfg), vq_channels=int(vqgan_arch_config(cfg)["z_channels"]),
                           dtype=dtype, device=device)
     mapper.init_random_(gen)
-    state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype="bfloat16"))
+    state = make_train_state(mapper.parameters(), make_optimizer(1e-3, opt_dtype=opt_dtype))
     size = frozen.perceptor.size  # 224 for ViT-B/32
-    cutouts = MakeCutouts(cut_size=size, cutn=cutn, pool_size=size)
+    cutouts = MakeCutouts(cut_size=size, cutn=cutn, pool_size=size, fuse_geometric=fuse_geometric)
     step_fn, _ = make_train_step(cfg, mapper, frozen, cutouts, inp_is_tokens=True,
                                  out_is_tokens=True, same_io=True)
     tokens = torch.zeros(batch, 77, dtype=torch.long, device=device)

@@ -9,9 +9,11 @@ Parameters are float32; `dtype` is the compute dtype. The decoder runs NCHW
 inside; its public layouts are the JAX package's NHWC.
 
 The JAX decoder has no Pallas kernel, so everything here is plain PyTorch
-(F.conv2d, matmul + softmax attention). Upsample is the reference graph (NN-2x
-then a 3x3 conv, the JAX package's mode 0); mode 2 is an XLA rewrite (ROADMAP
-A17). `load_vqgan` builds the config's VQGAN and loads a taming checkpoint with
+(F.conv2d, matmul + softmax attention). Upsample runs the JAX package's
+default form, the transposed conv (its mode 2); the reference graph (NN-2x then
+a 3x3 conv, mode 0) is what the tests hold it to. The JAX package's
+phase-decomposed upsample (mode 1) is a TPU relayout form and is not here.
+`load_vqgan` builds the config's VQGAN and loads a taming checkpoint with
 `load_state_dict`, or draws random weights from a seed.
 """
 
@@ -33,6 +35,9 @@ from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.quantize import vector_quantize
 
 log = logging.getLogger(__name__)
+
+# NN-2x + 3x3 conv over tap space: row a of the 4-tap kernel sums these 3x3 rows
+_UPSAMPLE_FOLD = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
 
 
 class GroupNorm32(nn.Module):
@@ -119,14 +124,30 @@ class AttnBlock(nn.Module):
 
 
 class Upsample(nn.Module):
-    """Nearest-neighbour 2x upsample then a 3x3 conv (taming's Upsample)."""
+    """Nearest-neighbour 2x upsample then a 3x3 conv (taming's Upsample), as a
+    transposed conv (JAX `Upsample`, mode 2): the duplicated pixels let each
+    output phase read 2 distinct input pixels a dimension, so the taps are
+    folded in float32, before the cast, into a 4x4 kernel K4 = F K F^T over tap
+    space (F = _UPSAMPLE_FOLD), and one F.conv_transpose2d (stride 2, padding 1)
+    takes K4 flipped with its channel axes swapped: 16 multiply-adds an output
+    pixel per channel pair where NN-2x + 3x3 conv does 36. Its input gradient is
+    autograd's stride-2 conv, the adjoint JAX's `_dilated_up_bwd` writes by
+    hand. The parameters are taming's (`conv.weight`, `conv.bias`); in bf16 the
+    pre-summed taps round once where the reference graph rounds each."""
 
     def __init__(self, channels, *, dtype=torch.float32, device=None):
         super().__init__()
+        self.dtype = dtype
         self.conv = Conv2d(channels, channels, 3, dtype=dtype, device=device)
+        self.register_buffer("fold", torch.tensor(_UPSAMPLE_FOLD, device=device),
+                             persistent=False)
 
     def forward(self, x):
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        k4 = self.fold @ self.conv.weight.float() @ self.fold.t()  # (O, I, 4, 4)
+        # conv_transpose2d's weight is (I, O, kh, kw) and slides flipped
+        wt = k4.flip(2, 3).transpose(0, 1).to(self.dtype)
+        return F.conv_transpose2d(x.to(self.dtype), wt, self.conv.bias.to(self.dtype),
+                                  stride=2, padding=1)
 
 
 class _UpLevel(nn.Module):

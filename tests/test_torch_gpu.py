@@ -31,7 +31,11 @@ within 2e-2 of max |CPU| per slice; a tiny Predictor's prior=True request
 The crowsonkb CLOOB ViT and a sniffed OpenCLIP ViT (an fp16 file with a
 `module.` prefix), float32, within 1e-4 of max(1, max |CPU|); a JAX checkpoint
 directory served byte for byte like its `.th`; the webdataset encoder's
-features within 1e-4 of the CPU's; the native BPE core built.
+features within 1e-4 of the CPU's; the native BPE core built. Upsample (the
+transposed conv) against the reference graph NN-2x + 3x3 conv on its weights
+(output, input and weight gradients), float32 within 1e-4 and bf16 within 5e-2
+of max |reference|; `cli bench` at a tiny model prints the JAX bench's lines and launches K1, K2,
+K4 and K6-K10 in its legs.
 """
 
 import copy
@@ -47,7 +51,10 @@ from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
 from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png
 from feed_forward_vqgan_clip_tpu_torch.models import flow
 from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
-from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds
+from feed_forward_vqgan_clip_tpu_torch.models.vqgan import (
+    Upsample,
+    latent_bounds,
+)
 from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fused
 from feed_forward_vqgan_clip_tpu_torch.models.clip_resnet import CLIPResNet
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
@@ -1108,3 +1115,61 @@ def test_native_tokenizer_is_active(cuda):
     assert tok.native is not None
     pure.native = None
     assert tok.encode("hello hello") == pure.encode("hello hello")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_upsample_transposed_matches_reference_on_card(cuda, dtype):
+    """Upsample (conv_transpose2d on the folded 4x4 taps) against the reference
+    graph on its weights (NN-2x then the 3x3 conv) at 128 channels: the output,
+    the input gradient and the weight gradient, float32 within 1e-4 and bf16
+    within 5e-2 of max |reference| (JAX tests/test_vqgan.py's bf16 tolerance)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    m = Upsample(128, dtype=dtype, device=cuda)
+    with torch.no_grad():
+        m.conv.weight.normal_(0.0, (9 * 128) ** -0.5, generator=gen)
+        m.conv.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(2, 128, 32, 32, generator=gen, device=cuda)
+    g = torch.randn(2, 128, 64, 64, generator=gen, device=cuda)
+    outs = []
+    for fn in (lambda v: m.conv(F.interpolate(v, scale_factor=2.0, mode="nearest")), m):
+        m.zero_grad()
+        xx = x.clone().requires_grad_(True)
+        y = fn(xx)
+        (y.float() * g).sum().backward()
+        outs.append((y.detach(), xx.grad, m.conv.weight.grad.clone()))
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert outs[1][0].shape == (2, 128, 64, 64)
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel(got, want) <= tol
+
+
+def test_bench_legs_on_card(cuda, monkeypatch, capsys):
+    """`cli bench` at a tiny model on the card: the three JSON lines and the
+    headline again, each leg's `#` line with its kernel launches (K1 and K2 in
+    the infer leg, K4 in the latency leg, K6-K8, K9, K10 in the train leg)."""
+    import functools
+    import json
+    import re
+
+    from feed_forward_vqgan_clip_tpu_torch import bench, cli
+    from feed_forward_vqgan_clip_tpu_torch import entry as entry_module
+
+    tiny = dict(clip_model="tiny", dim=64, depth=2, vq_image_size=4)
+    monkeypatch.setattr(entry_module, "build_generator",
+                        functools.partial(build_generator, vqgan_config=TINY_VQ, **tiny))
+    monkeypatch.setattr(bench, "train_entry", functools.partial(
+        entry_module.train_entry, cutn=2, mapper_config=dict(tiny, vqgan_arch=TINY_VQ)))
+    monkeypatch.setattr(bench, "TIMED_SECONDS", 0.5)
+    cli.main(["bench", "--batch", "4", "--train-batch", "2"])
+    out, err = capsys.readouterr()
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    assert [x["metric"] for x in lines] == [bench.METRICS[m] for m in
+                                            ("infer", "train", "latency", "infer")]
+    want = {"infer": ("vq_argmin", "mixer_block"), "latency": ("vq_argmin", "mixer_stream"),
+            "train": ("vq_argmin", "mixer_fwd_res", "mixer_channel_bwd", "mixer_token_bwd",
+                      "warp_forward", "warp_adjoint")}
+    for leg, names in want.items():
+        got = json.loads(re.search(rf"^# {leg}:.*; launches (\{{[^}}]*\}});", err, re.M).group(1))
+        assert all(got.get(n, 0) > 0 for n in names), (leg, got)

@@ -192,8 +192,8 @@ def test_cli_train_on_the_cpu(tmp_path, feature_data):
     path.write_text(yaml.safe_dump(cfg))
     cli.main(["train", str(path), "--device", "cpu"])
     assert checkpoint.checkpoint_exists(str(tmp_path / "run"))
-    with pytest.raises(SystemExit):  # the one subcommand not ported is not registered
-        cli.build_parser().parse_args(["bench"])
+    args = cli.build_parser().parse_args(["bench"])  # the last JAX subcommand, now ported
+    assert args.command == "bench" and args.mode == "all"
 
 
 @pytest.mark.parametrize("n,bs,epoch,proc,count,drop_last", [
