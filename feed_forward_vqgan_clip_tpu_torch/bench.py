@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from feed_forward_vqgan_clip_tpu_torch.entry import entry, example_tokens, train_entry
+from feed_forward_vqgan_clip_tpu_torch.tracing import kernel_counters
 
 A100_TF32_PEAK = 156e12
 A100_EAGER_UTIL = 0.35  # generous to the reference: the headline's assumption
@@ -94,33 +95,8 @@ def card_line(device: torch.device) -> str:
         return f"{torch.cuda.get_device_name(device)}, power limit not read (nvidia-smi)"
 
 
-def kernel_counters():
-    """{kernel name: wrapper} of the port's kernels; each wrapper counts its
-    launches on `.launches` (none on the CPU, where it runs its plain version)."""
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
-        mixer_block,
-        mixer_block_fwd_res,
-        mixer_block_stacked,
-        mixer_channel_bwd,
-        mixer_token_bwd,
-    )
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import mlp_ln, mlp_ln_bwd
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
-        nearest_codebook_indices_kernel,
-    )
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_adjoint import warp_adjoint
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.warp_forward import warp_forward
-
-    return {"vq_argmin": nearest_codebook_indices_kernel, "mixer_block": mixer_block,
-            "mixer_stream": mixer_stream, "mixer_block_stacked": mixer_block_stacked,
-            "mixer_fwd_res": mixer_block_fwd_res, "mixer_channel_bwd": mixer_channel_bwd,
-            "mixer_token_bwd": mixer_token_bwd, "warp_forward": warp_forward,
-            "warp_adjoint": warp_adjoint, "mlp_ln": mlp_ln, "mlp_ln_bwd": mlp_ln_bwd}
-
-
 class LaunchCount:
-    """The kernels' launches from its creation to `read()`, as JSON."""
+    """The kernels' launches (tracing.kernel_counters) from its creation to `read()`, as JSON."""
 
     def __init__(self):
         self.counters = kernel_counters()

@@ -40,6 +40,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import normalize
 from feed_forward_vqgan_clip_tpu_torch.registry import VQGAN_CONFIGS
 from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+from feed_forward_vqgan_clip_tpu_torch.tracing import span
 
 log = logging.getLogger(__name__)
 
@@ -62,7 +63,10 @@ class Generator:
     `stream_mixer` (and a mapper `streamed_supported` takes) the mapper runs
     over its stacked weights (`make_streamed_mixer_apply`): the whole block
     stack in one kernel launch for batches of at most 8, one launch per block
-    above that; else one `mixer_block` call per block."""
+    above that; else one `mixer_block` call per block. While tracing is on
+    (tracing.py), `render` records the span `render`, timed on the device,
+    holding `mapper` and synth's `decode`; `encode_tokens` records `text`,
+    `encode_prompts` also `tokenize` (host clock)."""
 
     def __init__(self, perceptor, mapper, vqgan, *, noise_dim: int = 0, cfg=None,
                  noise_bank=None, stream_mixer: bool = False, prior: Optional[Prior] = None):
@@ -97,22 +101,26 @@ class Generator:
     @torch.no_grad()
     def encode_tokens(self, tokens):
         """tokens int (B, 77) -> H (B, clip_dim) float32."""
-        return self.perceptor.encode_text(tokens).float()
+        with span("text"):
+            return self.perceptor.encode_text(tokens).float()
 
     def encode_prompts(self, texts):
         """Prompts -> H (B, clip_dim) float32, normalised where the config says
         `normalize_input`."""
-        toks = torch.from_numpy(bpe.get_tokenizer().tokenize(texts, truncate=True)).long()
+        with span("tokenize"):
+            toks = torch.from_numpy(bpe.get_tokenizer().tokenize(texts, truncate=True)).long()
         h = self.encode_tokens(toks.to(next(self.mapper.parameters()).device))
         return normalize(h) if self.cfg.get("normalize_input") else h
 
     @torch.no_grad()
     def render(self, net_in):
         """Mapper input (B, clip_dim + noise_dim) -> images (B, H, W, 3) float32 in [0, 1]."""
-        lo, hi = latent_bounds(self.vq)
-        # float32: JAX's clip promotes the bf16 latent against the f32 bounds
-        z = clamp_with_grad(self._mapper_apply(net_in).float(), lo, hi)
-        return synth(self.vq, z).float()
+        with span("render", device=True, batch=len(net_in)):
+            lo, hi = latent_bounds(self.vq)
+            with span("mapper"):
+                z = self._mapper_apply(net_in)
+            # float32: JAX's clip promotes the bf16 latent against the f32 bounds
+            return synth(self.vq, clamp_with_grad(z.float(), lo, hi)).float()
 
     def generate(self, h, *, nb_repeats: int = 1, seed: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):

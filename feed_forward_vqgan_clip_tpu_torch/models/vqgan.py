@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from feed_forward_vqgan_clip_tpu_torch.config import TrainConfig, vqgan_arch_config
+from feed_forward_vqgan_clip_tpu_torch.tracing import span
 from feed_forward_vqgan_clip_tpu_torch.io import msgpack
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
     migrate_groupnorm_layout,
@@ -91,10 +92,16 @@ class ResnetBlock(nn.Module):
             self.nin_shortcut = Conv2d(in_ch, out_ch, 1, **kw)
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
-        if hasattr(self, "nin_shortcut"):
-            x = self.nin_shortcut(x)
+        with span("decode.norm"):
+            h = F.silu(self.norm1(x))
+        with span("decode.conv"):
+            h = self.conv1(h)
+        with span("decode.norm"):
+            h = self.dropout(F.silu(self.norm2(h)))
+        with span("decode.conv"):
+            h = self.conv2(h)
+            if hasattr(self, "nin_shortcut"):
+                x = self.nin_shortcut(x)
         return x + h
 
 
@@ -112,15 +119,16 @@ class AttnBlock(nn.Module):
         self.proj_out = Conv2d(channels, channels, 1, **kw)
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        hn = self.norm(x)
-        q = self.q(hn).reshape(b, c, h * w).transpose(1, 2)  # (b, hw, c)
-        k = self.k(hn).reshape(b, c, h * w)                  # (b, c, hw)
-        v = self.v(hn).reshape(b, c, h * w).transpose(1, 2)
-        attn = torch.bmm(q, k) * (c ** -0.5)
-        attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
-        out = torch.bmm(attn, v).transpose(1, 2).reshape(b, c, h, w)
-        return x + self.proj_out(out)
+        with span("decode.attn"):  # its norm and 1x1 convs inside, whole
+            b, c, h, w = x.shape
+            hn = self.norm(x)
+            q = self.q(hn).reshape(b, c, h * w).transpose(1, 2)  # (b, hw, c)
+            k = self.k(hn).reshape(b, c, h * w)                  # (b, c, hw)
+            v = self.v(hn).reshape(b, c, h * w).transpose(1, 2)
+            attn = torch.bmm(q, k) * (c ** -0.5)
+            attn = torch.softmax(attn.float(), dim=-1).to(self.dtype)
+            out = torch.bmm(attn, v).transpose(1, 2).reshape(b, c, h, w)
+            return x + self.proj_out(out)
 
 
 class Upsample(nn.Module):
@@ -143,11 +151,12 @@ class Upsample(nn.Module):
                              persistent=False)
 
     def forward(self, x):
-        k4 = self.fold @ self.conv.weight.float() @ self.fold.t()  # (O, I, 4, 4)
-        # conv_transpose2d's weight is (I, O, kh, kw) and slides flipped
-        wt = k4.flip(2, 3).transpose(0, 1).to(self.dtype)
-        return F.conv_transpose2d(x.to(self.dtype), wt, self.conv.bias.to(self.dtype),
-                                  stride=2, padding=1)
+        with span("decode.conv"):  # the weight fold included
+            k4 = self.fold @ self.conv.weight.float() @ self.fold.t()  # (O, I, 4, 4)
+            # conv_transpose2d's weight is (I, O, kh, kw) and slides flipped
+            wt = k4.flip(2, 3).transpose(0, 1).to(self.dtype)
+            return F.conv_transpose2d(x.to(self.dtype), wt, self.conv.bias.to(self.dtype),
+                                      stride=2, padding=1)
 
 
 class _UpLevel(nn.Module):
@@ -195,7 +204,8 @@ class Decoder(nn.Module):
         self.conv_out = Conv2d(block_in, out_ch, 3, **kw)
 
     def forward(self, z):
-        h = self.conv_in(z)
+        with span("decode.conv"):
+            h = self.conv_in(z)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
         for i_level in reversed(range(len(self.up))):
             up = self.up[i_level]
@@ -205,7 +215,10 @@ class Decoder(nn.Module):
                     h = up.attn[i_block](h)
             if hasattr(up, "upsample"):
                 h = up.upsample(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        with span("decode.norm"):
+            h = F.silu(self.norm_out(h))
+        with span("decode.conv"):
+            return self.conv_out(h)
 
 
 class _Quantize(nn.Module):
@@ -237,7 +250,8 @@ class VQGAN(nn.Module):
 
     def decode_latent(self, z_q):
         """z_q (B, S, S, embed_dim) NHWC -> image (B, 16S, 16S, out_ch) NHWC in (-1, 1)."""
-        h = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
+        with span("decode.conv"):
+            h = self.post_quant_conv(z_q.permute(0, 3, 1, 2))
         return self.decoder(h).permute(0, 2, 3, 1)
 
     forward = decode_latent
@@ -279,10 +293,18 @@ def synth(vqgan: VQGAN, z):
     """z (B, S, S, C) latent -> image (B, 16S, 16S, 3) in [0, 1].
 
     The reference's synth: vector_quantize (straight-through) -> decode ->
-    (x + 1) / 2 -> clamp_with_grad. The JAX package's fold_pqc=False graph."""
-    z_q = vector_quantize(z, vqgan.codebook())
-    x = vqgan.decode_latent(z_q)
-    return clamp_with_grad((x + 1.0) / 2.0, 0.0, 1.0)
+    (x + 1) / 2 -> clamp_with_grad. The JAX package's fold_pqc=False graph.
+    Spans: `decode` over it all, `vq` over the search and gather, and in the
+    decoder `decode.norm` (a GroupNorm with its SiLU), `decode.conv` (a
+    convolution, Upsample's weight fold included) and `decode.attn` (an
+    AttnBlock whole), disjoint; residual adds, the scaling and the clamp lie
+    outside all four. Called under no other span, `decode` times them all on
+    the device; else its root decides."""
+    with span("decode", device=True):
+        with span("vq"):
+            z_q = vector_quantize(z, vqgan.codebook())
+        x = vqgan.decode_latent(z_q)
+        return clamp_with_grad((x + 1.0) / 2.0, 0.0, 1.0)
 
 
 def latent_bounds(vqgan: VQGAN):

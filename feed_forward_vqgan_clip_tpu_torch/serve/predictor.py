@@ -16,10 +16,17 @@ depth-streaming Mixer stack (one K4 launch for all blocks on the card); a larger
 one through the per-block path (K2 per block). On the CPU the same routing runs
 the kernels' plain versions and the module path.
 
+While tracing is on (tracing.py), a request records the span `request` (its
+model, grid and route; its request id from the Predictor's counter) holding
+`tokenize`, `text`, `prior`, `mapper`, synth's `decode`, `fetch` (the host
+waiting for the images) and `png`, all on the host clock: a request puts no
+CUDA event between its launches.
+
 Everything stays resident on one device. `prior=True` for a model without a
 prior is ignored, as in the JAX package.
 """
 
+import itertools
 import json
 import logging
 import os
@@ -45,6 +52,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
 from feed_forward_vqgan_clip_tpu_torch.ops.losses import normalize
 from feed_forward_vqgan_clip_tpu_torch.registry import PRIOR_MODELS, RELEASED_MODELS
 from feed_forward_vqgan_clip_tpu_torch.tokenizer import bpe
+from feed_forward_vqgan_clip_tpu_torch.tracing import request, span
 
 log = logging.getLogger(__name__)
 
@@ -79,6 +87,7 @@ class Predictor:
         self.model_prior: Dict[str, str] = {}  # model name -> prior path
         self._mapper_apply: Dict[str, Callable] = {}
         self._stream_params: Dict[str, object] = {}
+        self._request_ids = itertools.count(1)
 
     def setup(self):
         for path in self.model_paths:
@@ -136,30 +145,39 @@ class Predictor:
         vq, (lo, hi) = self.vqgans[_vqgan_key(cfg)]
         gh, gw = (int(v) for v in grid_size.split("x"))
         n = gh * gw
-
-        toks = torch.from_numpy(bpe.get_tokenizer().tokenize([prompt], truncate=True)).long()
-        h = perceptor.encode_text(toks.to(self.device)).float()
-        if cfg.get("normalize_input"):
-            h = normalize(h)
-        h = h.repeat(n, 1)
-        mark("text")
-        if prior and model in self.model_prior:  # else prior=True is ignored
-            h = self.priors[self.model_prior[model]].sample(h, gen)
-        mark("prior")
-        noise_dim = int(cfg.get("noise_dim") or 0)
-        if noise_dim:
-            if noise_bank is not None and len(noise_bank) >= n:
-                nz = noise_bank[:n]
-            else:
-                nz = torch.randn(n, noise_dim, generator=gen)
-            h = torch.cat([h, nz.to(self.device, h.dtype)], dim=1)
-        if self.route(model, n) == "stream":
-            z = streamed_mixer_forward(mapper, self._stream_params[model], h)
-        else:
-            z = self._mapper_apply[model](h)
-        mark("mapper")
-        # float32: the bf16 latent is clamped against the f32 bounds
-        imgs = synth(vq, clamp_with_grad(z.float(), lo, hi)).float()
-        mark("decode")
-        save_image(make_grid(imgs.cpu().numpy(), nrow=gw), out_path)
+        route = self.route(model, n)
+        with request(next(self._request_ids)), \
+                span("request", model=model, grid=grid_size, route=route):
+            with span("tokenize"):
+                toks = bpe.get_tokenizer().tokenize([prompt], truncate=True)
+            with span("text"):
+                h = perceptor.encode_text(torch.from_numpy(toks).long().to(self.device)).float()
+                if cfg.get("normalize_input"):
+                    h = normalize(h)
+                h = h.repeat(n, 1)
+            mark("text")
+            with span("prior"):
+                if prior and model in self.model_prior:  # else prior=True is ignored
+                    h = self.priors[self.model_prior[model]].sample(h, gen)
+            mark("prior")
+            with span("mapper"):
+                noise_dim = int(cfg.get("noise_dim") or 0)
+                if noise_dim:
+                    if noise_bank is not None and len(noise_bank) >= n:
+                        nz = noise_bank[:n]
+                    else:
+                        nz = torch.randn(n, noise_dim, generator=gen)
+                    h = torch.cat([h, nz.to(self.device, h.dtype)], dim=1)
+                if route == "stream":
+                    z = streamed_mixer_forward(mapper, self._stream_params[model], h)
+                else:
+                    z = self._mapper_apply[model](h)
+            mark("mapper")
+            # float32: the bf16 latent is clamped against the f32 bounds
+            imgs = synth(vq, clamp_with_grad(z.float(), lo, hi)).float()
+            mark("decode")
+            with span("fetch"):
+                imgs = imgs.cpu().numpy()
+            with span("png"):
+                save_image(make_grid(imgs, nrow=gw), out_path)
         return out_path

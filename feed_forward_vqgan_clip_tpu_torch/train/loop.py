@@ -113,13 +113,15 @@ from feed_forward_vqgan_clip_tpu_torch.train.state import (
     make_optimizer,
     make_train_state,
 )
+from feed_forward_vqgan_clip_tpu_torch.tracing import span
 
 log = logging.getLogger(__name__)
 
 # the stages a step reports to its `mark` callback, in order
 STAGES = ("text", "mapper", "decode", "diversity", "cutouts", "image_tower", "loss",
           "backward", "adam")
-PROFILE_STEPS = (10, 15)  # the torch.profiler window of `profile_dir`
+# the torch.profiler window of `profile_dir`; its trace.json holds the `ffvc.` spans
+PROFILE_STEPS = (10, 15)
 
 
 class FrozenModels(NamedTuple):
@@ -200,7 +202,10 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
     `aug_generator` (default `generator`). `mark(stage)`, where given, is called
     as each stage of STAGES has been enqueued (for per-stage timing). Metrics are
     0-d tensors on the device: loss, dists, diversity, l2, tv (the data group's
-    means, after a train_step)."""
+    means, after a train_step). While tracing is on (tracing.py), a train_step
+    records the span `step` (host clock) holding `step.<stage>` for each stage of
+    loss_fn, `step.backward` and `step.adam` (with the gradients' mean over
+    `mesh` where there is one)."""
     repeat = int(cfg.get("repeat"))
     cutn = int(cfg.get("cutn"))
     noise_dim = int(cfg.get("noise_dim") or 0)
@@ -232,68 +237,75 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
         dev = inp.device
         # this rank's rows of the global batch, whose shape the draws take
         rows = global_row_index(repeat, bs, mesh, dev) if data_parallel else None
-        inp_feats = perceptor.encode_text(inp).float() if inp_is_tokens else inp.float()
-        # text-only datasets feed the same tokens as input and target: encode once
-        if same_io:
-            out_feats = inp_feats
-        elif out_is_tokens:
-            out_feats = perceptor.encode_text(out).float()
-        else:
-            out_feats = out.float()
-        if normalize_input:
-            inp_feats = normalize(inp_feats)
+        with span("step.text"):
+            inp_feats = perceptor.encode_text(inp).float() if inp_is_tokens else inp.float()
+            # text-only datasets feed the same tokens as input and target: encode once
+            if same_io:
+                out_feats = inp_feats
+            elif out_is_tokens:
+                out_feats = perceptor.encode_text(out).float()
+            else:
+                out_feats = out.float()
+            if normalize_input:
+                inp_feats = normalize(inp_feats)
         mark("text")
-        # (repeat*bs, dim), repeat-major
-        inp_feats = inp_feats.repeat(repeat, 1)
-        out_feats = out_feats.repeat(repeat, 1)
-        if noise_dim:
-            if "noise" in batch:  # fixed bank rows (repeat, noise_dim)
-                noise = batch["noise"].repeat_interleave(bs, dim=0)
-            elif rows is None:
-                noise = torch.randn(repeat * bs, noise_dim, generator=generator, device=dev)
+        with span("step.mapper"):
+            # (repeat*bs, dim), repeat-major
+            inp_feats = inp_feats.repeat(repeat, 1)
+            out_feats = out_feats.repeat(repeat, 1)
+            if noise_dim:
+                if "noise" in batch:  # fixed bank rows (repeat, noise_dim)
+                    noise = batch["noise"].repeat_interleave(bs, dim=0)
+                elif rows is None:
+                    noise = torch.randn(repeat * bs, noise_dim, generator=generator, device=dev)
+                else:
+                    noise = torch.randn(repeat * bs * mesh.data, noise_dim, generator=generator,
+                                        device=dev)[rows]
+                net_in = torch.cat([inp_feats, noise.to(inp_feats.dtype)], dim=1)
             else:
-                noise = torch.randn(repeat * bs * mesh.data, noise_dim, generator=generator,
-                                    device=dev)[rows]
-            net_in = torch.cat([inp_feats, noise.to(inp_feats.dtype)], dim=1)
-        else:
-            net_in = inp_feats
-        if dropout > 0:  # the module path, its masks drawn from the step's generator
-            with (global_rows(rows, repeat * bs * mesh.data) if data_parallel
-                  else contextlib.nullcontext()):
-                z = mapper(net_in, generator)
-        else:
-            z = mapper_train_apply(net_in)  # (repeat*bs, S, S, C)
-        l2 = l2_loss(z) if l2_coef > 0 else torch.zeros((), device=dev)
+                net_in = inp_feats
+            if dropout > 0:  # the module path, its masks drawn from the step's generator
+                with (global_rows(rows, repeat * bs * mesh.data) if data_parallel
+                      else contextlib.nullcontext()):
+                    z = mapper(net_in, generator)
+            else:
+                z = mapper_train_apply(net_in)  # (repeat*bs, S, S, C)
+            l2 = l2_loss(z) if l2_coef > 0 else torch.zeros((), device=dev)
         mark("mapper")
-        # float32: JAX's clip promotes the compute-dtype latent against f32 bounds
-        z = clamp_with_grad(z.float(), z_lo, z_hi)
-        xr = synth(vq, z).float()  # (repeat*bs, H, W, 3)
-        tv = tv_loss(xr) if tv_coef > 0 else torch.zeros((), device=dev)
+        with span("step.decode"):
+            # float32: JAX's clip promotes the compute-dtype latent against f32 bounds
+            z = clamp_with_grad(z.float(), z_lo, z_hi)
+            xr = synth(vq, z).float()  # (repeat*bs, H, W, 3)
+            tv = tv_loss(xr) if tv_coef > 0 else torch.zeros((), device=dev)
         mark("decode")
-        mean = torch.tensor(CLIP_MEAN, device=dev)
-        std = torch.tensor(CLIP_STD, device=dev)
-        if diversity_coef:
-            feats = [f.float() for f in frozen.vgg((xr - mean) / std)]
-            if data_parallel and diversity_mode == "all":  # the global batch's pairs
-                feats = [gather_rows(f, mesh, repeat) for f in feats]
-                div = diversity_loss(feats, repeat, bs * mesh.data, diversity_mode)
+        with span("step.diversity"):
+            mean = torch.tensor(CLIP_MEAN, device=dev)
+            std = torch.tensor(CLIP_STD, device=dev)
+            if diversity_coef:
+                feats = [f.float() for f in frozen.vgg((xr - mean) / std)]
+                if data_parallel and diversity_mode == "all":  # the global batch's pairs
+                    feats = [gather_rows(f, mesh, repeat) for f in feats]
+                    div = diversity_loss(feats, repeat, bs * mesh.data, diversity_mode)
+                else:
+                    div = diversity_loss(feats, repeat, bs, diversity_mode)
             else:
-                div = diversity_loss(feats, repeat, bs, diversity_mode)
-        else:
-            div = torch.zeros((), device=dev)
+                div = torch.zeros((), device=dev)
         mark("diversity")
-        # (cutn*repeat*bs, h, w, 3)
-        x = make_cutouts(aug_generator or generator, xr.to(aug_dtype))
-        x = (x - mean.to(aug_dtype)) / std.to(aug_dtype)
+        with span("step.cutouts"):
+            # (cutn*repeat*bs, h, w, 3)
+            x = make_cutouts(aug_generator or generator, xr.to(aug_dtype))
+            x = (x - mean.to(aug_dtype)) / std.to(aug_dtype)
         mark("cutouts")
-        embed = normalize(clip_image_apply(x).float())
+        with span("step.image_tower"):
+            embed = normalize(clip_image_apply(x).float())
         mark("image_tower")
-        h = normalize(out_feats.repeat(cutn, 1))  # (cutn*repeat*bs, dim), cutn-major
-        dists = target_loss_coef * spherical_dist_loss(h, embed)
-        if input_loss:
-            hi = normalize(inp_feats.repeat(cutn, 1))
-            dists = dists + input_loss_coef * spherical_dist_loss(hi, embed)
-        loss = dists - diversity_coef * div + l2_coef * l2 + tv_coef * tv
+        with span("step.loss"):
+            h = normalize(out_feats.repeat(cutn, 1))  # (cutn*repeat*bs, dim), cutn-major
+            dists = target_loss_coef * spherical_dist_loss(h, embed)
+            if input_loss:
+                hi = normalize(inp_feats.repeat(cutn, 1))
+                dists = dists + input_loss_coef * spherical_dist_loss(hi, embed)
+            loss = dists - diversity_coef * div + l2_coef * l2 + tv_coef * tv
         mark("loss")
         metrics = {"loss": loss, "dists": dists, "diversity": div, "l2": l2, "tv": tv}
         return loss, {k: v.detach().float() for k, v in metrics.items()}
@@ -302,17 +314,20 @@ def make_train_step(cfg: TrainConfig, mapper, frozen: FrozenModels, make_cutouts
                    mark: Optional[Callable] = None,
                    aug_generator: Optional[torch.Generator] = None):
         mark = mark or (lambda stage: None)
-        for p in state.params:
-            p.grad = None
-        loss, metrics = loss_fn(batch, generator, mark, aug_generator)
-        loss.backward()
-        mark("backward")
-        if mesh is not None:
-            metrics = all_reduce_grads_mean(state.params, mesh, metrics)
-        state.apply_gradients()
-        # the loss EMA stays on the device: no host sync per step
-        state.avg_loss = metrics["loss"] * 0.01 + state.avg_loss * 0.99
-        mark("adam")
+        with span("step", batch=len(batch["inp"])):
+            for p in state.params:
+                p.grad = None
+            loss, metrics = loss_fn(batch, generator, mark, aug_generator)
+            with span("step.backward"):
+                loss.backward()
+            mark("backward")
+            with span("step.adam"):
+                if mesh is not None:
+                    metrics = all_reduce_grads_mean(state.params, mesh, metrics)
+                state.apply_gradients()
+                # the loss EMA stays on the device: no host sync per step
+                state.avg_loss = metrics["loss"] * 0.01 + state.avg_loss * 0.99
+            mark("adam")
         return state, metrics
 
     return train_step, loss_fn
