@@ -199,13 +199,24 @@ once on one NVIDIA GPU, in phases.
    VQGAN (random from a seed of its own) against the reference graph (NN-2x
    then the 3x3 conv) on the same weights, the whole decoder, f32 and bf16,
    outputs and input gradients; at B=256 (2^31 elements in the last level) the
-   whole batch against its halves, with its peak memory.
-29. [bench] K1 over the bench's 65536 tokens and K2 at its B=256 against
+   whole batch against its halves, bit for bit, with its peak memory.
+29. [groupnorm] The decoder's GroupNorm + SiLU kernel pair (csrc/group_norm.cu)
+   against its plain form at B=256, bf16, at the seven (channels, side) shapes
+   of the f16-16384 decoder's norms, channels-last (the decoder's layout), SiLU
+   on and off (the tests' tolerances); kernel ms beside the plain form's and
+   the 6-byte bound (two bf16 reads, one write an element), each shape and the
+   39 norms of one decode summed; at 256 x 256 x 128 and 16 x 16 x 512 also
+   F.group_norm + F.silu as library_ms (a yardstick on no path); two launches
+   bitwise equal. The serving phases assert the pair's 78 launches a decode,
+   [train] none in a step, [bench] some in its infer and latency legs.
+30. [bench] K1 over the bench's 65536 tokens and K2 at its B=256 against
    their plain versions, then `python -m feed_forward_vqgan_clip_tpu_torch.cli
    bench` as a subprocess: exit 0, the JAX bench's three metric lines with its
    names and keys and the headline again, every value finite and > 0, each
    leg's kernel launches (K1 + K2, K4, K1 + K6-K10).
-30. Prints the card's line, the kernels' JSON line (K11's launches from the
+31. Prints the card's line, the kernels' JSON line (the GroupNorm pair's row,
+   replacing no TPU kernel, with the decodes' launches of the phases that count
+   them and its times at 256 x 256 x 128) (K11's launches from the
    [trainer] runs, the warps' from [train], [trainer-crops], [mappers],
    [diversity], [perceptors], [parallel] and [bench], with the rectangular
    warps' times, and their launches in [trainer-crops] as the wrappers counted
@@ -378,6 +389,14 @@ VERIFY_SEED = 91
 UPSAMPLE_SEED = 111
 UPSAMPLE_F32_TOL = 1e-4
 UPSAMPLE_BF16_TOL = 5e-2
+# [groupnorm]: (channels, side) of the f16-16384 decoder's 39 GroupNorms -> how many of
+# the 39 have that shape
+GN_SEED = 131
+GN_DECODER_NORMS = {(512, 16): 14, (512, 32): 1, (256, 32): 5, (256, 64): 6, (256, 128): 1,
+                    (128, 128): 5, (128, 256): 7}
+GN_DECODE_LAUNCHES = 2 * sum(GN_DECODER_NORMS.values())  # 78: two a norm
+GN_ROW_SHAPE = (128, 256)  # the kernels' JSON row: the last level, 70% of the bytes
+GN_LIBRARY_SHAPES = ((128, 256), (512, 16))
 # [bench]: `cli bench` as a subprocess; K1 and K2 at its sizes first
 BENCH_SEED = 121
 BENCH_TIMEOUT = 480
@@ -2164,27 +2183,31 @@ def save_flagship(folder, seed):
 
 def serve_counters():
     """{kernel name: wrapper} of the kernels a flagship request can launch."""
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import group_norm_silu
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
 
-    return {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block}
+    return {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block,
+            "group_norm": group_norm_silu}
 
 
 def serve_want(n):
     """The launches of a flagship request of n images: K1 once, K4 once at
-    n <= 8, else K2 once a block."""
+    n <= 8, else K2 once a block; the GroupNorm pair at each of the decoder's
+    norms."""
     from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
 
     return {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
-            "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH}
+            "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH,
+            "group_norm": GN_DECODE_LAUNCHES}
 
 
 def phase_serve(smi):
-    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's
-    launches in the timed requests."""
+    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's and
+    the GroupNorm pair's launches in the timed requests."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
@@ -2216,7 +2239,7 @@ def phase_serve(smi):
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve] peak device memory in the requests {peak:.2f} GiB; launches in the timed "
             f"requests {dict((k, fn.launches) for k, fn in counters.items())}")
-        launches = counters["mixer_stream"].launches
+        launches = {k: counters[k].launches for k in ("mixer_stream", "group_norm")}
         del pred
     return launches
 
@@ -2366,7 +2389,8 @@ def phase_train(smi):
     (FFVC_FUSED_CLIP=1). A warm-up step each, then TRAIN_STEPS timed steps each,
     taken in turns (module, fused, fused, module, ...) so that both meet the same
     host: host clock around each step, ending in a synchronize, per-stage CUDA
-    events. -> (the kernels' launches in the module tower's timed steps,
+    events; no step launches the GroupNorm pair (the decoder's norms take the
+    plain form where autograd records). -> (the kernels' launches in the module tower's timed steps,
     {"module" / "fused": {"step", "image_tower", "backward"}: median ms})."""
     import torch
 
@@ -2374,6 +2398,7 @@ def phase_train(smi):
     from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
 
     counters = train_counters()
+    group_norm = serve_counters()["group_norm"]  # the decoder's norms take the plain form here
     runs = {}
     for name, fused in (("module", False), ("fused", True)):
         t0 = time.perf_counter()
@@ -2399,6 +2424,7 @@ def phase_train(smi):
         name = "fused" if i % 4 in (1, 2) else "module"
         r = runs[name]
         before = {k: fn.launches for k, fn in counters.items()}
+        gn_before = group_norm.launches
         snapshot = [p.detach().clone() for p in r["watch"]]
         events = [torch.cuda.Event(enable_timing=True)]
         marks = []
@@ -2421,9 +2447,10 @@ def phase_train(smi):
         launched = {k: fn.launches - before[k] for k, fn in counters.items()}
         for k, v in launched.items():
             r["launches"][k] += v
-        if launched != r["per_step"]:
+        if launched != r["per_step"] or group_norm.launches != gn_before:
             raise AssertionError(f"train step ({name} tower) launches {launched}, need "
-                                 f"{r['per_step']}")
+                                 f"{r['per_step']}; GroupNorm pair "
+                                 f"{group_norm.launches - gn_before}, need 0")
         if not torch.isfinite(torch.tensor(loss)).item():
             raise AssertionError(f"train step loss {loss} is not finite")
         if all(torch.equal(a, p.detach()) for a, p in zip(snapshot, r["watch"])):
@@ -3299,7 +3326,8 @@ def phase_eval(smi):
         end = time.perf_counter()
         launches = {k: fn.launches for k, fn in counters.items()}
         batches = -(-EVAL_PROMPTS // EVAL_BATCH)
-        need = {"vq_argmin": batches, "mixer_stream": 0, "mixer_block": batches * STREAM_DEPTH}
+        need = {"vq_argmin": batches, "mixer_stream": 0, "mixer_block": batches * STREAM_DEPTH,
+                "group_norm": batches * GN_DECODE_LAUNCHES}
         if launches != need:
             raise AssertionError(f"[eval] launches {launches}, need {need}")
         with open(os.path.join(out, "eval_prompts.npz_ViT-B_32.json")) as fd:
@@ -3578,7 +3606,8 @@ def phase_native_ckpt(smi):
                 raise AssertionError(f"[native-ckpt] {grid}: the directory's images differ from "
                                      "the .th's")
         launches = {k: fn.launches for k, fn in counters.items()}
-        need = {"vq_argmin": 4, "mixer_stream": 4, "mixer_block": 0}
+        need = {"vq_argmin": 4, "mixer_stream": 4, "mixer_block": 0,
+                "group_norm": 4 * GN_DECODE_LAUNCHES}
         if launches != need:
             raise AssertionError(f"[native-ckpt] launches {launches}, need {need}")
         log(f"[native-ckpt] Predictor.setup() on the `.th` and the directory {setup_s:.1f} s; "
@@ -4635,7 +4664,8 @@ def phase_upsample(smi):
     gradient to the input, f32 within UPSAMPLE_F32_TOL, bf16 within
     UPSAMPLE_BF16_TOL of max |reference|. At B=256 (the bench's batch: 2^31
     elements at the decoder's last level) the whole batch against its two
-    halves within UPSAMPLE_BF16_TOL, with its peak memory. -> None"""
+    halves bit for bit (the convolutions and the GroupNorm pair treat each image
+    alike whatever the batch), with its peak memory. -> None"""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.models.vqgan import make_vqgan
@@ -4675,14 +4705,97 @@ def phase_upsample(smi):
         half = BENCH_BATCH // 2
         halves = torch.cat([vq.decode_latent(big[:half]), vq.decode_latent(big[half:])])
         err = rel_max(whole, halves)
+        same = torch.equal(whole, halves)
     log(f"[upsample] bf16 B={BENCH_BATCH}: the whole batch against two halves {err:.3e} of "
-        f"max |halves| (ceiling {UPSAMPLE_BF16_TOL:g}), bitwise {torch.equal(whole, halves)}; "
+        f"max |halves|, bitwise {same}; "
         f"peak {peak:.2f} GiB, {t_whole:.2f} s host, first call; phase "
         f"{time.perf_counter() - t_phase:.1f} s ({smi})")
-    if not (torch.isfinite(whole).all().item() and err <= UPSAMPLE_BF16_TOL):
+    if not (torch.isfinite(whole).all().item() and same):
         raise AssertionError(f"[upsample] B={BENCH_BATCH} decoded whole differs from its halves")
     del vq, big, whole, halves
     torch.cuda.empty_cache()
+
+
+def phase_groupnorm(smi):
+    """[groupnorm]: the GroupNorm + SiLU kernel pair at the batch-256 decode's
+    shapes (GN_DECODER_NORMS), channels-last as the decoder hands them on,
+    against its plain form, bf16 with float32 statistics: no further from the
+    float32 plain result than the bf16 plain form is, plus one bf16 ulp of max
+    |plain|, two launches bitwise equal; kernel and plain ms (CUDA events, in
+    turns), the bound (6 bytes an element at 3.35 TB/s), library_ms where
+    GN_LIBRARY_SHAPES names the shape. -> the kernels' JSON row: ms, plain_ms,
+    bound_ms, library_ms at GN_ROW_SHAPE, max_abs_err over every shape, and
+    under "decode" the 39 norms of one decode summed."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import (
+        gn_plan,
+        group_norm_silu,
+        group_norm_silu_plain,
+    )
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(GN_SEED)
+    decode = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    row, max_err = {}, 0.0
+    for (c, side), count in GN_DECODER_NORMS.items():
+        w = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        x = (1.5 * torch.randn(BENCH_BATCH, c, side, side, generator=gen, device="cuda")
+             + torch.randn(1, c, 1, 1, generator=gen, device="cuda")
+             ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        plan = gn_plan(c * side * side, c)
+        with torch.no_grad():
+            errs = []
+            for silu in (False, True):
+                got = group_norm_silu(x, w, b, silu=silu)
+                again = group_norm_silu(x, w, b, silu=silu)
+                ref = group_norm_silu_plain(x.float(), w, b, silu=silu)
+                plain = group_norm_silu_plain(x, w, b, silu=silu)
+                top = ref.abs().max().item()
+                err = (got.float() - ref).abs().max().item()
+                plain_err = (plain.float() - ref).abs().max().item()
+                ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+                same = torch.equal(got, again)
+                max_err = max(max_err, err)
+                errs.append(f"silu={silu}: kernel {err:.3e}, plain {plain_err:.3e}, "
+                            f"bitwise {same}")
+                if not (err <= plain_err + ulp and same
+                        and got.is_contiguous(memory_format=torch.channels_last)):
+                    raise AssertionError(
+                        f"[groupnorm] {c}x{side}^2 silu={silu}: kernel error {err:.3e} > "
+                        f"plain {plain_err:.3e} + ulp {ulp:.3e}, bitwise {same}")
+                del got, again, ref, plain
+            torch.cuda.empty_cache()
+            kernel_ms, plain_ms = paired_ms(
+                lambda: group_norm_silu(x, w, b, silu=True),
+                lambda: group_norm_silu_plain(x, w, b, silu=True))
+            bound_ms = 6 * x.numel() / PEAK_BYTES_PER_S * 1e3
+            line = (f"[groupnorm] B={BENCH_BATCH} C={c} {side}x{side} x{count}: kernel "
+                    f"{kernel_ms:.4f} ms ({bound_ms / kernel_ms:.1%} of the bound), plain "
+                    f"{plain_ms:.4f}, bound {bound_ms:.4f}; plan {plan.splits} splits of "
+                    f"{plan.slice}; " + "; ".join(errs))
+            library_ms = None
+            if (c, side) in GN_LIBRARY_SHAPES:
+                wl, bl = w.to(x.dtype), b.to(x.dtype)
+                library_ms = cuda_ms(lambda: F.silu(F.group_norm(x, 32, wl, bl, 1e-6)))
+                line += f"; library (F.group_norm + F.silu) {library_ms:.4f} ms"
+            log(line)
+        if (c, side) == GN_ROW_SHAPE:
+            row = {"shape": f"{BENCH_BATCH}x{c}x{side}x{side} bf16 channels-last, SiLU",
+                   "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes", "library_ms": library_ms}
+        for k, v in (("ms", kernel_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            decode[k] += count * v
+        del x
+        torch.cuda.empty_cache()
+    log(f"[groupnorm] one decode at B={BENCH_BATCH}, 39 norms: kernel {decode['ms']:.2f} ms, "
+        f"plain {decode['plain_ms']:.2f}, bound {decode['bound_ms']:.2f}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {**row, "max_abs_err": max_err, "decode": decode}
 
 
 def jax_bench_lines():
@@ -4773,7 +4886,8 @@ def phase_bench(smi):
     legs = {leg: json.loads(m.group(1)) for leg, m in (
         (leg, re.search(rf"^# {leg}:.*; launches (\{{[^}}]*\}});", run.stderr, re.M))
         for leg in ("infer", "latency", "train")) if m}
-    want = {"infer": ("vq_argmin", "mixer_block"), "latency": ("vq_argmin", "mixer_stream"),
+    want = {"infer": ("vq_argmin", "mixer_block", "group_norm"),
+            "latency": ("vq_argmin", "mixer_stream", "group_norm"),
             "train": ("vq_argmin", "mixer_fwd_res", "mixer_channel_bwd", "mixer_token_bwd",
                       "warp_forward", "warp_adjoint")}
     for leg, names in want.items():
@@ -4913,7 +5027,7 @@ def main():
     phase_serve_reference()
     phase_train_reference()
     launches = phase_slice(smi)
-    launches["mixer_stream"] = phase_serve(smi)
+    launches.update(phase_serve(smi))
     train_launches, steps = phase_train(smi)
     module, fused = steps["module"], steps["fused"]
     log(f"[train] module tower against fused tower (K11), median ms: step {module['step']:.2f} / "
@@ -4939,6 +5053,7 @@ def main():
     parallel = phase_parallel(smi)
     verified = phase_verify_weights(smi)
     phase_upsample(smi)
+    group_norm = phase_groupnorm(smi)
     bench = phase_bench(smi)
     for phase in (mappers, prior, diversity, evals, perceptors, native_ckpt, parallel, verified,
                   bench):
@@ -4979,6 +5094,11 @@ def main():
                 "launches": n, "max_abs_err": err, **times[name],
                 "library_ms": times[name].get("library_ms")}
                for name, src, tpu, n, err in rows]
+    # no TPU kernel: the JAX decoder's GroupNorm is plain XLA; its launches are the
+    # decodes' of [serve], [prior], [eval], [native-ckpt], [parallel], [verify-weights]
+    # and [bench] (none in [train]'s steps)
+    kernels.append({"name": "group_norm", "route": "cuda", "source": csrc + "group_norm.cu",
+                    "replaces": None, "launches": launches["group_norm"], **group_norm})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     print(smi, flush=True)

@@ -5,11 +5,15 @@ taming's state-dict names (io/torch_import.convert_vqgan documents them):
 `quantize.embedding.weight`, `post_quant_conv`, `decoder.conv_in`,
 `decoder.mid.{block_1,attn_1,block_2}`, `decoder.up.{level}.{block,attn}.{i}`,
 `decoder.up.{level}.upsample.conv`, `decoder.norm_out`, `decoder.conv_out`.
-Parameters are float32; `dtype` is the compute dtype. The decoder runs NCHW
-inside; its public layouts are the JAX package's NHWC.
+Parameters are float32; `dtype` is the compute dtype. The decoder's tensors
+are (B, C, H, W) inside; its public layouts are the JAX package's NHWC. On the
+card they lie channels-last: cuDNN keeps the layout of the permuted NHWC
+latent through every conv, and the GroupNorm kernel keeps its input's.
 
-The JAX decoder has no Pallas kernel, so everything here is plain PyTorch
-(F.conv2d, matmul + softmax attention). Upsample runs the JAX package's
+The JAX decoder has no Pallas kernel. Everything here is plain PyTorch
+(F.conv2d, matmul + softmax attention) but the GroupNorm with its SiLU, which
+takes the kernel pair of csrc/group_norm.cu on the card where autograd records
+nothing (`GroupNorm32`). Upsample runs the JAX package's
 default form, the transposed conv (its mode 2); the reference graph (NN-2x then
 a 3x3 conv, mode 0) is what the tests hold it to. The JAX package's
 phase-decomposed upsample (mode 1) is a TPU relayout form and is not here.
@@ -33,6 +37,12 @@ from feed_forward_vqgan_clip_tpu_torch.io.from_jax import (
     vqgan_state_dict,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.grad_ops import clamp_with_grad
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import (
+    autograd_records,
+    group_norm_silu,
+    group_norm_silu_plain,
+    kernel_layout,
+)
 from feed_forward_vqgan_clip_tpu_torch.ops.quantize import vector_quantize
 
 log = logging.getLogger(__name__)
@@ -44,7 +54,17 @@ _UPSAMPLE_FOLD = ((1.0, 0.0, 0.0), (1.0, 1.0, 0.0), (0.0, 1.0, 1.0), (0.0, 0.0, 
 class GroupNorm32(nn.Module):
     """GroupNorm(32 groups, eps=1e-6) with f32 statistics over NCHW input; per-channel
     groups when C is not a multiple of 32 (tiny test configs). The normalization is
-    folded into one per-channel multiply-add applied in the compute dtype."""
+    folded into one per-channel multiply-add applied in the compute dtype; `silu`
+    applies the SiLU that follows it in the decoder.
+
+    Two routes, on what the call can observe: a CPU tensor, or a call through which
+    autograd records a graph (the train step, whose decoder input carries the
+    mapper's gradient), takes the plain form `group_norm_silu_plain`; any other
+    CUDA tensor (rendering, serving, the bench under no_grad) takes the kernel
+    pair of csrc/group_norm.cu, which has no backward, in the layout it reads
+    (`kernel_layout`; any other is made contiguous first). The kernel computes in
+    x's dtype, so on that route x must come in the compute dtype, as every
+    decoder layer hands it on; the plain form takes any float x."""
 
     def __init__(self, channels, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -52,19 +72,18 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x):
-        b, c, h, w = x.shape
-        groups = 32 if c % 32 == 0 else c
-        xg = x.reshape(b, groups, c // groups, h * w)
-        xf = xg.float()
-        mean = xf.mean(dim=(2, 3), keepdim=True)
-        var = (xf.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
-        inv = torch.rsqrt(var + 1e-6)
-        sc = self.weight.reshape(groups, c // groups, 1)
-        bi = self.bias.reshape(groups, c // groups, 1)
-        a = (inv * sc).to(self.dtype)
-        shift = (bi - mean * inv * sc).to(self.dtype)
-        return (xg.to(self.dtype) * a + shift).reshape(b, c, h, w)
+    def takes_kernel(self, x):
+        return x.device.type == "cuda" and not autograd_records(x, self.weight, self.bias)
+
+    def forward(self, x, silu=False):
+        if self.takes_kernel(x):
+            if x.dtype != self.dtype:
+                raise TypeError(f"GroupNorm32 on the card takes {self.dtype} input, got "
+                                f"{x.dtype}")
+            if kernel_layout(x) is None:
+                x = x.contiguous()
+            return group_norm_silu(x, self.weight, self.bias, silu=silu)
+        return group_norm_silu_plain(x, self.weight, self.bias, silu=silu, dtype=self.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -93,11 +112,11 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x):
         with span("decode.norm"):
-            h = F.silu(self.norm1(x))
+            h = self.norm1(x, silu=True)
         with span("decode.conv"):
             h = self.conv1(h)
         with span("decode.norm"):
-            h = self.dropout(F.silu(self.norm2(h)))
+            h = self.dropout(self.norm2(h, silu=True))
         with span("decode.conv"):
             h = self.conv2(h)
             if hasattr(self, "nin_shortcut"):
@@ -216,7 +235,7 @@ class Decoder(nn.Module):
             if hasattr(up, "upsample"):
                 h = up.upsample(h)
         with span("decode.norm"):
-            h = F.silu(self.norm_out(h))
+            h = self.norm_out(h, silu=True)
         with span("decode.conv"):
             return self.conv_out(h)
 

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # entry point -> argument types (csrc/*.cu `extern "C"` signatures)
 _SIGNATURES = {
     # x, codebook, xp, cp, n, k, c, channels, stream
@@ -89,6 +90,9 @@ _SIGNATURES = {
     # res, mul, aux, act, bn, grid, stream
     "ffvc_wgmma_gemm": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _I, _P, _I,
                         _P, _P, _P, _I, _I, _I, _P],
+    # x, gamma, beta, out, partial, rows, groups, cg, hw, slice, splits, eps, silu, path,
+    # dtype, stream
+    "ffvc_group_norm": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
     # img, mats, out, b, h, w, ho, wo, c, border, dtype, stream
     "ffvc_warp_forward": [_P, _P, _P] + [_I] * 8 + [_P],
     # g, mats, grad, b, h, w, ho, wo, c, border, dtype, stream

@@ -253,6 +253,7 @@ def dropped() -> int:
 def kernel_counters():
     """{kernel name: wrapper} of the port's kernels; each wrapper counts its
     launches on `.launches` (none on the CPU, where it runs its plain version)."""
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import group_norm_silu
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
         mixer_block,
         mixer_block_fwd_res,
@@ -272,4 +273,5 @@ def kernel_counters():
             "mixer_stream": mixer_stream, "mixer_block_stacked": mixer_block_stacked,
             "mixer_fwd_res": mixer_block_fwd_res, "mixer_channel_bwd": mixer_channel_bwd,
             "mixer_token_bwd": mixer_token_bwd, "warp_forward": warp_forward,
-            "warp_adjoint": warp_adjoint, "mlp_ln": mlp_ln, "mlp_ln_bwd": mlp_ln_bwd}
+            "warp_adjoint": warp_adjoint, "mlp_ln": mlp_ln, "mlp_ln_bwd": mlp_ln_bwd,
+            "group_norm": group_norm_silu}

@@ -35,7 +35,15 @@ features within 1e-4 of the CPU's; the native BPE core built. Upsample (the
 transposed conv) against the reference graph NN-2x + 3x3 conv on its weights
 (output, input and weight gradients), float32 within 1e-4 and bf16 within 5e-2
 of max |reference|; `cli bench` at a tiny model prints the JAX bench's lines and launches K1, K2,
-K4 and K6-K10 in its legs.
+K4 and K6-K10 in its legs. The GroupNorm + SiLU kernel pair (csrc/group_norm.cu)
+against its plain form at the decoder's shapes: float32 within 1e-5 of max
+|plain|; bf16 no further from the float32 plain result than the bf16 plain form
+is, plus one bf16 ulp of max |plain| (the kernel rounds once where the plain
+form rounds three times); two launches bitwise equal, and each image of a batch
+bitwise equal to itself alone. The f16-16384 decoder on
+the card (its norms on the kernel) against the CPU's on the same weights:
+float32 within 1e-3, bf16 within 5e-2 (tests/test_torch_vqgan.py's bf16
+tolerance) of max |CPU|.
 """
 
 import copy
@@ -52,8 +60,10 @@ from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png
 from feed_forward_vqgan_clip_tpu_torch.models import flow
 from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import (
+    GroupNorm32,
     Upsample,
     latent_bounds,
+    make_vqgan,
 )
 from feed_forward_vqgan_clip_tpu_torch.models.clip_fused import encode_image_fused
 from feed_forward_vqgan_clip_tpu_torch.models.clip_resnet import CLIPResNet
@@ -69,6 +79,11 @@ from feed_forward_vqgan_clip_tpu_torch.config import make_config
 from feed_forward_vqgan_clip_tpu_torch.ops import augment, pooling
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels import mixer_stream as mixer_stream_module
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import (
+    gn_plan,
+    group_norm_silu,
+    group_norm_silu_plain,
+)
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     ChannelGrads,
     MixerBlockWeights,
@@ -1173,3 +1188,186 @@ def test_bench_legs_on_card(cuda, monkeypatch, capsys):
     for leg, names in want.items():
         got = json.loads(re.search(rf"^# {leg}:.*; launches (\{{[^}}]*\}});", err, re.M).group(1))
         assert all(got.get(n, 0) > 0 for n in names), (leg, got)
+
+
+# (channels, side) of every GroupNorm in the f16-16384 decoder at a 16 x 16 latent
+GN_DECODER_SHAPES = [(512, 16), (512, 32), (256, 32), (256, 64), (256, 128), (128, 128),
+                     (128, 256)]
+
+
+def _gn_case(b, c, h, w, dtype, cuda, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (1.5 * torch.randn(b, c, h, w, generator=gen, device=cuda)
+         + torch.randn(1, c, 1, 1, generator=gen, device=cuda)).to(dtype)
+    weight = 1.0 + 0.1 * torch.randn(c, generator=gen, device=cuda)
+    bias = 0.1 * torch.randn(c, generator=gen, device=cuda)
+    return x, weight, bias
+
+
+def _gn_check(x, weight, bias, silu):
+    """The kernel against the plain form by the tolerances of the module docstring."""
+    got = group_norm_silu(x, weight, bias, silu=silu).float()
+    ref = group_norm_silu_plain(x.float(), weight, bias, silu=silu)
+    top = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all()
+    if x.dtype == torch.float32:
+        assert err <= 1e-5 * top, (err, top)
+    else:
+        plain = (group_norm_silu_plain(x, weight, bias, silu=silu).float() - ref).abs().max()
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert err <= plain.item() + ulp, (err, plain.item(), ulp)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("c,side", GN_DECODER_SHAPES)
+def test_group_norm_kernel_matches_plain(cuda, c, side, b, dtype, layout):
+    """Both layouts the kernel reads; the output keeps the input's."""
+    x, weight, bias = _gn_case(b, c, side, side, dtype, cuda)
+    x = x.contiguous(memory_format=layout)
+    with torch.no_grad():
+        assert group_norm_silu(x, weight, bias).is_contiguous(memory_format=layout)
+        for silu in (False, True):
+            _gn_check(x, weight, bias, silu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,h,w,offset", [(2, 20, 5, 7, 0), (3, 64, 3, 5, 0), (2, 64, 2, 2, 0),
+                                             (2, 96, 8, 8, 1), (3, 8, 5, 3, -1),
+                                             (2, 2048, 3, 3, -1)],
+                         ids=["per_channel_ragged", "groups32_ragged", "hw4", "misaligned",
+                              "nhwc_per_channel", "nhwc_2048"])
+def test_group_norm_kernel_ragged_and_misaligned(cuda, b, c, h, w, offset, dtype):
+    """The NCHW path: spans whose H W is no multiple of 8, and an input whose
+    storage starts one element past a 16-byte boundary; channels-last (offset -1)
+    at the ends of its channel range, odd pixel counts."""
+    x, weight, bias = _gn_case(b, c, h, w, dtype, cuda, seed=1)
+    if offset < 0:
+        x = x.contiguous(memory_format=torch.channels_last)
+        assert not x.is_contiguous()
+    if offset > 0:
+        buf = torch.empty(x.numel() + offset, dtype=dtype, device=cuda)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(b, c, h, w)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    with torch.no_grad():
+        for silu in (False, True):
+            _gn_check(x, weight, bias, silu)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("b,c,side", [(1, 128, 256), (4, 512, 16)])
+def test_group_norm_kernel_repeats_bitwise(cuda, b, c, side, layout):
+    x, weight, bias = _gn_case(b, c, side, side, torch.bfloat16, cuda, seed=2)
+    x = x.contiguous(memory_format=layout)
+    span = c * side * side if layout == torch.channels_last else c // 32 * side * side
+    if b == 1:  # the spans split: every CTA folds its span's partials
+        assert gn_plan(span, c if layout == torch.channels_last else None).splits > 1
+    with torch.no_grad():
+        first = group_norm_silu(x, weight, bias, silu=True)
+        second = group_norm_silu(x, weight, bias, silu=True)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("c,side", [(128, 128), (512, 16)])
+def test_group_norm_kernel_is_batch_invariant(cuda, c, side, layout):
+    """Each image of a batch normalizes bit for bit as it does alone: the plan
+    slices a span by its length, not by the batch."""
+    x, weight, bias = _gn_case(5, c, side, side, torch.bfloat16, cuda, seed=4)
+    x = x.contiguous(memory_format=layout)
+    with torch.no_grad():
+        whole = group_norm_silu(x, weight, bias, silu=True)
+        for i in range(x.shape[0]):
+            alone = x[i:i + 1].contiguous(memory_format=layout)
+            assert torch.equal(group_norm_silu(alone, weight, bias, silu=True), whole[i:i + 1])
+
+
+def test_group_norm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, weight, bias = _gn_case(2, 64, 8, 8, torch.float32, cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            group_norm_silu(x.transpose(2, 3), weight, bias)
+        with pytest.raises(TypeError):
+            group_norm_silu(x.half(), weight, bias)
+        with pytest.raises(TypeError):
+            group_norm_silu(x, weight.double(), bias)
+        with pytest.raises(ValueError):
+            group_norm_silu(x, weight.cpu(), bias)
+        x96, w96, b96 = _gn_case(2, 96, 4, 4, torch.bfloat16, cuda)
+        with pytest.raises(ValueError):  # channels-last, 96 channels: no power of two
+            group_norm_silu(x96.contiguous(memory_format=torch.channels_last), w96, b96)
+        norm96 = GroupNorm32(96, dtype=torch.bfloat16, device=cuda)
+        assert norm96(x96.contiguous(memory_format=torch.channels_last)).is_contiguous()
+    with pytest.raises(RuntimeError):
+        group_norm_silu(x.clone().requires_grad_(True), weight, bias)
+    norm = GroupNorm32(64, device=cuda)
+    xg = x.clone().requires_grad_(True)
+    assert not norm.takes_kernel(xg) and not norm.takes_kernel(x)  # the parameters record
+    with torch.no_grad():
+        assert norm.takes_kernel(xg)
+
+
+def _f16_decoder_pair(cuda, dtype, seed=11):
+    """The f16-16384 VQGAN on the CPU (float32) and on the card (`dtype`) holding
+    the same weights: init_random_ from a CPU generator, then norm scales 1 +
+    N(0, 0.1) and shifts N(0, 0.1)."""
+    from feed_forward_vqgan_clip_tpu_torch.registry import VQGAN_CONFIGS
+
+    cfg = VQGAN_CONFIGS["vqgan_imagenet_f16_16384"]
+    gen = torch.Generator().manual_seed(seed)
+    cpu = make_vqgan(cfg).init_random_(gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, GroupNorm32):
+                m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    card = make_vqgan(cfg, dtype, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    return cpu.eval().requires_grad_(False), card.eval().requires_grad_(False), gen
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_f16_decoder_on_card_matches_cpu_and_launches_two_a_norm(cuda, dtype, tol):
+    """The whole f16-16384 decoder (39 GroupNorms, a 4 x 4 latent) under no_grad:
+    every norm on the kernel, two launches each, channels-last in and out as the
+    convolutions hand it on, the image within `tol` of max |CPU|."""
+    cpu, card, gen = _f16_decoder_pair(cuda, dtype)
+    z = torch.randn(2, 4, 4, 256, generator=gen)
+    norms = [m for m in card.modules() if isinstance(m, GroupNorm32)]
+    assert len(norms) == 39
+    layouts = []
+    hooks = [m.register_forward_hook(lambda mod, inp, out: layouts.append(
+        (inp[0].is_contiguous(memory_format=torch.channels_last),
+         out.is_contiguous(memory_format=torch.channels_last)))) for m in norms]
+    with torch.no_grad():
+        want = cpu.decode_latent(z)
+        before = group_norm_silu.launches
+        got = card.decode_latent(z.to(cuda)).float().cpu()
+        assert group_norm_silu.launches - before == 2 * len(norms)
+    for h in hooks:
+        h.remove()
+    # the NHWC latent keeps cuDNN channels-last, and each norm keeps its input's layout
+    assert layouts == [(True, True)] * len(norms)
+    assert got.shape == (2, 64, 64, 3) and torch.isfinite(got).all()
+    assert _rel(got, want) <= tol
+
+
+def test_train_step_takes_no_group_norm_kernel(cuda):
+    """One step of the tiny train step: the decoder's input carries the mapper's
+    gradient, so its norms take the plain form and the kernel launches 0 times."""
+    from feed_forward_vqgan_clip_tpu_torch import entry as entry_module
+
+    tiny = dict(clip_model="tiny", dim=64, depth=2, vq_image_size=4, vqgan_arch=TINY_VQ)
+    step_fn, state, batch = entry_module.train_entry(cuda, batch=2, cutn=2, mapper_config=tiny)
+    before = group_norm_silu.launches
+    state, metrics = step_fn(state, batch, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert group_norm_silu.launches == before
+    assert np.isfinite(float(metrics["loss"]))
