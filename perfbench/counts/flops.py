@@ -38,7 +38,7 @@ def _image_flops(cfg_json: str) -> float:
     x = torch.empty(1, c["embed_dim"] + m["noise_dim"], device="meta")
     z = torch.empty(1, s, s, ch, device="meta")
     with FlopCounterMode(display=False) as fc:
-        R.clip_text(_meta(R.clip_text_spec(c)), tokens, c)
+        R.clip_text(_meta(R.clip_text_spec(c)), tokens, c, act=R.clip_act(cfg))
         R.mapper(_meta(R.mapper_spec(m, c["embed_dim"], ch)), x, m, ch)
         sd = _meta(R.vqgan_spec(v))
         R.codebook_indices(z, sd["quantize.embedding.weight"])

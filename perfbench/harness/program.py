@@ -20,14 +20,10 @@ def forbidden_modules(modules) -> list:
 
 
 def mapper_config(cfg) -> dict:
-    """The port's config keys for the configuration's mapper."""
-    m = cfg["mapper"]
-    out = dict(clip_model=cfg["clip_model"], model_type=m["model_type"], dim=m["dim"],
-               depth=m["depth"], vq_image_size=m["vq_image_size"], noise_dim=m["noise_dim"],
-               dropout=0.0, compute_dtype=cfg["compute_dtype"])
-    if "num_heads" in m:
-        out["num_heads"] = m["num_heads"]
-    return out
+    """The port's config keys for the configuration's mapper: every key of its
+    `mapper` object, with the CLIP model's name, the compute dtype and no dropout."""
+    return dict(cfg["mapper"], clip_model=cfg["clip_model"], compute_dtype=cfg["compute_dtype"],
+                dropout=0.0)
 
 
 def load_kernels(device):
@@ -38,13 +34,23 @@ def load_kernels(device):
         build.load_library()
 
 
+def clip_act(cfg) -> str:
+    """The activation the port gives the configuration's CLIP model by its name
+    (`models/clip_vit.make_clip`'s rule)."""
+    from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import parse_openclip
+
+    name = cfg["clip_model"]
+    return parse_openclip(name)[1] if name.startswith("openclip/") else "quick_gelu"
+
+
 def text_perceptor(cfg, sd, device):
     """The port's text tower (`models/clip_vit`) holding `sd`, as a Perceptor."""
     from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import make_clip_from_config
     from feed_forward_vqgan_clip_tpu_torch.models.perceptor import Perceptor
 
     dtype = DTYPES[cfg["compute_dtype"]]
-    module = make_clip_from_config(cfg["clip"], dtype=dtype, device=device, image=False)
+    module = make_clip_from_config(cfg["clip"], act=clip_act(cfg), dtype=dtype, device=device,
+                                   image=False)
     module.load_state_dict(sd)
     module.eval().requires_grad_(False)
     return Perceptor(module=module, name=cfg["clip_model"], size=cfg["clip"]["image_size"],

@@ -51,8 +51,10 @@ def stage_outputs(cfg, sds, cap, text_p, map_p, vq_p, dec_p):
     m, v = cfg["mapper"], cfg["vqgan"]
     ch = v["embed_dim"]
     cb = sds["vqgan"]["quantize.embedding.weight"]
+    act = R.clip_act(cfg)
     return {
-        "h": _blocks(lambda t: R.clip_text(sds["clip"], t, cfg["clip"], text_p), cap["tokens"]),
+        "h": _blocks(lambda t: R.clip_text(sds["clip"], t, cfg["clip"], text_p, act=act),
+                   cap["tokens"]),
         "z": _blocks(lambda x: R.mapper(sds["mapper"], x, m, ch, map_p), cap["map_in"]),
         "zq": cb.float()[R.codebook_indices(cap["vq_in"], cb, vq_p)],
         "x": _blocks(lambda d: R.vqgan_decode(sds["vqgan"], d.float(), v, dec_p), cap["dec_in"]),

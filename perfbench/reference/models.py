@@ -11,7 +11,15 @@ convolution, attention is a product, a softmax and a product.
 `*_spec(cfg)` lists each tensor of a model by key with its shape and its
 initial distribution; the harness draws the weights from them
 (harness/weights.py) and hands the same tensors to the program and here.
+
+A mapper family is a module of its own, `reference/mappers/<model_type>.py`
+(the contract is in that package's docstring), found by the configuration's
+`mapper.model_type` (`family`).
 """
+
+import importlib
+import re
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -59,52 +67,20 @@ def clip_text_spec(c):
     return spec
 
 
-def mixer_spec(m, clip_dim, channels):
-    """mlp_mixer_pytorch's MLPMixer as feed_forward_vqgan_clip wraps it."""
-    s, d, depth, ex = m["vq_image_size"], m["dim"], m["depth"], m["expansion"]
-    t, spec = s * s, {}
-    _dense("proj.", t * channels, clip_dim + m["noise_dim"], spec)
-    _dense("mixer.1.", d, channels, spec)
-    for i in range(depth):
-        p = f"mixer.{2 + i}."
-        _norm_pair(p + "0.norm.", d, spec)
-        _dense(p + "0.fn.0.", t * ex, t, spec, extra=(1,))
-        _dense(p + "0.fn.3.", t, t * ex, spec, extra=(1,))
-        _norm_pair(p + "1.norm.", d, spec)
-        _dense(p + "1.fn.0.", d * ex, d, spec)
-        _dense(p + "1.fn.3.", d, d * ex, spec)
-    _norm_pair(f"mixer.{2 + depth}.", d, spec)
-    _dense("final_proj.", channels, d, spec)
-    return spec
+MAPPERS = Path(__file__).resolve().parent / "mappers"
 
 
-def vitgan_spec(m, clip_dim, channels):
-    """The VitGAN Generator (scalar-gamma SLN, '(d k h)' packed qkv)."""
-    d, heads = m["dim"], m["num_heads"]
-    t, inner, spec = (m["vq_image_size"] // 8) * 8, heads * (m["dim"] // m["num_heads"]), {}
-    spec["pos_emb1D"] = ((t, d), _normal(1.0))
-    _dense("mlp.", t * d, clip_dim + m["noise_dim"], spec)
-
-    def sln(p):  # scalar gain and shift, drawn as a norm's scale and shift are
-        spec[p + "gamma"] = ((1, 1, 1), ("normal1", 0.02))
-        spec[p + "beta"] = ((1, 1, 1), BIAS)
-        _norm_pair(p + "ln.", d, spec)
-
-    for i in range(m["depth"]):
-        p = f"Transformer_Encoder.blocks.{i}."
-        sln(p + "norm1.")
-        _dense(p + "attn.to_qkv.", 3 * inner, d, spec, bias=False)
-        _dense(p + "attn.w_out.", d, inner, spec)
-        sln(p + "norm2.")
-        _dense(p + "mlp.linear1.", 4 * d, d, spec)
-        _dense(p + "mlp.linear2.", d, 4 * d, spec)
-    sln("sln_norm.")
-    _dense("w_out.0.", t * channels, d, spec)
-    return spec
+def family(model_type: str):
+    """The module of the mapper family `model_type`: reference/mappers/<model_type>.py."""
+    path = MAPPERS / f"{model_type}.py"
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", model_type) or not path.is_file():
+        raise ValueError(f"no reference for mapper family {model_type!r}: add {path} with "
+                         "spec(m, clip_dim, channels) and forward(sd, x, m, channels, P)")
+    return importlib.import_module(f"{__package__}.mappers.{model_type}")
 
 
 def mapper_spec(m, clip_dim, channels):
-    return {"mlp_mixer": mixer_spec, "vitgan": vitgan_spec}[m["model_type"]](m, clip_dim, channels)
+    return family(m["model_type"]).spec(m, clip_dim, channels)
 
 
 def _levels(v):
@@ -186,10 +162,28 @@ def group_norm(x, w, b):
     return F.group_norm(x, 32 if c % 32 == 0 else c, w.float(), b.float(), eps=1e-6)
 
 
-def clip_text(sd, tokens, c, P: Precision = EXACT):
-    """tokens int (B, 77) -> (B, embed_dim): causal pre-LN transformer, QuickGELU,
-    the EOT position (the highest id of each row) through ln_final and the
-    projection."""
+def quick_gelu(h):
+    return h * torch.sigmoid(1.702 * h)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
+
+
+def clip_act(cfg) -> str:
+    """The CLIP towers' MLP activation, by OpenCLIP's naming rule on the
+    configuration's `clip_model`: exact GELU for 'openclip/<arch>/<tag>' unless
+    <arch> ends in -quickgelu; QuickGELU for those and for OpenAI's models."""
+    name = cfg["clip_model"]
+    if name.startswith("openclip/") and not name.split("/", 2)[1].endswith("-quickgelu"):
+        return "gelu"
+    return "quick_gelu"
+
+
+def clip_text(sd, tokens, c, P: Precision = EXACT, *, act: str):
+    """tokens int (B, 77) -> (B, embed_dim): causal pre-LN transformer with the
+    activation `act` (`clip_act`), the EOT position (the highest id of each
+    row) through ln_final and the projection."""
+    act = ACTIVATIONS[act]
     with P.matmul_mode():
         w, heads = c["text_width"], c["text_heads"]
         x = sd["token_embedding.weight"][tokens].float() + sd["positional_embedding"].float()
@@ -206,72 +200,15 @@ def clip_text(sd, tokens, c, P: Precision = EXACT):
             x = x + linear(o, sd[p + "attn.out_proj.weight"], sd[p + "attn.out_proj.bias"], P)
             h = layer_norm(x, sd[p + "ln_2.weight"], sd[p + "ln_2.bias"])
             h = linear(h, sd[p + "mlp.c_fc.weight"], sd[p + "mlp.c_fc.bias"], P)
-            h = h * torch.sigmoid(1.702 * h)
+            h = act(h)
             x = x + linear(h, sd[p + "mlp.c_proj.weight"], sd[p + "mlp.c_proj.bias"], P)
         x = layer_norm(x, sd["ln_final.weight"], sd["ln_final.bias"])
         pooled = x[torch.arange(b, device=x.device), tokens.argmax(-1)]
         return P.q(pooled) @ P.q(sd["text_projection"])
 
 
-def mixer(sd, x, m, channels, P: Precision = EXACT):
-    """(B, input_dim) -> (B, S, S, channels): proj viewed channel-major as
-    (B, channels, S, S) and read out as S*S tokens, Linear to dim, `depth`
-    blocks of token mixing (size-1 Conv1d over tokens) and channel mixing, each
-    pre-LN with exact GELU and a residual, a final LN and the projection back."""
-    with P.matmul_mode():
-        s, depth, b = m["vq_image_size"], m["depth"], x.shape[0]
-        h = linear(x, sd["proj.weight"], sd["proj.bias"], P)
-        h = h.reshape(b, channels, s, s).permute(0, 2, 3, 1).reshape(b, s * s, channels)
-        h = linear(h, sd["mixer.1.weight"], sd["mixer.1.bias"], P)
-        for i in range(depth):
-            p = f"mixer.{2 + i}."
-            y = layer_norm(h, sd[p + "0.norm.weight"], sd[p + "0.norm.bias"])
-            y = P.q(sd[p + "0.fn.0.weight"][:, :, 0]) @ P.q(y) + sd[p + "0.fn.0.bias"][:, None]
-            y = F.gelu(y)
-            y = P.q(sd[p + "0.fn.3.weight"][:, :, 0]) @ P.q(y) + sd[p + "0.fn.3.bias"][:, None]
-            h = h + y
-            y = layer_norm(h, sd[p + "1.norm.weight"], sd[p + "1.norm.bias"])
-            y = F.gelu(linear(y, sd[p + "1.fn.0.weight"], sd[p + "1.fn.0.bias"], P))
-            h = h + linear(y, sd[p + "1.fn.3.weight"], sd[p + "1.fn.3.bias"], P)
-        h = layer_norm(h, sd[f"mixer.{2 + depth}.weight"], sd[f"mixer.{2 + depth}.bias"])
-        h = linear(h, sd["final_proj.weight"], sd["final_proj.bias"], P)
-        return h.reshape(b, s, s, channels)
-
-
-def vitgan(sd, z, m, channels, P: Precision = EXACT):
-    """(B, input_dim) -> (B, T, T, channels), T = (S // 8) * 8 tokens: the
-    modulation input x = mlp(z), per block hl += attn(SLN(hl, x)) and
-    hl += mlp(SLN(hl, x)) with SLN(h, x) = gamma * x * LN(h) + beta * x
-    (scalar gamma, beta), attention over the '(d k h)'-packed qkv scaled by
-    dim**-0.5, the head on SLN(hl, x) viewed channel-major."""
-    with P.matmul_mode():
-        d, heads, b = m["dim"], m["num_heads"], z.shape[0]
-        t = (m["vq_image_size"] // 8) * 8
-        dh = d // heads
-        x = linear(z, sd["mlp.weight"], sd["mlp.bias"], P).reshape(b, t, d)
-        hl = sd["pos_emb1D"].float().expand(b, t, d)
-
-        def sln(p, h):
-            ln = layer_norm(h, sd[p + "ln.weight"], sd[p + "ln.bias"])
-            return sd[p + "gamma"].float() * x * ln + sd[p + "beta"].float() * x
-
-        for i in range(m["depth"]):
-            p = f"Transformer_Encoder.blocks.{i}."
-            qkv = linear(sln(p + "norm1.", hl), sd[p + "attn.to_qkv.weight"], None, P)
-            qkv = qkv.reshape(b, t, dh, 3, heads).permute(3, 0, 4, 1, 2)
-            q, k, v = qkv[0], qkv[1], qkv[2]
-            att = torch.softmax(P.q(q) @ P.q(k).transpose(-1, -2) * d ** -0.5, -1)
-            o = (P.q(att) @ P.q(v)).transpose(1, 2).reshape(b, t, heads * dh)
-            hl = hl + linear(o, sd[p + "attn.w_out.weight"], sd[p + "attn.w_out.bias"], P)
-            y = F.gelu(linear(sln(p + "norm2.", hl), sd[p + "mlp.linear1.weight"],
-                              sd[p + "mlp.linear1.bias"], P))
-            hl = hl + linear(y, sd[p + "mlp.linear2.weight"], sd[p + "mlp.linear2.bias"], P)
-        out = linear(sln("sln_norm.", hl), sd["w_out.0.weight"], sd["w_out.0.bias"], P)
-        return out.reshape(b, channels, t, t).permute(0, 2, 3, 1)
-
-
 def mapper(sd, x, m, channels, P: Precision = EXACT):
-    return {"mlp_mixer": mixer, "vitgan": vitgan}[m["model_type"]](sd, x, m, channels, P)
+    return family(m["model_type"]).forward(sd, x, m, channels, P)
 
 
 def codebook_indices(z, codebook, P: Precision = EXACT, rows: int = 4096):

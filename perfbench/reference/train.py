@@ -61,10 +61,11 @@ def clip_image_spec(c):
     return spec
 
 
-def clip_image(sd, x, c, P: Precision = EXACT):
+def clip_image(sd, x, c, P: Precision = EXACT, *, act: str):
     """x (B, H, W, 3) CLIP-normalised -> (B, embed_dim): stride-p patchify, class
-    token, positions, pre-LN transformer (QuickGELU), LN of the class token,
-    projection."""
+    token, positions, pre-LN transformer with the activation `act`
+    (`R.clip_act`), LN of the class token, projection."""
+    act = R.ACTIVATIONS[act]
     with P.matmul_mode():
         w, heads, p = c["vision_width"], c["vision_heads"], c["patch_size"]
         h = F.conv2d(P.q(x.permute(0, 3, 1, 2)), P.q(sd["visual.conv1.weight"]), stride=p)
@@ -84,8 +85,7 @@ def clip_image(sd, x, c, P: Precision = EXACT):
             h = h + R.linear(o, sd[q + "attn.out_proj.weight"], sd[q + "attn.out_proj.bias"], P)
             y = R.layer_norm(h, sd[q + "ln_2.weight"], sd[q + "ln_2.bias"])
             y = R.linear(y, sd[q + "mlp.c_fc.weight"], sd[q + "mlp.c_fc.bias"], P)
-            h = h + R.linear(y * torch.sigmoid(1.702 * y), sd[q + "mlp.c_proj.weight"],
-                             sd[q + "mlp.c_proj.bias"], P)
+            h = h + R.linear(act(y), sd[q + "mlp.c_proj.weight"], sd[q + "mlp.c_proj.bias"], P)
         y = R.layer_norm(h[:, 0], sd["visual.ln_post.weight"], sd["visual.ln_post.bias"])
         return P.q(y) @ P.q(sd["visual.proj"])
 
@@ -282,7 +282,7 @@ def image_loss(sds, h, img, gen, cfg, cutn, noise_dtype, P: Precision = EXACT, c
     x = cut(img) if cut else cutouts(gen, img, c["image_size"], cutn, noise_dtype)
     mean = torch.tensor(CLIP_MEAN, device=x.device)
     std = torch.tensor(CLIP_STD, device=x.device)
-    emb = normalize(clip_image(sds["clip"], (x - mean) / std, c, P))
+    emb = normalize(clip_image(sds["clip"], (x - mean) / std, c, P, act=R.clip_act(cfg)))
     d = (normalize(h).repeat(cutn, 1) - emb).norm(dim=-1)
     return (2.0 * torch.arcsin((d / 2.0).clamp(0.0, 1.0)).square()).mean()
 
@@ -295,7 +295,7 @@ def render(sds, params, tokens, cfg, P: Precision = EXACT, codes=None):
     c, m, v = cfg["clip"], cfg["mapper"], cfg["vqgan"]
     cb = sds["vqgan"]["quantize.embedding.weight"].float()
     with torch.no_grad():
-        h = R.clip_text(sds["clip"], tokens, c, P)
+        h = R.clip_text(sds["clip"], tokens, c, P, act=R.clip_act(cfg))
     z = ClampWithGrad.apply(R.mapper(params, h, m, v["embed_dim"], P), cb.min(), cb.max())
     with torch.no_grad():
         idx = R.codebook_indices(z.detach(), cb, P) if codes is None else codes

@@ -75,7 +75,8 @@ def build(cfg, mix, sds, device):
 
     dtype = program.DTYPES[cfg["compute_dtype"]]
     c = cfg["clip"]
-    clip = make_clip_from_config(c, dtype=dtype, device=device, image=True)
+    clip = make_clip_from_config(c, act=program.clip_act(cfg), dtype=dtype, device=device,
+                                 image=True)
     clip.load_state_dict(sds["clip"])
     clip.eval().requires_grad_(False)
     perceptor = Perceptor(module=clip, name=cfg["clip_model"], size=c["image_size"],
@@ -178,11 +179,11 @@ def readings(ctx, cfg, mix, pool, grad1, change, captured):
     images = captured["img"].chunk(CHECKED_STEPS)
     # the first step's mapper input and output: the weights both sides start from
     map_in, z = captured["map_in"].chunk(CHECKED_STEPS)[0], captured["z"].chunk(CHECKED_STEPS)[0]
-    m, c = cfg["mapper"], cfg["clip"]
+    m, c, act = cfg["mapper"], cfg["clip"], R.clip_act(cfg)
 
     def forward(p):
         """-> (text tower over the steps' tokens, mapper over the program's first input)."""
-        h = torch.cat([R.clip_text(sds["clip"], t, c, p) for t in toks])
+        h = torch.cat([R.clip_text(sds["clip"], t, c, p, act=act) for t in toks])
         return h, R.mapper(sds["mapper"], map_in, m, cfg["vqgan"]["embed_dim"], p)
 
     def forward_errs(p_out, ref_out):
