@@ -24,6 +24,13 @@ The position table has n + (0 if add_input else 1) rows in every mode, as the
 reference sizes it: with initial_proj and not add_input its last row is never
 used. Attention is `F.scaled_dot_product_attention` (causal), whose softmax
 runs in float32. Outputs are NHWC latents (B, S, S, C).
+
+While tracing is on (tracing.py) a forward records disjoint spans: `mapper.proj`
+(proj, project_in and the positions), per block `mapper.attn` (LayerNorm, q, k,
+v, the attention and to_out; inside it `mapper.sdpa`, the SDPA call alone, with
+its batch, tokens, heads, dim_head and causal) and `mapper.ff` (LayerNorm and
+the feed-forward), and `mapper.out` (the final LayerNorm and project_out); the
+residual adds lie outside them all.
 """
 
 import torch
@@ -32,6 +39,7 @@ from torch import nn
 
 from feed_forward_vqgan_clip_tpu_torch.models.clip_vit import LayerNorm, Linear, init_blocks_
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Dropout
+from feed_forward_vqgan_clip_tpu_torch.tracing import span
 
 
 class XAttention(nn.Module):
@@ -49,7 +57,9 @@ class XAttention(nn.Module):
         b, n, _ = x.shape
         q, k, v = (p(x).reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
                    for p in (self.to_q, self.to_k, self.to_v))
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        with span("mapper.sdpa", batch=b, tokens=n, heads=self.heads, dim_head=self.dim_head,
+                  causal=True):
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.to_out(out.transpose(1, 2).reshape(b, n, -1))
 
 
@@ -89,9 +99,13 @@ class _AttnLayers(nn.Module):
     def forward(self, h, generator=None):
         for i in range(0, len(self.layers), 2):
             ln, attn = self.layers[i]
-            h = h + attn(ln(h))
+            with span("mapper.attn"):
+                a = attn(ln(h))
+            h = h + a
             ln, ff = self.layers[i + 1]
-            h = h + ff(ln(h), generator)
+            with span("mapper.ff"):
+                f = ff(ln(h), generator)
+            h = h + f
         return h
 
 
@@ -130,16 +144,19 @@ class XTransformer(nn.Module):
         b, s, dt = z.shape[0], self.image_size, self.dtype
         n = s * s
         z = z.to(dt)
-        if self.initial_proj:
-            h = self.proj(z).reshape(b, n, self.dim)
-        elif self.add_input:
-            h = z[:, None, :].expand(b, n, self.input_dim)
-        else:
-            h = torch.cat([z[:, None, :], z.new_zeros(b, n, self.input_dim)], dim=1)
         t = self.transformer
-        h = t.project_in(h)
-        h = h + t.pos_emb.emb.weight[:h.shape[1]].to(dt)
-        h = t.project_out(t.norm(t.attn_layers(h, generator)))
+        with span("mapper.proj"):
+            if self.initial_proj:
+                h = self.proj(z).reshape(b, n, self.dim)
+            elif self.add_input:
+                h = z[:, None, :].expand(b, n, self.input_dim)
+            else:
+                h = torch.cat([z[:, None, :], z.new_zeros(b, n, self.input_dim)], dim=1)
+            h = t.project_in(h)
+            h = h + t.pos_emb.emb.weight[:h.shape[1]].to(dt)
+        h = t.attn_layers(h, generator)
+        with span("mapper.out"):
+            h = t.project_out(t.norm(h))
         if not self.initial_proj and not self.add_input:
             h = h[:, 1:]
         return h.reshape(b, s, s, self.channels)

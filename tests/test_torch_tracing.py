@@ -1,6 +1,7 @@
 """The port's spans (tracing.py) on the CPU: off they hand out the shared no-op and
 record nothing; on (`enable()` or a `torch.profiler` session) a Predictor request,
 a Generator batch and a train step record their layers, nested, with a request id;
+an x-transformer mapper records its disjoint parts (SDPA inside each attention);
 a profiler session is a recording session of its own and its chrome trace holds
 the `ffvc.` annotations as the records nest; the cap drops the oldest records;
 the root decides whether a tree is timed on the device (a stand-in CUDA event
@@ -161,6 +162,78 @@ def test_generator_render_and_encode_spans(predictor):
     render, = (r for r in recs if r.name == "render")
     assert render.attrs == {"batch": 2} and render.request is None
     assert [r.name for r in _children(recs)[render.id]] == ["mapper", "decode"]
+
+
+MAPPER_PARTS = ("mapper.proj", "mapper.attn", "mapper.ff", "mapper.out")
+
+
+def _xtransformer_spans(recs, mapper):
+    """The x-transformer's spans under `mapper`: {name: [records]}; each part a
+    child of `mapper` with no child of its own, but `mapper.sdpa` inside each
+    `mapper.attn`."""
+    kids = _children(recs)
+    parts = collections.defaultdict(list)
+    for r in kids[mapper.id]:
+        assert r.name in MAPPER_PARTS, r.name
+        parts[r.name].append(r)
+        inner = kids[r.id]
+        if r.name == "mapper.attn":
+            assert [k.name for k in inner] == ["mapper.sdpa"] and not kids[inner[0].id]
+            parts["mapper.sdpa"].append(inner[0])
+        else:
+            assert not inner, r.name
+    return parts
+
+
+@pytest.mark.parametrize("initial_proj,add_input", [(True, False), (False, True),
+                                                    (False, False)])
+def test_xtransformer_render_records_its_disjoint_parts(predictor, initial_proj, add_input):
+    """proj, then per block attn (holding sdpa) and ff, then out, in order; the
+    images with tracing on equal those with it off, bit for bit."""
+    perceptor, = predictor.perceptors.values()
+    (vq, _), = predictor.vqgans.values()
+    depth, heads = 3, 2
+    cfg = dict(CFG, model_type="xtransformer", dim=32, depth=depth, num_heads=heads,
+               initial_proj=initial_proj, add_input=add_input)
+    mapper = build_mapper(cfg, vq_channels=TINY_VQ["z_channels"])
+    gen = Generator(perceptor, mapper.init_random_(torch.Generator().manual_seed(2)), vq, cfg=cfg)
+    h = gen.encode_prompts(["hello world", "world", "hello"])
+    off = gen.render(h)
+    assert tracing.records() == []
+    tracing.enable()
+    on = gen.render(h)
+    recs = tracing.records()
+    assert torch.equal(on, off)
+    mapper_rec, = (r for r in recs if r.name == "mapper")
+    parts = _xtransformer_spans(recs, mapper_rec)
+    assert {k: len(v) for k, v in parts.items()} == {
+        "mapper.proj": 1, "mapper.attn": depth, "mapper.sdpa": depth, "mapper.ff": depth,
+        "mapper.out": 1}
+    order = [r.name for r in sorted(_children(recs)[mapper_rec.id], key=lambda r: r.t0_ns)]
+    assert order == ["mapper.proj"] + ["mapper.attn", "mapper.ff"] * depth + ["mapper.out"]
+    tokens = CFG["vq_image_size"] ** 2 + (0 if initial_proj or add_input else 1)
+    assert {tuple(sorted(r.attrs.items())) for r in parts["mapper.sdpa"]} == {tuple(sorted(
+        dict(batch=3, tokens=tokens, heads=heads, dim_head=64, causal=True).items()))}
+
+
+def test_the_512px_xtransformer_makes_50_spans_a_forward():
+    """At the released widths (dim 256, depth 16, 6 heads, 32 x 32 tokens), on meta
+    tensors: 2 + 16 x 3 spans (proj, out; per block attn, sdpa, ff), each SDPA
+    call's attributes the cell's shape."""
+    cfg = dict(clip_model="ViT-B/32", model_type="xtransformer", dim=256, depth=16,
+               num_heads=6, vq_image_size=32, initial_proj=True, add_input=False)
+    mapper = build_mapper(cfg, vq_channels=256, dtype=torch.bfloat16,
+                          device=torch.device("meta"))
+    tracing.enable()
+    with torch.no_grad(), tracing.span("mapper"):
+        z = mapper(torch.empty(64, 512, device="meta"))
+    recs = tracing.records()
+    assert tuple(z.shape) == (64, 32, 32, 256)
+    mapper_rec, = (r for r in recs if r.name == "mapper")
+    parts = _xtransformer_spans(recs, mapper_rec)
+    assert sum(len(v) for v in parts.values()) == 50 and len(parts["mapper.sdpa"]) == 16
+    assert parts["mapper.sdpa"][0].attrs == dict(batch=64, tokens=1024, heads=6, dim_head=64,
+                                                 causal=True)
 
 
 def test_a_profiler_session_records_and_the_next_one_is_session_2(predictor, tmp_path):
