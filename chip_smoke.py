@@ -397,6 +397,17 @@ GN_DECODER_NORMS = {(512, 16): 14, (512, 32): 1, (256, 32): 5, (256, 64): 6, (25
 GN_DECODE_LAUNCHES = 2 * sum(GN_DECODER_NORMS.values())  # 78: two a norm
 GN_ROW_SHAPE = (128, 256)  # the kernels' JSON row: the last level, 70% of the bytes
 GN_LIBRARY_SHAPES = ((128, 256), (512, 16))
+# [residual]: (channels, side) of the f16-16384 decoder's 17 ResnetBlock residual adds ->
+# how many of the 17 have that shape
+RES_SEED = 137
+RES_DECODER_ADDS = {(512, 16): 5, (256, 32): 3, (256, 64): 3, (128, 128): 3, (128, 256): 3}
+RES_DECODE_LAUNCHES = sum(RES_DECODER_ADDS.values())  # 17: one a ResnetBlock
+# the same adds at the 512-px decode of a 32 x 32 latent, checked at B = RES_512_BATCH
+RES_512_ADDS = {(512, 32): 5, (256, 64): 3, (256, 128): 3, (128, 256): 3, (128, 512): 3}
+RES_512_BATCH = 64
+# a decode's conv biases handed on to the hand-written passes and left to the
+# library's convs, of the decoder's 58 (models/vqgan.py `Decoder.folded`, `.library`)
+FOLD_DECODE = (41, 17)
 # [bench]: `cli bench` as a subprocess; K1 and K2 at its sizes first
 BENCH_SEED = 121
 BENCH_TIMEOUT = 480
@@ -2102,7 +2113,8 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
     """SERVE_REQUESTS timed requests of model `name` at each grid (with `prior`
     as the request's prior flag), after the caller's warm-up: host ms per
     request, CUDA-event ms per stage (`mark`), the kernels' launches of each
-    request equal to `want(n)`; after the request's time is taken, its float
+    request equal to `want(n)`, its one decode handing on FOLD_DECODE's conv
+    biases; after the request's time is taken, its float
     images (kept in `record` by `recorded_images`) n x side x side, finite and
     in [0, 1], and the PNG their grid and not flat; one line per grid, tagged
     `tag`, the mapper's route `route(n)`. -> {grid: median request ms}."""
@@ -2118,6 +2130,7 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
         request_ms, stage_ms = [], {st: [] for st in STAGES}
         for i in range(SERVE_REQUESTS):
             before = {k: fn.launches for k, fn in counters.items()}
+            folds = decoder_folds()
             record.clear()
             events = [torch.cuda.Event(enable_timing=True)]
 
@@ -2137,6 +2150,7 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
             launched = {k: fn.launches - before[k] for k, fn in counters.items()}
             if launched != want(n):
                 raise AssertionError(f"{tag} {grid}: launches {launched}, need {want(n)}")
+            check_folds(f"{tag} {grid}", folds, 1)
             (imgs,) = record
             if not (imgs.shape == (n, side, side, 3) and np.isfinite(imgs).all()
                     and imgs.min() >= 0.0 and imgs.max() <= 1.0):
@@ -2186,28 +2200,48 @@ def serve_counters():
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import group_norm_silu
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.residual import residual_add
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
 
     return {"vq_argmin": vq_kernel, "mixer_stream": mixer_stream, "mixer_block": mixer_block,
-            "group_norm": group_norm_silu}
+            "group_norm": group_norm_silu, "residual": residual_add}
 
 
 def serve_want(n):
     """The launches of a flagship request of n images: K1 once, K4 once at
     n <= 8, else K2 once a block; the GroupNorm pair at each of the decoder's
-    norms."""
+    norms, the residual add at each ResnetBlock."""
     from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
 
     return {"vq_argmin": 1, "mixer_stream": int(n <= STREAM_MAX_BATCH),
             "mixer_block": 0 if n <= STREAM_MAX_BATCH else STREAM_DEPTH,
-            "group_norm": GN_DECODE_LAUNCHES}
+            "group_norm": GN_DECODE_LAUNCHES, "residual": RES_DECODE_LAUNCHES}
+
+
+def decoder_folds():
+    """(conv biases handed on, conv biases left to the library) over every decode
+    so far (models/vqgan.py `Decoder`)."""
+    from feed_forward_vqgan_clip_tpu_torch.models.vqgan import Decoder
+
+    return Decoder.folded, Decoder.library
+
+
+def check_folds(tag, before, decodes):
+    """Since `before` (a `decoder_folds()`), `decodes` decodes each handed on
+    FOLD_DECODE[0] biases and left FOLD_DECODE[1]."""
+    now = decoder_folds()
+    got = (now[0] - before[0], now[1] - before[1])
+    want = (FOLD_DECODE[0] * decodes, FOLD_DECODE[1] * decodes)
+    if got != want:
+        raise AssertionError(f"{tag}: conv biases handed on, left to the library {got}, need "
+                             f"{want}")
 
 
 def phase_serve(smi):
-    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's and
-    the GroupNorm pair's launches in the timed requests."""
+    """The serving Predictor at the flagship, from a `.th` checkpoint; -> K4's, the
+    GroupNorm pair's and the residual add's launches in the timed requests."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
@@ -2239,7 +2273,7 @@ def phase_serve(smi):
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[serve] peak device memory in the requests {peak:.2f} GiB; launches in the timed "
             f"requests {dict((k, fn.launches) for k, fn in counters.items())}")
-        launches = {k: counters[k].launches for k in ("mixer_stream", "group_norm")}
+        launches = {k: counters[k].launches for k in ("mixer_stream", "group_norm", "residual")}
         del pred
     return launches
 
@@ -2389,8 +2423,8 @@ def phase_train(smi):
     (FFVC_FUSED_CLIP=1). A warm-up step each, then TRAIN_STEPS timed steps each,
     taken in turns (module, fused, fused, module, ...) so that both meet the same
     host: host clock around each step, ending in a synchronize, per-stage CUDA
-    events; no step launches the GroupNorm pair (the decoder's norms take the
-    plain form where autograd records). -> (the kernels' launches in the module tower's timed steps,
+    events; no step launches the GroupNorm pair or the residual add, nor hands a
+    conv bias on (the decoder takes the plain form where autograd records). -> (the kernels' launches in the module tower's timed steps,
     {"module" / "fused": {"step", "image_tower", "backward"}: median ms})."""
     import torch
 
@@ -2398,7 +2432,8 @@ def phase_train(smi):
     from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES
 
     counters = train_counters()
-    group_norm = serve_counters()["group_norm"]  # the decoder's norms take the plain form here
+    # the decoder's norms and residual adds take the plain form here
+    group_norm, residual = (serve_counters()[k] for k in ("group_norm", "residual"))
     runs = {}
     for name, fused in (("module", False), ("fused", True)):
         t0 = time.perf_counter()
@@ -2424,7 +2459,7 @@ def phase_train(smi):
         name = "fused" if i % 4 in (1, 2) else "module"
         r = runs[name]
         before = {k: fn.launches for k, fn in counters.items()}
-        gn_before = group_norm.launches
+        gn_before, res_before, folds = group_norm.launches, residual.launches, decoder_folds()
         snapshot = [p.detach().clone() for p in r["watch"]]
         events = [torch.cuda.Event(enable_timing=True)]
         marks = []
@@ -2447,10 +2482,13 @@ def phase_train(smi):
         launched = {k: fn.launches - before[k] for k, fn in counters.items()}
         for k, v in launched.items():
             r["launches"][k] += v
-        if launched != r["per_step"] or group_norm.launches != gn_before:
+        if (launched != r["per_step"] or group_norm.launches != gn_before
+                or residual.launches != res_before or decoder_folds()[0] != folds[0]):
             raise AssertionError(f"train step ({name} tower) launches {launched}, need "
                                  f"{r['per_step']}; GroupNorm pair "
-                                 f"{group_norm.launches - gn_before}, need 0")
+                                 f"{group_norm.launches - gn_before}, residual add "
+                                 f"{residual.launches - res_before}, conv biases handed on "
+                                 f"{decoder_folds()[0] - folds[0]}, need 0")
         if not torch.isfinite(torch.tensor(loss)).item():
             raise AssertionError(f"train step loss {loss} is not finite")
         if all(torch.equal(a, p.detach()) for a, p in zip(snapshot, r["watch"])):
@@ -3319,6 +3357,7 @@ def phase_eval(smi):
         out = os.path.join(tmp, "eval")
         for fn in counters.values():
             fn.launches = 0
+        folds = decoder_folds()
         t = time.perf_counter()
         run_cli(["evaluate", path, toks, "--batch-size", str(EVAL_BATCH), "--compute-fid",
                  "--inception-features-real-path", real, "--out-folder", out])
@@ -3327,9 +3366,11 @@ def phase_eval(smi):
         launches = {k: fn.launches for k, fn in counters.items()}
         batches = -(-EVAL_PROMPTS // EVAL_BATCH)
         need = {"vq_argmin": batches, "mixer_stream": 0, "mixer_block": batches * STREAM_DEPTH,
-                "group_norm": batches * GN_DECODE_LAUNCHES}
+                "group_norm": batches * GN_DECODE_LAUNCHES,
+                "residual": batches * RES_DECODE_LAUNCHES}
         if launches != need:
             raise AssertionError(f"[eval] launches {launches}, need {need}")
+        check_folds("[eval]", folds, batches)
         with open(os.path.join(out, "eval_prompts.npz_ViT-B_32.json")) as fd:
             dump = json.load(fd)
         artifacts = sorted(os.listdir(out))
@@ -3592,6 +3633,7 @@ def phase_native_ckpt(smi):
             raise AssertionError(f"[native-ckpt] Predictor loaded {sorted(pred.models)}")
         for fn in counters.values():
             fn.launches = 0
+        folds = decoder_folds()
         for grid in ("1x1", "2x2"):
             imgs, pngs = [], []
             for name in ("flagship.th", "flagship_jax"):
@@ -3607,9 +3649,10 @@ def phase_native_ckpt(smi):
                                      "the .th's")
         launches = {k: fn.launches for k, fn in counters.items()}
         need = {"vq_argmin": 4, "mixer_stream": 4, "mixer_block": 0,
-                "group_norm": 4 * GN_DECODE_LAUNCHES}
+                "group_norm": 4 * GN_DECODE_LAUNCHES, "residual": 4 * RES_DECODE_LAUNCHES}
         if launches != need:
             raise AssertionError(f"[native-ckpt] launches {launches}, need {need}")
+        check_folds("[native-ckpt]", folds, 4)
         log(f"[native-ckpt] Predictor.setup() on the `.th` and the directory {setup_s:.1f} s; "
             f"1x1 and 2x2 images and PNGs bitwise equal between the two; launches {launches} "
             f"({smi})")
@@ -4636,8 +4679,8 @@ def reference_upsample():
     from feed_forward_vqgan_clip_tpu_torch.models.vqgan import Upsample
 
     forward = Upsample.forward
-    Upsample.forward = lambda self, x: self.conv(F.interpolate(x, scale_factor=2.0,
-                                                               mode="nearest"))
+    Upsample.forward = lambda self, x, bias=True: self.conv(
+        F.interpolate(x, scale_factor=2.0, mode="nearest"), bias=bias)
     try:
         yield
     finally:
@@ -4723,9 +4766,13 @@ def phase_groupnorm(smi):
     float32 plain result than the bf16 plain form is, plus one bf16 ulp of max
     |plain|, two launches bitwise equal; kernel and plain ms (CUDA events, in
     turns), the bound (6 bytes an element at 3.35 TB/s), library_ms where
-    GN_LIBRARY_SHAPES names the shape. -> the kernels' JSON row: ms, plain_ms,
-    bound_ms, library_ms at GN_ROW_SHAPE, max_abs_err over every shape, and
-    under "decode" the 39 norms of one decode summed."""
+    GN_LIBRARY_SHAPES names the shape; the same shapes with a pre-bias; then at
+    B = 1 in NCHW (a 1x1 serve request's decode where the decoder runs NCHW) with
+    a pre-bias, by the same tolerance, timed with and without it beside the
+    library's bias add_ the pre-bias replaces (`graph_ms`: at B = 1 eager
+    launches time the host). -> the kernels' JSON row: ms,
+    plain_ms, bound_ms, library_ms at GN_ROW_SHAPE, max_abs_err over every shape,
+    and under "decode" the 39 norms of one decode summed."""
     import math
 
     import torch
@@ -4747,37 +4794,42 @@ def phase_groupnorm(smi):
         x = (1.5 * torch.randn(BENCH_BATCH, c, side, side, generator=gen, device="cuda")
              + torch.randn(1, c, 1, 1, generator=gen, device="cuda")
              ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        pre_bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
         plan = gn_plan(c * side * side, c)
         with torch.no_grad():
             errs = []
-            for silu in (False, True):
-                got = group_norm_silu(x, w, b, silu=silu)
-                again = group_norm_silu(x, w, b, silu=silu)
-                ref = group_norm_silu_plain(x.float(), w, b, silu=silu)
-                plain = group_norm_silu_plain(x, w, b, silu=silu)
+            for silu, pb in ((False, None), (True, None), (True, pre_bias)):
+                got = group_norm_silu(x, w, b, silu=silu, pre_bias=pb)
+                again = group_norm_silu(x, w, b, silu=silu, pre_bias=pb)
+                ref = group_norm_silu_plain(x.float(), w, b, silu=silu, pre_bias=pb)
+                plain = group_norm_silu_plain(x, w, b, silu=silu, pre_bias=pb)
                 top = ref.abs().max().item()
                 err = (got.float() - ref).abs().max().item()
                 plain_err = (plain.float() - ref).abs().max().item()
                 ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
                 same = torch.equal(got, again)
                 max_err = max(max_err, err)
-                errs.append(f"silu={silu}: kernel {err:.3e}, plain {plain_err:.3e}, "
-                            f"bitwise {same}")
+                what = f"silu={silu}" + ("" if pb is None else " pre-bias")
+                errs.append(f"{what}: kernel {err:.3e}, plain {plain_err:.3e}, bitwise {same}")
                 if not (err <= plain_err + ulp and same
                         and got.is_contiguous(memory_format=torch.channels_last)):
                     raise AssertionError(
-                        f"[groupnorm] {c}x{side}^2 silu={silu}: kernel error {err:.3e} > "
+                        f"[groupnorm] {c}x{side}^2 {what}: kernel error {err:.3e} > "
                         f"plain {plain_err:.3e} + ulp {ulp:.3e}, bitwise {same}")
                 del got, again, ref, plain
             torch.cuda.empty_cache()
             kernel_ms, plain_ms = paired_ms(
                 lambda: group_norm_silu(x, w, b, silu=True),
                 lambda: group_norm_silu_plain(x, w, b, silu=True))
+            pre_bias_ms, again_ms = paired_ms(
+                lambda: group_norm_silu(x, w, b, silu=True, pre_bias=pre_bias),
+                lambda: group_norm_silu(x, w, b, silu=True))
             bound_ms = 6 * x.numel() / PEAK_BYTES_PER_S * 1e3
             line = (f"[groupnorm] B={BENCH_BATCH} C={c} {side}x{side} x{count}: kernel "
-                    f"{kernel_ms:.4f} ms ({bound_ms / kernel_ms:.1%} of the bound), plain "
-                    f"{plain_ms:.4f}, bound {bound_ms:.4f}; plan {plan.splits} splits of "
-                    f"{plan.slice}; " + "; ".join(errs))
+                    f"{kernel_ms:.4f} ms ({bound_ms / kernel_ms:.1%} of the bound), with a "
+                    f"pre-bias {pre_bias_ms:.4f} (without, in turns with it, {again_ms:.4f}), "
+                    f"plain {plain_ms:.4f}, bound {bound_ms:.4f}; plan {plan.splits} splits "
+                    f"of {plan.slice}; " + "; ".join(errs))
             library_ms = None
             if (c, side) in GN_LIBRARY_SHAPES:
                 wl, bl = w.to(x.dtype), b.to(x.dtype)
@@ -4786,16 +4838,136 @@ def phase_groupnorm(smi):
             log(line)
         if (c, side) == GN_ROW_SHAPE:
             row = {"shape": f"{BENCH_BATCH}x{c}x{side}x{side} bf16 channels-last, SiLU",
-                   "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": "bytes", "library_ms": library_ms}
-        for k, v in (("ms", kernel_ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
-            decode[k] += count * v
+                   "ms": kernel_ms, "pre_bias_ms": pre_bias_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+        for k, v in (("ms", kernel_ms), ("pre_bias_ms", pre_bias_ms), ("plain_ms", plain_ms),
+                     ("bound_ms", bound_ms)):
+            decode[k] = decode.get(k, 0.0) + count * v
         del x
         torch.cuda.empty_cache()
+    nchw = []
+    for c, side in GN_DECODER_NORMS:
+        w = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        x = (1.5 * torch.randn(1, c, side, side, generator=gen, device="cuda")
+             + torch.randn(1, c, 1, 1, generator=gen, device="cuda")).to(torch.bfloat16)
+        pre_bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bias = pre_bias.to(torch.bfloat16).reshape(1, c, 1, 1)
+        with torch.no_grad():
+            got = group_norm_silu(x, w, b, silu=True, pre_bias=pre_bias)
+            ref = group_norm_silu_plain(x.float(), w, b, silu=True, pre_bias=pre_bias)
+            plain = group_norm_silu_plain(x, w, b, silu=True, pre_bias=pre_bias)
+            top = ref.abs().max().item()
+            err = (got.float() - ref).abs().max().item()
+            plain_err = (plain.float() - ref).abs().max().item()
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+            if not (err <= plain_err + ulp and got.is_contiguous()):
+                raise AssertionError(f"[groupnorm] B=1 NCHW {c}x{side}^2 pre-bias: kernel error "
+                                     f"{err:.3e} > plain {plain_err:.3e} + ulp {ulp:.3e}")
+            max_err = max(max_err, err)
+            pre_bias_ms = graph_ms(lambda: group_norm_silu(x, w, b, silu=True,
+                                                           pre_bias=pre_bias))
+            without_ms = graph_ms(lambda: group_norm_silu(x, w, b, silu=True))
+            bias_ms = graph_ms(lambda: x.add_(bias))
+        nchw.append(f"{c}x{side}^2 kernel {err:.3e} (plain {plain_err:.3e}), with the "
+                    f"pre-bias {pre_bias_ms:.4f} ms, without {without_ms:.4f} + the library's "
+                    f"bias add_ {bias_ms:.4f}")
+    log("[groupnorm] B=1 NCHW, SiLU, with a pre-bias (device ms, from CUDA graphs): "
+        + "; ".join(nchw))
     log(f"[groupnorm] one decode at B={BENCH_BATCH}, 39 norms: kernel {decode['ms']:.2f} ms, "
-        f"plain {decode['plain_ms']:.2f}, bound {decode['bound_ms']:.2f}; phase "
-        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+        f"with a pre-bias each {decode['pre_bias_ms']:.2f}, plain {decode['plain_ms']:.2f}, "
+        f"bound {decode['bound_ms']:.2f}; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
     return {**row, "max_abs_err": max_err, "decode": decode}
+
+
+def phase_residual(smi):
+    """[residual]: the residual add with the pending conv biases (csrc/residual.cu)
+    at the batch-256 decode's 17 ResnetBlock adds (RES_DECODER_ADDS), bf16
+    channels-last as the decoder hands them on: bit for bit its plain form (float32
+    sums, one rounding), two launches bitwise equal; kernel and plain ms in turns,
+    the two library passes the decoder ran before (`x + h`, vectorized, and one
+    conv's bias `add_` of a (1, C, 1, 1) vector, not vectorized), the bound (6
+    bytes an element at 3.35 TB/s). Then, bit for bit against the plain form, the
+    same adds at B = 1 in NCHW (a 1x1 serve request's decode where the decoder
+    runs NCHW), timed from CUDA graphs beside the two library passes, and the
+    512-px decode's
+    adds (RES_512_ADDS) at B = RES_512_BATCH, channels-last. -> the kernels' JSON
+    row at GN_ROW_SHAPE's shape, with the 17 adds of one decode summed under
+    "decode"."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.residual import (
+        residual_add,
+        residual_add_plain,
+    )
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(RES_SEED)
+    cl = torch.channels_last
+
+    def case(batch, c, side, layout):
+        """skip, h bf16 in `layout`, vec (C,) float32, and vec as the library's bf16 bias."""
+        skip, h = (torch.randn(batch, c, side, side, generator=gen, device="cuda")
+                   .to(torch.bfloat16).contiguous(memory_format=layout) for _ in range(2))
+        vec = torch.randn(c, generator=gen, device="cuda")
+        return skip, h, vec, vec.to(torch.bfloat16).reshape(1, c, 1, 1)
+
+    def bitwise(tag, skip, h, vec, layout):
+        with torch.no_grad():
+            got = residual_add(skip, h, vec)
+            same = torch.equal(got, residual_add_plain(skip, h, vec))
+            again = torch.equal(got, residual_add(skip, h, vec))
+        if not (same and again and got.is_contiguous(memory_format=layout)):
+            raise AssertionError(f"[residual] {tag}: plain bitwise {same}, two launches "
+                                 f"bitwise {again}")
+
+    decode, row = {}, {}
+    for (c, side), count in RES_DECODER_ADDS.items():
+        skip, h, vec, bias = case(BENCH_BATCH, c, side, cl)
+        bitwise(f"{c}x{side}^2", skip, h, vec, cl)
+        with torch.no_grad():
+            kernel_ms, plain_ms = paired_ms(lambda: residual_add(skip, h, vec),
+                                            lambda: residual_add_plain(skip, h, vec))
+            add_ms = cuda_ms(lambda: skip + h)
+            bias_ms = cuda_ms(lambda: h.add_(bias))
+        bound_ms = 6 * skip.numel() / PEAK_BYTES_PER_S * 1e3
+        log(f"[residual] B={BENCH_BATCH} C={c} {side}x{side} x{count}: kernel {kernel_ms:.4f} "
+            f"ms ({bound_ms / kernel_ms:.1%} of the bound), plain {plain_ms:.4f}, library "
+            f"x + h {add_ms:.4f}, a conv's bias add_ {bias_ms:.4f}, bound {bound_ms:.4f}; "
+            "plain bitwise, two launches bitwise")
+        if (c, side) == GN_ROW_SHAPE:
+            row = {"shape": f"{BENCH_BATCH}x{c}x{side}x{side} bf16 channels-last",
+                   "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes", "library_ms": add_ms, "bias_add_ms": bias_ms}
+        for k, v in (("ms", kernel_ms), ("plain_ms", plain_ms), ("library_ms", add_ms),
+                     ("bias_add_ms", bias_ms), ("bound_ms", bound_ms)):
+            decode[k] = decode.get(k, 0.0) + count * v
+        del skip, h
+        torch.cuda.empty_cache()
+    log(f"[residual] one decode at B={BENCH_BATCH}, 17 adds: kernel {decode['ms']:.2f} ms, "
+        f"plain {decode['plain_ms']:.2f}, library x + h {decode['library_ms']:.2f}, bias add_ "
+        f"(one a shape's add) {decode['bias_add_ms']:.2f}, bound {decode['bound_ms']:.2f} "
+        f"({smi})")
+    nchw = []
+    for c, side in RES_DECODER_ADDS:
+        skip, h, vec, bias = case(1, c, side, torch.contiguous_format)
+        bitwise(f"B=1 NCHW {c}x{side}^2", skip, h, vec, torch.contiguous_format)
+        with torch.no_grad():
+            kernel_ms = graph_ms(lambda: residual_add(skip, h, vec))
+            add_ms = graph_ms(lambda: skip + h)
+            bias_ms = graph_ms(lambda: h.add_(bias))
+        nchw.append(f"{c}x{side}^2 kernel {kernel_ms:.4f} ms, library x + h {add_ms:.4f} + "
+                    f"bias add_ {bias_ms:.4f}")
+    log("[residual] B=1 NCHW, plain bitwise (device ms, from CUDA graphs): " + "; ".join(nchw))
+    for c, side in RES_512_ADDS:
+        skip, h, vec, _ = case(RES_512_BATCH, c, side, cl)
+        bitwise(f"B={RES_512_BATCH} {c}x{side}^2", skip, h, vec, cl)
+        del skip, h
+        torch.cuda.empty_cache()
+    log(f"[residual] the 512-px decode's adds at B={RES_512_BATCH}, channels-last "
+        f"({', '.join(f'{c}x{side}^2' for c, side in RES_512_ADDS)}): plain bitwise, two "
+        f"launches bitwise; phase {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return {**row, "max_abs_err": 0.0, "decode": decode}
 
 
 def jax_bench_lines():
@@ -4886,8 +5058,8 @@ def phase_bench(smi):
     legs = {leg: json.loads(m.group(1)) for leg, m in (
         (leg, re.search(rf"^# {leg}:.*; launches (\{{[^}}]*\}});", run.stderr, re.M))
         for leg in ("infer", "latency", "train")) if m}
-    want = {"infer": ("vq_argmin", "mixer_block", "group_norm"),
-            "latency": ("vq_argmin", "mixer_stream", "group_norm"),
+    want = {"infer": ("vq_argmin", "mixer_block", "group_norm", "residual"),
+            "latency": ("vq_argmin", "mixer_stream", "group_norm", "residual"),
             "train": ("vq_argmin", "mixer_fwd_res", "mixer_channel_bwd", "mixer_token_bwd",
                       "warp_forward", "warp_adjoint")}
     for leg, names in want.items():
@@ -5054,6 +5226,7 @@ def main():
     verified = phase_verify_weights(smi)
     phase_upsample(smi)
     group_norm = phase_groupnorm(smi)
+    residual = phase_residual(smi)
     bench = phase_bench(smi)
     for phase in (mappers, prior, diversity, evals, perceptors, native_ckpt, parallel, verified,
                   bench):
@@ -5099,6 +5272,10 @@ def main():
     # and [bench] (none in [train]'s steps)
     kernels.append({"name": "group_norm", "route": "cuda", "source": csrc + "group_norm.cu",
                     "replaces": None, "launches": launches["group_norm"], **group_norm})
+    # no TPU kernel either: the residual adds with the conv biases handed on, 17 a
+    # decode; launches as group_norm's
+    kernels.append({"name": "residual", "route": "cuda", "source": csrc + "residual.cu",
+                    "replaces": None, "launches": launches["residual"], **residual})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     print(smi, flush=True)

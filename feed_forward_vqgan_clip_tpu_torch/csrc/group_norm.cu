@@ -40,6 +40,12 @@
 //     rounding to the tensor's dtype as the plain form rounds them, in shared memory;
 //     then y = x a + shift in float32, y sigmoid(y) where `silu`, one rounding to the
 //     dtype.
+//   * Pre-bias (optional): a per-channel float32 vector that both passes add to x in
+//     float32 before anything else, so x + pre_bias is never rounded to the dtype. It is
+//     the bias of the convolution that wrote x, which the decoder hands on here in place of
+//     cuDNN's separate bias pass (a broadcast add that moved 4 bytes a bf16 element). A
+//     thread's channels-last channels are fixed, so its 8 values sit in registers: one
+//     float32 add an element, no extra bytes. Without it the kernels are as before.
 
 #include <math.h>
 
@@ -56,37 +62,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;            // elements of one vector
 constexpr int kMaxChannels = 2048; // channels whose fold sits in shared memory
 constexpr int kMinBlocks = 4;      // CTAs an SM holds at once: 64 registers a thread
-
-__device__ __forceinline__ void load_vec(const bf16* p, float (&v)[kVec]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < kVec / 2; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void store_vec(bf16* p, const float (&v)[kVec]) {
-  uint4 raw;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < kVec / 2; ++k) h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
 
 // y sigmoid(y) as y / (1 + e^-y); e^-y = inf for y below about -88 gives -0.
 __device__ __forceinline__ float silu_f(float y) { return __fdividef(y, 1.f + __expf(-y)); }
@@ -119,15 +94,21 @@ __device__ __forceinline__ void scale_shift(float inv, float mean_inv, float gm,
 // Channels-last x (B, H, W, C): a span is one image, hw pixels x c channels (len = hw c, the
 // slice a multiple of c: whole pixels), and a CTA takes every group of its pixels. c is a
 // power of two from 8 to kMaxChannels, so kThreads is a multiple of the c / 8 vectors of a
-// pixel and each thread reads the same 8 channels at every step.
-template <typename T>
+// pixel and each thread reads the same 8 channels at every step: their pre-bias sits in
+// registers. kBias: the value normalized is x + pre_bias[channel], summed in float32.
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gn_stats_nhwc_kernel(const T* __restrict__ x, float* __restrict__ partial, int c,
-                         int groups, int len, int slice, int splits) {
+    gn_stats_nhwc_kernel(const T* __restrict__ x, const float* __restrict__ pre_bias,
+                         float* __restrict__ partial, int c, int groups, int len, int slice,
+                         int splits) {
   const long long span = blockIdx.x / splits;
   const int begin = (blockIdx.x % splits) * slice;
   const int end = static_cast<int>(min(static_cast<long long>(len), 1ll * begin + slice));
   const T* g = x + span * len;
+  const int cvecs = c / kVec;
+  float pb[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) pb[k] = kBias ? pre_bias[(threadIdx.x % cvecs) * kVec + k] : 0.f;
   float sum[kVec] = {}, sq[kVec] = {};
   const int ve = end / kVec;
   int v = begin / kVec + threadIdx.x;
@@ -139,8 +120,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
-        sum[k] += e[u][k];
-        sq[k] = fmaf(e[u][k], e[u][k], sq[k]);
+        const float f = kBias ? e[u][k] + pb[k] : e[u][k];
+        sum[k] += f;
+        sq[k] = fmaf(f, f, sq[k]);
       }
   }
   if (v < ve) {
@@ -148,8 +130,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     load_vec(g + v * kVec, e);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      sum[k] += e[k];
-      sq[k] = fmaf(e[k], e[k], sq[k]);
+      const float f = kBias ? e[k] + pb[k] : e[k];
+      sum[k] += f;
+      sq[k] = fmaf(f, f, sq[k]);
     }
   }
   // per channel over the threads that read it, in thread order; then per group over its
@@ -159,7 +142,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
   for (int k = 0; k < kVec; ++k) red[k][threadIdx.x] = sum[k], red[kVec + k][threadIdx.x] = sq[k];
   __syncthreads();
-  const int cvecs = c / kVec;
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     const int k = ch % kVec;
     float s = 0.f, q = 0.f;
@@ -177,12 +159,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <typename T, bool kSilu>
+template <typename T, bool kSilu, bool kBias>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gn_apply_nhwc_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                         const float* __restrict__ beta, const float* __restrict__ partial,
-                         T* __restrict__ out, int c, int groups, int len, int slice, int splits,
-                         float eps) {
+                         const float* __restrict__ beta, const float* __restrict__ pre_bias,
+                         const float* __restrict__ partial, T* __restrict__ out, int c,
+                         int groups, int len, int slice, int splits, float eps) {
   const long long span = blockIdx.x / splits;
   const int begin = (blockIdx.x % splits) * slice;
   const int end = static_cast<int>(min(static_cast<long long>(len), 1ll * begin + slice));
@@ -199,9 +181,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    s_shift[ch]);
   __syncthreads();
   const int c0 = (threadIdx.x % (c / kVec)) * kVec;
-  float a[kVec], b[kVec];
+  float a[kVec], b[kVec], pb[kVec];
 #pragma unroll
-  for (int k = 0; k < kVec; ++k) a[k] = s_scale[c0 + k], b[k] = s_shift[c0 + k];
+  for (int k = 0; k < kVec; ++k) {
+    a[k] = s_scale[c0 + k], b[k] = s_shift[c0 + k];
+    pb[k] = kBias ? pre_bias[c0 + k] : 0.f;
+  }
   const T* xg = x + span * len;
   T* og = out + span * len;
   const int ve = end / kVec;
@@ -214,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int u = 0; u < 2; ++u) {
 #pragma unroll
       for (int k = 0; k < kVec; ++k) {
-        const float y = fmaf(e[u][k], a[k], b[k]);
+        const float y = fmaf(kBias ? e[u][k] + pb[k] : e[u][k], a[k], b[k]);
         e[u][k] = kSilu ? silu_f(y) : y;
       }
       store_vec(og + (v + u * kThreads) * kVec, e[u]);
@@ -225,25 +210,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     load_vec(xg + v * kVec, e);
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
-      const float y = fmaf(e[k], a[k], b[k]);
+      const float y = fmaf(kBias ? e[k] + pb[k] : e[k], a[k], b[k]);
       e[k] = kSilu ? silu_f(y) : y;
     }
     store_vec(og + v * kVec, e);
   }
 }
 
-// NCHW x: a span is one group of one image, len = cg hw contiguous elements.
-template <typename T>
+// NCHW x: a span is one group of one image, len = cg hw contiguous elements; element i of
+// span s lies in channel (s % groups) cg + i / hw.
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int len, int slice,
+    gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ pre_bias,
+                    float* __restrict__ partial, int groups, int cg, int hw, int slice,
                     int splits) {
   const long long span = blockIdx.x / splits;
+  const int len = cg * hw;
   const int begin = (blockIdx.x % splits) * slice;
   const int end = static_cast<int>(min(static_cast<long long>(len), 1ll * begin + slice));
   const T* g = x + span * len;
+  const float* pbg = kBias ? pre_bias + static_cast<int>(span % groups) * cg : nullptr;
   float sum = 0.f, sq = 0.f;
   for (int i = begin + threadIdx.x; i < end; i += kThreads) {
-    const float f = to_f<T>(g[i]);
+    const float f = kBias ? to_f<T>(g[i]) + pbg[i / hw] : to_f<T>(g[i]);
     sum += f;
     sq = fmaf(f, f, sq);
   }
@@ -264,28 +253,31 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <typename T, bool kSilu>
+template <typename T, bool kSilu, bool kBias>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const float* __restrict__ partial,
-                    T* __restrict__ out, int groups, int cg, int hw, int slice, int splits,
-                    float eps) {
+                    const float* __restrict__ beta, const float* __restrict__ pre_bias,
+                    const float* __restrict__ partial, T* __restrict__ out, int groups, int cg,
+                    int hw, int slice, int splits, float eps) {
   const long long span = blockIdx.x / splits;
   const int len = cg * hw;
   const int begin = (blockIdx.x % splits) * slice;
   const int end = static_cast<int>(min(static_cast<long long>(len), 1ll * begin + slice));
-  __shared__ float s_scale[kMaxChannels], s_shift[kMaxChannels];
+  __shared__ float s_scale[kMaxChannels], s_shift[kMaxChannels], s_pb[kMaxChannels];
   float inv, mean_inv;
   fold(partial + 2ll * span * splits, 2, splits, static_cast<float>(len), eps, inv, mean_inv);
   const int c0 = static_cast<int>(span % groups) * cg;
-  for (int c = threadIdx.x; c < cg; c += kThreads)
+  for (int c = threadIdx.x; c < cg; c += kThreads) {
     scale_shift<T>(inv, mean_inv, gamma[c0 + c], beta[c0 + c], s_scale[c], s_shift[c]);
+    if (kBias) s_pb[c] = pre_bias[c0 + c];
+  }
   __syncthreads();
   const T* xg = x + span * len;
   T* og = out + span * len;
   for (int i = begin + threadIdx.x; i < end; i += kThreads) {
     const int c = i / hw;
-    const float y = fmaf(to_f<T>(xg[i]), s_scale[c], s_shift[c]);
+    const float xv = kBias ? to_f<T>(xg[i]) + s_pb[c] : to_f<T>(xg[i]);
+    const float y = fmaf(xv, s_scale[c], s_shift[c]);
     og[i] = from_f<T>(kSilu ? silu_f(y) : y);
   }
 }
@@ -293,33 +285,50 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // The entry point's `path`: how x lies.
 enum Path : int { kNchw = 0, kNhwc = 1 };
 
-template <typename T>
-void launch(const void* x, const float* gamma, const float* beta, void* out, float* partial,
-            int rows, int groups, int cg, int hw, int slice, int splits, float eps, bool silu,
-            int path, cudaStream_t stream) {
+template <typename T, bool kSilu, bool kBias>
+void launch_apply(const T* x, const float* gamma, const float* beta, const float* pre_bias,
+                  T* out, const float* partial, unsigned grid, int groups, int cg, int hw,
+                  int slice, int splits, float eps, int path, cudaStream_t stream) {
+  if (path == kNhwc)
+    gn_apply_nhwc_kernel<T, kSilu, kBias><<<grid, kThreads, 0, stream>>>(
+        x, gamma, beta, pre_bias, partial, out, cg * groups, groups, cg * hw * groups, slice,
+        splits, eps);
+  else
+    gn_apply_kernel<T, kSilu, kBias><<<grid, kThreads, 0, stream>>>(
+        x, gamma, beta, pre_bias, partial, out, groups, cg, hw, slice, splits, eps);
+}
+
+template <typename T, bool kBias>
+void launch(const T* x, const float* gamma, const float* beta, const float* pre_bias, T* out,
+            float* partial, int rows, int groups, int cg, int hw, int slice, int splits,
+            float eps, bool silu, int path, cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>(rows) * static_cast<unsigned>(splits);
+  if (path == kNhwc)
+    gn_stats_nhwc_kernel<T, kBias><<<grid, kThreads, 0, stream>>>(
+        x, pre_bias, partial, cg * groups, groups, cg * hw * groups, slice, splits);
+  else
+    gn_stats_kernel<T, kBias><<<grid, kThreads, 0, stream>>>(x, pre_bias, partial, groups, cg,
+                                                             hw, slice, splits);
+  if (silu)
+    launch_apply<T, true, kBias>(x, gamma, beta, pre_bias, out, partial, grid, groups, cg, hw,
+                                 slice, splits, eps, path, stream);
+  else
+    launch_apply<T, false, kBias>(x, gamma, beta, pre_bias, out, partial, grid, groups, cg, hw,
+                                  slice, splits, eps, path, stream);
+}
+
+template <typename T>
+void launch(const void* x, const float* gamma, const float* beta, const float* pre_bias,
+            void* out, float* partial, int rows, int groups, int cg, int hw, int slice,
+            int splits, float eps, bool silu, int path, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  const int len = cg * hw;
-  if (path == kNhwc) {
-    const int c = cg * groups;
-    gn_stats_nhwc_kernel<T><<<grid, kThreads, 0, stream>>>(xt, partial, c, groups, len * groups,
-                                                           slice, splits);
-    if (silu)
-      gn_apply_nhwc_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-          xt, gamma, beta, partial, ot, c, groups, len * groups, slice, splits, eps);
-    else
-      gn_apply_nhwc_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-          xt, gamma, beta, partial, ot, c, groups, len * groups, slice, splits, eps);
-  } else {
-    gn_stats_kernel<T><<<grid, kThreads, 0, stream>>>(xt, partial, len, slice, splits);
-    if (silu)
-      gn_apply_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-          xt, gamma, beta, partial, ot, groups, cg, hw, slice, splits, eps);
-    else
-      gn_apply_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-          xt, gamma, beta, partial, ot, groups, cg, hw, slice, splits, eps);
-  }
+  if (pre_bias)
+    launch<T, true>(xt, gamma, beta, pre_bias, ot, partial, rows, groups, cg, hw, slice, splits,
+                    eps, silu, path, stream);
+  else
+    launch<T, false>(xt, gamma, beta, pre_bias, ot, partial, rows, groups, cg, hw, slice,
+                     splits, eps, silu, path, stream);
 }
 
 }  // namespace gn
@@ -328,16 +337,17 @@ void launch(const void* x, const float* gamma, const float* beta, void* out, flo
 using namespace ffvc;
 
 // x of B images, each `groups` groups of cg channels over hw pixels, f32 or bf16 (`dtype`)
-// -> out, the same layout; gamma, beta (groups cg,) float32. `path` kNhwc: x (B, H, W, C)
-// contiguous, rows = B spans of hw C elements, C a power of two from 8 to kMaxChannels, the
-// slice a multiple of C, x and out 16-byte aligned; kNchw: x (B, C, H, W) contiguous, rows
-// = B groups spans of cg hw elements. A span is cut into `splits` slices of `slice`
-// (slice (splits - 1) < span <= slice splits); partial holds rows splits groups-or-1
-// (sum, sumsq) float32 pairs. Two launches on `stream`.
-extern "C" int ffvc_group_norm(const void* x, const float* gamma, const float* beta, void* out,
-                               float* partial, int rows, int groups, int cg, int hw, int slice,
-                               int splits, float eps, int silu, int path, int dtype,
-                               void* stream) {
+// -> out, the same layout; gamma, beta (groups cg,) float32; pre_bias (groups cg,) float32,
+// added to x in float32 before the statistics and the normalization, or null for none.
+// `path` kNhwc: x (B, H, W, C) contiguous, rows = B spans of hw C elements, C a power of two
+// from 8 to kMaxChannels, the slice a multiple of C, x and out 16-byte aligned; kNchw: x
+// (B, C, H, W) contiguous, rows = B groups spans of cg hw elements. A span is cut into
+// `splits` slices of `slice` (slice (splits - 1) < span <= slice splits); partial holds rows
+// splits groups-or-1 (sum, sumsq) float32 pairs. Two launches on `stream`.
+extern "C" int ffvc_group_norm(const void* x, const float* gamma, const float* beta,
+                               const float* pre_bias, void* out, float* partial, int rows,
+                               int groups, int cg, int hw, int slice, int splits, float eps,
+                               int silu, int path, int dtype, void* stream) {
   const long long c = static_cast<long long>(cg) * groups;
   const long long len = static_cast<long long>(cg) * hw * (path == gn::kNhwc ? groups : 1);
   const bool aligned =
@@ -355,10 +365,10 @@ extern "C" int ffvc_group_norm(const void* x, const float* gamma, const float* b
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    gn::launch<bf16>(x, gamma, beta, out, partial, rows, groups, cg, hw, slice, splits, eps,
-                     silu, path, st);
+    gn::launch<bf16>(x, gamma, beta, pre_bias, out, partial, rows, groups, cg, hw, slice, splits,
+                     eps, silu, path, st);
   else
-    gn::launch<float>(x, gamma, beta, out, partial, rows, groups, cg, hw, slice, splits, eps,
-                      silu, path, st);
+    gn::launch<float>(x, gamma, beta, pre_bias, out, partial, rows, groups, cg, hw, slice,
+                      splits, eps, silu, path, st);
   FFVC_RETURN_LAST_ERROR();
 }

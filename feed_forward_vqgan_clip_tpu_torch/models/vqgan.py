@@ -13,10 +13,17 @@ latent through every conv, and the GroupNorm kernel keeps its input's.
 The JAX decoder has no Pallas kernel. Everything here is plain PyTorch
 (F.conv2d, matmul + softmax attention) but the GroupNorm with its SiLU, which
 takes the kernel pair of csrc/group_norm.cu on the card where autograd records
-nothing (`GroupNorm32`). Upsample runs the JAX package's
-default form, the transposed conv (its mode 2); the reference graph (NN-2x then
-a 3x3 conv, mode 0) is what the tests hold it to. The JAX package's
-phase-decomposed upsample (mode 1) is a TPU relayout form and is not here.
+nothing (`GroupNorm32`), and, on that route, the ResnetBlocks' residual add
+(csrc/residual.cu). On that route the decoder also hands its conv biases on:
+a conv whose output a ResnetBlock reads next (`conv_in`, each Upsample, the
+block's own convs and 1x1 shortcut) runs without its bias, and the
+hand-written pass that reads the output next adds it in float32 (the norm as
+its pre-bias, the residual add in its vector), so the library's separate bias
+pass over the output never runs (`Decoder.hands_biases_on`). Upsample runs the
+JAX package's default form, the transposed conv (its mode 2); the reference
+graph (NN-2x then a 3x3 conv, mode 0) is what the tests hold it to. The JAX
+package's phase-decomposed upsample (mode 1) is a TPU relayout form and is not
+here.
 `load_vqgan` builds the config's VQGAN and loads a taming checkpoint with
 `load_state_dict`, or draws random weights from a seed.
 """
@@ -43,6 +50,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.group_norm import (
     group_norm_silu_plain,
     kernel_layout,
 )
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.residual import residual_add, residual_layout
 from feed_forward_vqgan_clip_tpu_torch.ops.quantize import vector_quantize
 
 log = logging.getLogger(__name__)
@@ -64,7 +72,8 @@ class GroupNorm32(nn.Module):
     pair of csrc/group_norm.cu, which has no backward, in the layout it reads
     (`kernel_layout`; any other is made contiguous first). The kernel computes in
     x's dtype, so on that route x must come in the compute dtype, as every
-    decoder layer hands it on; the plain form takes any float x."""
+    decoder layer hands it on; the plain form takes any float x. `pre_bias` (C,)
+    float32, on either route: the norm of x + pre_bias."""
 
     def __init__(self, channels, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -75,27 +84,34 @@ class GroupNorm32(nn.Module):
     def takes_kernel(self, x):
         return x.device.type == "cuda" and not autograd_records(x, self.weight, self.bias)
 
-    def forward(self, x, silu=False):
+    def forward(self, x, silu=False, pre_bias=None):
         if self.takes_kernel(x):
             if x.dtype != self.dtype:
                 raise TypeError(f"GroupNorm32 on the card takes {self.dtype} input, got "
                                 f"{x.dtype}")
             if kernel_layout(x) is None:
                 x = x.contiguous()
-            return group_norm_silu(x, self.weight, self.bias, silu=silu)
-        return group_norm_silu_plain(x, self.weight, self.bias, silu=silu, dtype=self.dtype)
+            return group_norm_silu(x, self.weight, self.bias, silu=silu, pre_bias=pre_bias)
+        return group_norm_silu_plain(x, self.weight, self.bias, silu=silu, dtype=self.dtype,
+                                     pre_bias=pre_bias)
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in the compute dtype with float32 parameters."""
+    """nn.Conv2d computing in the compute dtype with float32 parameters.
+    `bias=False` leaves the bias out, for a later pass to add."""
 
     def __init__(self, cin, cout, kernel, *, dtype=torch.float32, device=None):
         super().__init__(cin, cout, kernel, padding=kernel // 2, device=device)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
         return F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), padding=self.padding)
+                        self.bias.to(self.dtype) if bias else None, padding=self.padding)
+
+    def bias_through(self, b):
+        """What a per-channel bias b (cin,), pending on a 1x1 conv's input, adds to
+        its output: conv(x + b) = conv(x) + W b, in float32."""
+        return self.weight.flatten(1) @ b
 
 
 class ResnetBlock(nn.Module):
@@ -110,18 +126,33 @@ class ResnetBlock(nn.Module):
         if in_ch != out_ch:
             self.nin_shortcut = Conv2d(in_ch, out_ch, 1, **kw)
 
-    def forward(self, x):
+    def forward(self, x, pre_bias=None, fold=False):
+        """x + the block of x. `fold` (the kernel route, `Decoder.hands_biases_on`):
+        the convs run without their biases, norm2 takes conv1's as its pre-bias,
+        and the residual add takes conv2's and the skip path's; `pre_bias` (C,)
+        float32 is a bias still pending on x (its conv's), taken the same way."""
+        if pre_bias is not None and not fold:
+            raise ValueError("a pending bias is handed on only where the block folds")
+        nin = getattr(self, "nin_shortcut", None)
         with span("decode.norm"):
-            h = self.norm1(x, silu=True)
+            h = self.norm1(x, silu=True, pre_bias=pre_bias)
         with span("decode.conv"):
-            h = self.conv1(h)
+            h = self.conv1(h, bias=not fold)
         with span("decode.norm"):
-            h = self.dropout(self.norm2(h, silu=True))
+            h = self.dropout(self.norm2(h, silu=True, pre_bias=self.conv1.bias if fold else None))
         with span("decode.conv"):
-            h = self.conv2(h)
-            if hasattr(self, "nin_shortcut"):
-                x = self.nin_shortcut(x)
-        return x + h
+            h = self.conv2(h, bias=not fold)
+            if nin is not None:
+                x = nin(x, bias=not fold)
+        if not fold:
+            return x + h
+        skip_bias = pre_bias
+        if nin is not None:
+            skip_bias = nin.bias if pre_bias is None else nin.bias + nin.bias_through(pre_bias)
+        vec = self.conv2.bias if skip_bias is None else self.conv2.bias + skip_bias
+        if residual_layout(x, h) is None:  # a layout the kernel does not read
+            x, h = x.contiguous(), h.contiguous()
+        return residual_add(x, h, vec)
 
 
 class AttnBlock(nn.Module):
@@ -169,12 +200,14 @@ class Upsample(nn.Module):
         self.register_buffer("fold", torch.tensor(_UPSAMPLE_FOLD, device=device),
                              persistent=False)
 
-    def forward(self, x):
+    def forward(self, x, bias=True):
+        """`bias=False`: without `conv.bias`, which a later pass adds."""
         with span("decode.conv"):  # the weight fold included
             k4 = self.fold @ self.conv.weight.float() @ self.fold.t()  # (O, I, 4, 4)
             # conv_transpose2d's weight is (I, O, kh, kw) and slides flipped
             wt = k4.flip(2, 3).transpose(0, 1).to(self.dtype)
-            return F.conv_transpose2d(x.to(self.dtype), wt, self.conv.bias.to(self.dtype),
+            return F.conv_transpose2d(x.to(self.dtype), wt,
+                                      self.conv.bias.to(self.dtype) if bias else None,
                                       stride=2, padding=1)
 
 
@@ -188,7 +221,14 @@ class _UpLevel(nn.Module):
 
 
 class Decoder(nn.Module):
-    """taming's Decoder: z (B, z_channels, S, S) -> image (B, out_ch, 16S, 16S), NCHW."""
+    """taming's Decoder: z (B, z_channels, S, S) -> image (B, out_ch, 16S, 16S), NCHW.
+
+    `Decoder.folded` and `Decoder.library` count, over every decode, the convs
+    whose bias was handed on to a hand-written pass and those whose bias the
+    library's conv added (`hands_biases_on`)."""
+
+    folded = 0
+    library = 0
 
     def __init__(self, ch=128, out_ch=3, ch_mult=(1, 1, 2, 2, 4), num_res_blocks=2,
                  attn_resolutions=(16,), resolution=256, z_channels=256, dropout=0.0,
@@ -221,19 +261,42 @@ class Decoder(nn.Module):
         self.up = nn.ModuleList([levels[i] for i in range(num_levels)])
         self.norm_out = GroupNorm32(block_in, **kw)
         self.conv_out = Conv2d(block_in, out_ch, 3, **kw)
+        # the convs a decode runs, and those whose bias it can hand on: conv_in's, each
+        # Upsample's, and each ResnetBlock's two and its 1x1 shortcut's
+        self.convs = sum(isinstance(m, nn.Conv2d) for m in self.modules())
+        blocks = [m for m in self.modules() if isinstance(m, ResnetBlock)]
+        upsamples = [m for m in self.modules() if isinstance(m, Upsample)]
+        self.foldable = 1 + len(upsamples) + sum(2 + hasattr(b, "nin_shortcut") for b in blocks)
+
+    def hands_biases_on(self, z):
+        """Whether a decode of z hands its conv biases on to the hand-written passes:
+        where its norms take the kernel route (a CUDA tensor, no graph for autograd
+        to record), read from what the call can observe. Then `conv_in`, each
+        Upsample and every ResnetBlock conv run without their biases
+        (`self.foldable`: in the f16-16384 decoder 41 of its 58 convs); else all
+        keep them."""
+        return self.norm_out.takes_kernel(z)
 
     def forward(self, z):
+        fold = self.hands_biases_on(z)
+        folded = self.foldable if fold else 0
+        Decoder.folded += folded
+        Decoder.library += self.convs - folded
         with span("decode.conv"):
-            h = self.conv_in(z)
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+            h = self.conv_in(z, bias=not fold)
+        h = self.mid.block_1(h, self.conv_in.bias if fold else None, fold)
+        h = self.mid.block_2(self.mid.attn_1(h), fold=fold)
+        pending = None  # an Upsample's bias, for the block that reads its output
         for i_level in reversed(range(len(self.up))):
             up = self.up[i_level]
             for i_block, block in enumerate(up.block):
-                h = block(h)
+                h = block(h, pending, fold)
+                pending = None
                 if len(up.attn) > 0:
                     h = up.attn[i_block](h)
             if hasattr(up, "upsample"):
-                h = up.upsample(h)
+                h = up.upsample(h, bias=not fold)
+                pending = up.upsample.conv.bias if fold else None
         with span("decode.norm"):
             h = self.norm_out(h, silu=True)
         with span("decode.conv"):

@@ -90,9 +90,11 @@ _SIGNATURES = {
     # res, mul, aux, act, bn, grid, stream
     "ffvc_wgmma_gemm": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _I, _P, _I,
                         _P, _P, _P, _I, _I, _I, _P],
-    # x, gamma, beta, out, partial, rows, groups, cg, hw, slice, splits, eps, silu, path,
-    # dtype, stream
-    "ffvc_group_norm": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # x, gamma, beta, pre_bias, out, partial, rows, groups, cg, hw, slice, splits, eps, silu,
+    # path, dtype, stream
+    "ffvc_group_norm": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],
+    # skip, h, vec, out, n, c, hw, path, dtype, stream
+    "ffvc_residual_add": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     # img, mats, out, b, h, w, ho, wo, c, border, dtype, stream
     "ffvc_warp_forward": [_P, _P, _P] + [_I] * 8 + [_P],
     # g, mats, grad, b, h, w, ho, wo, c, border, dtype, stream

@@ -10,6 +10,11 @@ channels-last activations (the decoder's) and NCHW ones as they lie
 (`kernel_layout`). `gn_plan` cuts each span into slices by its length alone, so
 an image normalizes the same alone as in a batch. See the .cu file for the
 design and what bounds it on an H100.
+
+Both forms take an optional per-channel float32 `pre_bias`, added to x in
+float32 before the statistics and the normalization: the bias of the
+convolution that wrote x, which the decoder hands on to the norm in place of
+the library's own bias pass (models/vqgan.py).
 """
 
 import functools
@@ -34,15 +39,18 @@ def num_groups(channels):
     return 32 if channels % 32 == 0 else channels
 
 
-def group_norm_silu_plain(x, weight, bias, *, silu=False, dtype=None):
+def group_norm_silu_plain(x, weight, bias, *, silu=False, dtype=None, pre_bias=None):
     """GroupNorm (num_groups, eps 1e-6) of x (B, C, H, W) with float32 statistics,
     folded into one per-channel multiply-add applied in `dtype` (x's by default),
-    then F.silu where `silu`. weight, bias (C,) float32."""
+    then F.silu where `silu`. weight, bias (C,) float32. `pre_bias` (C,) float32:
+    the norm of x + pre_bias, the sum taken in float32."""
     dtype = x.dtype if dtype is None else dtype
     b, c, h, w = x.shape
     groups = num_groups(c)
     xg = x.reshape(b, groups, c // groups, h * w)
     xf = xg.float()
+    if pre_bias is not None:
+        xg = xf = xf + pre_bias.reshape(groups, c // groups, 1)
     mean = xf.mean(dim=(2, 3), keepdim=True)
     var = (xf.square().mean(dim=(2, 3), keepdim=True) - mean.square()).clamp_min(0.0)
     inv = torch.rsqrt(var + EPS)
@@ -102,34 +110,35 @@ def kernel_layout(x):
     return None
 
 
-def group_norm_silu(x, weight, bias, *, silu=False):
-    """GroupNorm (num_groups, eps 1e-6) of x (B, C, H, W), then SiLU where `silu`,
-    computed in x's dtype as `group_norm_silu_plain` computes it: weight, bias (C,)
-    float32; out in x's dtype and shape.
+def group_norm_silu(x, weight, bias, *, silu=False, pre_bias=None):
+    """GroupNorm (num_groups, eps 1e-6) of x (B, C, H, W), or of x + pre_bias,
+    then SiLU where `silu`, computed in x's dtype as `group_norm_silu_plain`
+    computes it: weight, bias, pre_bias (C,) float32; out in x's dtype and shape.
 
     A CUDA tensor launches the two kernels (x float32 or bf16, laid out as
     `kernel_layout` takes it, no graph for autograd to record: the kernel has no
     backward), out in x's layout; a CPU tensor runs the plain version. Each call
     adds 2 to `group_norm_silu.launches`."""
     if x.device.type == "cpu":
-        return group_norm_silu_plain(x, weight, bias, silu=silu)
-    if x.device.type != "cuda" or weight.device != x.device or bias.device != x.device:
-        raise ValueError(f"group_norm: x on {x.device}, weight on {weight.device}, bias on "
-                         f"{bias.device}: need one CUDA device")
+        return group_norm_silu_plain(x, weight, bias, silu=silu, pre_bias=pre_bias)
+    params = (weight, bias) if pre_bias is None else (weight, bias, pre_bias)
+    if x.device.type != "cuda" or any(p.device != x.device for p in params):
+        raise ValueError(f"group_norm: x on {x.device}, weight, bias, pre_bias on "
+                         f"{[str(p.device) for p in params]}: need one CUDA device")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"group_norm takes float32 or bfloat16 activations, got {x.dtype}")
-    if weight.dtype != torch.float32 or bias.dtype != torch.float32:
-        raise TypeError(f"group_norm takes float32 weight and bias, got {weight.dtype}, "
-                        f"{bias.dtype}")
-    if x.dim() != 4 or weight.shape != (x.shape[1],) or bias.shape != (x.shape[1],):
-        raise ValueError(f"group_norm: x {tuple(x.shape)}, weight {tuple(weight.shape)}, bias "
-                         f"{tuple(bias.shape)}: need (B, C, H, W), (C,), (C,)")
+    if any(p.dtype != torch.float32 for p in params):
+        raise TypeError(f"group_norm takes float32 weight, bias and pre_bias, got "
+                        f"{[p.dtype for p in params]}")
+    if x.dim() != 4 or any(p.shape != (x.shape[1],) for p in params):
+        raise ValueError(f"group_norm: x {tuple(x.shape)}, weight, bias, pre_bias "
+                         f"{[tuple(p.shape) for p in params]}: need (B, C, H, W) and (C,)")
     path = kernel_layout(x)
     if path is None:
         raise ValueError("group_norm takes contiguous NCHW activations, or channels-last ones "
                          f"of 8 to {GN_MAX_CHANNELS} channels (a power of two) at a 16-byte-"
                          f"aligned address; got strides {x.stride()}")
-    if autograd_records(x, weight, bias):
+    if autograd_records(x, *params):
         raise RuntimeError("group_norm has no backward: call it where autograd records no "
                            "graph, or take group_norm_silu_plain")
     b, c, h, w = x.shape
@@ -148,11 +157,13 @@ def group_norm_silu(x, weight, bias, *, silu=False):
         spans, plan, pairs = b * groups, gn_plan(cg * hw), 1
     partial = torch.empty(spans * plan.splits * pairs * 2, dtype=torch.float32, device=x.device)
     weight, bias = weight.contiguous(), bias.contiguous()
+    pre_bias = None if pre_bias is None else pre_bias.contiguous()
     with torch.cuda.device(x.device):
         err = lib.ffvc_group_norm(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), partial.data_ptr(),
-            spans, groups, cg, hw, plan.slice, plan.splits, EPS, int(silu), path,
-            _DTYPE_CODE[x.dtype], build.stream_handle(x.device))
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            None if pre_bias is None else pre_bias.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), spans, groups, cg, hw, plan.slice, plan.splits, EPS, int(silu),
+            path, _DTYPE_CODE[x.dtype], build.stream_handle(x.device))
     build.check(err, "ffvc_group_norm")
     group_norm_silu.launches += 2
     return out

@@ -263,6 +263,7 @@ def kernel_counters():
     )
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import mlp_ln, mlp_ln_bwd
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.residual import residual_add
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel,
     )
@@ -274,4 +275,4 @@ def kernel_counters():
             "mixer_fwd_res": mixer_block_fwd_res, "mixer_channel_bwd": mixer_channel_bwd,
             "mixer_token_bwd": mixer_token_bwd, "warp_forward": warp_forward,
             "warp_adjoint": warp_adjoint, "mlp_ln": mlp_ln, "mlp_ln_bwd": mlp_ln_bwd,
-            "group_norm": group_norm_silu}
+            "group_norm": group_norm_silu, "residual": residual_add}

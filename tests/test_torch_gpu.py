@@ -40,10 +40,16 @@ against its plain form at the decoder's shapes: float32 within 1e-5 of max
 |plain|; bf16 no further from the float32 plain result than the bf16 plain form
 is, plus one bf16 ulp of max |plain| (the kernel rounds once where the plain
 form rounds three times); two launches bitwise equal, and each image of a batch
-bitwise equal to itself alone. The f16-16384 decoder on
-the card (its norms on the kernel) against the CPU's on the same weights:
-float32 within 1e-3, bf16 within 5e-2 (tests/test_torch_vqgan.py's bf16
-tolerance) of max |CPU|.
+bitwise equal to itself alone; the same with a per-channel pre-bias, against
+the plain form of x + pre_bias. The residual add (csrc/residual.cu) equal to
+its plain form bit for bit, both layouts and dtypes, ragged and misaligned
+contiguous operands element by element; operands it does not read, or a graph
+for autograd to record, raise. The f16-16384 decoder on the card (its norms on the
+kernel, its conv biases handed on to the norms and the residual adds) against
+the CPU's on the same weights: float32 within 1e-3, bf16 within 5e-2
+(tests/test_torch_vqgan.py's bf16 tolerance) of max |CPU|; and against the
+card's own decode with every bias left to the library, float32 within 1e-4,
+bf16 within 5e-2.
 """
 
 import copy
@@ -60,6 +66,7 @@ from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png
 from feed_forward_vqgan_clip_tpu_torch.models import flow
 from feed_forward_vqgan_clip_tpu_torch.models.vgg import VGG16Features
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import (
+    Decoder,
     GroupNorm32,
     Upsample,
     latent_bounds,
@@ -109,6 +116,10 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
     mixer_stream_plain,
     stream_plan,
     stream_route,
+)
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels.residual import (
+    residual_add,
+    residual_add_plain,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mlp_ln import (
     MlpLnGrads,
@@ -1204,17 +1215,18 @@ def _gn_case(b, c, h, w, dtype, cuda, seed=0):
     return x, weight, bias
 
 
-def _gn_check(x, weight, bias, silu):
+def _gn_check(x, weight, bias, silu, pre_bias=None):
     """The kernel against the plain form by the tolerances of the module docstring."""
-    got = group_norm_silu(x, weight, bias, silu=silu).float()
-    ref = group_norm_silu_plain(x.float(), weight, bias, silu=silu)
+    got = group_norm_silu(x, weight, bias, silu=silu, pre_bias=pre_bias).float()
+    ref = group_norm_silu_plain(x.float(), weight, bias, silu=silu, pre_bias=pre_bias)
     top = ref.abs().max().item()
     err = (got - ref).abs().max().item()
     assert torch.isfinite(got).all()
     if x.dtype == torch.float32:
         assert err <= 1e-5 * top, (err, top)
     else:
-        plain = (group_norm_silu_plain(x, weight, bias, silu=silu).float() - ref).abs().max()
+        plain = (group_norm_silu_plain(x, weight, bias, silu=silu, pre_bias=pre_bias).float()
+                 - ref).abs().max()
         ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
         assert err <= plain.item() + ulp, (err, plain.item(), ulp)
 
@@ -1313,10 +1325,136 @@ def test_group_norm_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         assert norm.takes_kernel(xg)
 
 
+def _pre_bias(c, cuda, seed=3):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return 0.5 * torch.randn(c, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,side", [(1, 512, 16), (4, 256, 32), (2, 128, 128), (2, 64, 5),
+                                      (3, 8, 3)])
+def test_group_norm_kernel_with_pre_bias_matches_plain(cuda, b, c, side, dtype, layout):
+    """x + pre_bias normalized: both layouts, at decoder shapes, at H W no multiple
+    of 8 and with one channel a group (C = 8), by the plain form's tolerances; the
+    output keeps x's layout."""
+    x, weight, bias = _gn_case(b, c, side, side, dtype, cuda, seed=5)
+    x = x.contiguous(memory_format=layout)
+    pre_bias = _pre_bias(c, cuda)
+    with torch.no_grad():
+        out = group_norm_silu(x, weight, bias, pre_bias=pre_bias)
+        assert out.is_contiguous(memory_format=layout)
+        assert not torch.equal(out, group_norm_silu(x, weight, bias))
+        for silu in (False, True):
+            _gn_check(x, weight, bias, silu, pre_bias)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("c,side", [(128, 128), (512, 16)])
+def test_group_norm_kernel_with_pre_bias_is_batch_invariant(cuda, c, side, layout):
+    x, weight, bias = _gn_case(5, c, side, side, torch.bfloat16, cuda, seed=6)
+    x = x.contiguous(memory_format=layout)
+    pre_bias = _pre_bias(c, cuda)
+    with torch.no_grad():
+        whole = group_norm_silu(x, weight, bias, silu=True, pre_bias=pre_bias)
+        assert torch.equal(whole, group_norm_silu(x, weight, bias, silu=True, pre_bias=pre_bias))
+        for i in range(x.shape[0]):
+            alone = x[i:i + 1].contiguous(memory_format=layout)
+            assert torch.equal(group_norm_silu(alone, weight, bias, silu=True, pre_bias=pre_bias),
+                               whole[i:i + 1])
+
+
+def test_group_norm_wrapper_raises_on_a_pre_bias_the_kernel_does_not_take(cuda):
+    x, weight, bias = _gn_case(2, 64, 8, 8, torch.bfloat16, cuda)
+    pre_bias = _pre_bias(64, cuda)
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            group_norm_silu(x, weight, bias, pre_bias=pre_bias.double())
+        with pytest.raises(ValueError):
+            group_norm_silu(x, weight, bias, pre_bias=pre_bias[:32])
+        with pytest.raises(ValueError):
+            group_norm_silu(x, weight, bias, pre_bias=pre_bias.cpu())
+    with pytest.raises(RuntimeError):  # the kernel has no backward
+        group_norm_silu(x, weight, bias, pre_bias=pre_bias.clone().requires_grad_(True))
+
+
+def _residual_case(b, c, h, w, dtype, cuda, layout=torch.contiguous_format, seed=7):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    skip, hh = (torch.randn(b, c, h, w, generator=gen, device=cuda).to(dtype)
+                .contiguous(memory_format=layout) for _ in range(2))
+    return skip, hh, torch.randn(c, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last],
+                         ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,c,side", [(2, 128, 64), (3, 512, 16), (1, 8, 4)])
+def test_residual_kernel_matches_plain_bitwise(cuda, b, c, side, dtype, layout):
+    """One launch; skip + h + vec summed in float32 in that order and rounded once,
+    as the plain form does: equal bit for bit, in x's layout."""
+    skip, h, vec = _residual_case(b, c, side, side, dtype, cuda, layout)
+    with torch.no_grad():
+        before = residual_add.launches
+        got = residual_add(skip, h, vec)
+        assert residual_add.launches - before == 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=layout)
+    assert torch.equal(got, residual_add_plain(skip, h, vec))
+    if dtype == torch.float32:
+        assert torch.equal(got, skip + h + vec.reshape(1, -1, 1, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["ragged_nchw", "misaligned", "channels_of_12"])
+def test_residual_kernel_reads_ragged_and_misaligned_operands_element_wise(cuda, case, dtype):
+    """Contiguous operands the vectors do not fit, H W no multiple of 8, a base one
+    element past 16 bytes, C = 12 made contiguous: one launch on the element path,
+    the plain form bit for bit."""
+    skip, h, vec = _residual_case(2, 64, 5, 7, dtype, cuda)
+    if case == "misaligned":
+        skip, h, vec = _residual_case(2, 64, 8, 8, dtype, cuda)
+        buf = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda)
+        buf[1:] = h.reshape(-1)
+        h = buf[1:].view(h.shape)
+        assert h.is_contiguous() and h.data_ptr() % 16
+    elif case == "channels_of_12":
+        skip, h, vec = _residual_case(2, 12, 3, 3, dtype, cuda)
+    with torch.no_grad():
+        before = residual_add.launches
+        got = residual_add(skip, h, vec)
+        assert residual_add.launches - before == 1
+    assert got.is_contiguous() and torch.equal(got, residual_add_plain(skip, h, vec))
+
+
+@pytest.mark.parametrize("case", ["channels_not_of_8", "mixed_layouts", "mixed_dtypes",
+                                  "records_a_graph"])
+def test_residual_kernel_raises_on_what_it_does_not_read(cuda, case):
+    """No launch and no plain form on the card: channels-last with C no multiple of
+    8, operands in two layouts or two dtypes raise ValueError; a graph for
+    autograd to record raises RuntimeError (the kernel has no backward)."""
+    cl = torch.channels_last
+    skip, h, vec = _residual_case(2, 64, 8, 8, torch.bfloat16, cuda)
+    error = ValueError
+    if case == "channels_not_of_8":
+        skip, h, vec = _residual_case(2, 12, 4, 4, torch.bfloat16, cuda, cl)
+    elif case == "mixed_layouts":
+        h = h.contiguous(memory_format=cl)
+    elif case == "mixed_dtypes":
+        skip = skip.float()
+    elif case == "records_a_graph":
+        h.requires_grad_(True)
+        error = RuntimeError
+    before = residual_add.launches
+    with pytest.raises(error):
+        residual_add(skip, h, vec)
+    assert residual_add.launches == before
+
+
 def _f16_decoder_pair(cuda, dtype, seed=11):
     """The f16-16384 VQGAN on the CPU (float32) and on the card (`dtype`) holding
     the same weights: init_random_ from a CPU generator, then norm scales 1 +
-    N(0, 0.1) and shifts N(0, 0.1)."""
+    N(0, 0.1), norm shifts and conv biases N(0, 0.1)."""
     from feed_forward_vqgan_clip_tpu_torch.registry import VQGAN_CONFIGS
 
     cfg = VQGAN_CONFIGS["vqgan_imagenet_f16_16384"]
@@ -1326,6 +1464,8 @@ def _f16_decoder_pair(cuda, dtype, seed=11):
         for m in cpu.modules():
             if isinstance(m, GroupNorm32):
                 m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=gen))
+                m.bias.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, torch.nn.Conv2d):
                 m.bias.normal_(0.0, 0.1, generator=gen)
     card = make_vqgan(cfg, dtype, device=cuda)
     card.load_state_dict(cpu.state_dict())
@@ -1337,7 +1477,9 @@ def _f16_decoder_pair(cuda, dtype, seed=11):
 def test_f16_decoder_on_card_matches_cpu_and_launches_two_a_norm(cuda, dtype, tol):
     """The whole f16-16384 decoder (39 GroupNorms, a 4 x 4 latent) under no_grad:
     every norm on the kernel, two launches each, channels-last in and out as the
-    convolutions hand it on, the image within `tol` of max |CPU|."""
+    convolutions hand it on; 41 of the decoder's 58 conv biases handed on, the 17
+    ResnetBlocks' residual adds on their kernel; the image within `tol` of max
+    |CPU| (the CPU's convs add their own biases)."""
     cpu, card, gen = _f16_decoder_pair(cuda, dtype)
     z = torch.randn(2, 4, 4, 256, generator=gen)
     norms = [m for m in card.modules() if isinstance(m, GroupNorm32)]
@@ -1349,8 +1491,11 @@ def test_f16_decoder_on_card_matches_cpu_and_launches_two_a_norm(cuda, dtype, to
     with torch.no_grad():
         want = cpu.decode_latent(z)
         before = group_norm_silu.launches
+        counts = (residual_add.launches, Decoder.folded, Decoder.library)
         got = card.decode_latent(z.to(cuda)).float().cpu()
         assert group_norm_silu.launches - before == 2 * len(norms)
+        assert (residual_add.launches - counts[0], Decoder.folded - counts[1],
+                Decoder.library - counts[2]) == (17, 41, 17)
     for h in hooks:
         h.remove()
     # the NHWC latent keeps cuDNN channels-last, and each norm keeps its input's layout
@@ -1359,15 +1504,38 @@ def test_f16_decoder_on_card_matches_cpu_and_launches_two_a_norm(cuda, dtype, to
     assert _rel(got, want) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)],
+                         ids=["f32", "bf16"])
+def test_f16_decoder_folded_matches_library_biases_on_card(cuda, dtype, tol, monkeypatch):
+    """The card's decode with its conv biases handed on against the same decode
+    with every bias added by the library's convs (hands_biases_on forced off),
+    within `tol` of max |library|."""
+    _, card, gen = _f16_decoder_pair(cuda, dtype, seed=12)
+    z = torch.randn(2, 4, 4, 256, generator=gen).to(cuda)
+    with torch.no_grad():
+        folded = Decoder.folded
+        got = card.decode_latent(z).float()
+        assert Decoder.folded - folded == 41
+        monkeypatch.setattr(Decoder, "hands_biases_on", lambda self, z: False)
+        launches = residual_add.launches
+        want = card.decode_latent(z).float()
+        assert residual_add.launches == launches
+    assert torch.isfinite(got).all() and _rel(got, want) <= tol
+
+
 def test_train_step_takes_no_group_norm_kernel(cuda):
     """One step of the tiny train step: the decoder's input carries the mapper's
-    gradient, so its norms take the plain form and the kernel launches 0 times."""
+    gradient, so its norms take the plain form and the kernel launches 0 times;
+    every conv keeps its bias and no residual kernel runs."""
     from feed_forward_vqgan_clip_tpu_torch import entry as entry_module
 
     tiny = dict(clip_model="tiny", dim=64, depth=2, vq_image_size=4, vqgan_arch=TINY_VQ)
     step_fn, state, batch = entry_module.train_entry(cuda, batch=2, cutn=2, mapper_config=tiny)
     before = group_norm_silu.launches
+    counts = (residual_add.launches, Decoder.folded, Decoder.library)
     state, metrics = step_fn(state, batch, torch.Generator(cuda).manual_seed(0))
     torch.cuda.synchronize()
     assert group_norm_silu.launches == before
+    assert residual_add.launches == counts[0] and Decoder.folded == counts[1]
+    assert Decoder.library > counts[2]
     assert np.isfinite(float(metrics["loss"]))

@@ -118,8 +118,9 @@ def test_kernel_route_refuses_another_dtype_and_keeps_the_layouts_it_reads(monke
     made contiguous."""
     seen = []
 
-    def kernel(x, weight, bias, *, silu=False):
+    def kernel(x, weight, bias, *, silu=False, pre_bias=None):
         seen.append((x.dtype, x.is_contiguous(), silu))
+        assert pre_bias is None
         return x
 
     monkeypatch.setattr(vqgan, "group_norm_silu", kernel)
