@@ -83,9 +83,8 @@ once on one NVIDIA GPU, in phases.
    card (kernels) against CPU (module path, plain warps): loss and mapper grads.
 12. [slice] The flagship generator (CLIP ViT-B/32 text tower, Mixer 32x1024,
    VQGAN f16-16384, bf16, random weights from a seed) answers requests of
-   batch 1, 4 and 16; the kernels' launch counters must rise; one PNG grid.
-   Then the same in stream mode (`entry(stream_mixer=True)`): K4 at batch 1 and
-   4, K5 x 32 at batch 16, on the same tokens.
+   batch 1, 4 and 16: K1 once a request, K4 once at batch 1 and 4 and K2 32
+   times at 16 (models/mappers/fused.py `mapper_route`); one PNG grid.
 13. [serve] The serving Predictor: the flagship mapper saved as a reference
    `.th` checkpoint, loaded with ViT-B/32 and VQGAN f16-16384 (random from the
    seed) and a synthetic BPE table; grids 1x1, 2x2 and 4x4, a warm-up and 3
@@ -222,8 +221,9 @@ once on one NVIDIA GPU, in phases.
    warps' times, and their launches in [trainer-crops] as the wrappers counted
    them, under "rect"; K1, K2, K4, K6-K8 with [mappers]', [prior]'s,
    [diversity]'s, [eval]'s, [perceptors]', [native-ckpt]'s, [parallel]'s,
-   [verify-weights]' and [bench]'s too), then `{"ok": true, "device": {...}}`
-   last.
+   [verify-weights]' and [bench]'s too; every one must have launched; K5,
+   which no path runs, apart under "off_path" with [stream]'s check calls), then
+   `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
 imports nothing of JAX.
@@ -1070,7 +1070,8 @@ def phase_stream(gen):
     rows TMA cannot read) on the WMMA-tile route, the same checks. Then the gates
     on STREAM_GATE_DRAWS draws of weights and input from a generator of their own
     (STREAM_SEED). K5 against its plain version at B=4 for the first and last
-    block. -> {kernel name: max abs err at B=4 in bf16}."""
+    block. -> ({kernel name: max abs err at B=4 in bf16}, K5's launches here, the
+    only ones of the run outside [time]: no path runs K5)."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
@@ -1122,6 +1123,7 @@ def phase_stream(gen):
         return got, err
 
     worst = {"mixer_stream": 0.0, "mixer_block_stacked": 0.0}
+    k5_before = mixer_block_stacked.launches
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
         name = str(dtype)[6:]
@@ -1182,7 +1184,7 @@ def phase_stream(gen):
         f"{MIXER_BF16_REL_L2:g} for every way, 32 x K2 included), the planted "
         f"faults at least {margin:.2f} x their limits (must be >= {STREAM_FAULT_MARGIN:g})")
     log("[stream] two K4 launches bitwise equal at every batch, dtype and route")
-    return worst
+    return worst, mixer_block_stacked.launches - k5_before
 
 
 def random_mlp_weights(d, e, dtype, gen):
@@ -1999,13 +2001,15 @@ def phase_serve_reference():
 
 
 def phase_slice(smi):
-    """The flagship slice answers requests of batch 1, 4 and 16 through the kernels,
-    per block (K2) and then in stream mode (K4 at batch <= 8, K5 per block above)."""
+    """The flagship slice answers requests of batch 1, 4 and 16 through the kernels:
+    K1 once a request, K4 once at batch <= 8, K2 once a block above."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.entry import entry, example_tokens
     from feed_forward_vqgan_clip_tpu_torch.io.images import save_grid
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
         nearest_codebook_indices_kernel as vq_kernel,
     )
@@ -2020,66 +2024,7 @@ def phase_slice(smi):
     torch.cuda.synchronize()
     log(f"[slice] flagship generator built and warmed in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    vq_kernel.launches = 0
-    mixer_block.launches = 0
-    block_ms, block_images = {}, {}
-    for b in REQUEST_BATCHES:
-        tokens = example_tokens(b, "cuda")
-        latencies = []
-        for _ in range(3):
-            vq0, mix0 = vq_kernel.launches, mixer_block.launches
-            t = time.perf_counter()
-            images = prompt_to_image(tokens)
-            torch.cuda.synchronize()
-            latencies.append(time.perf_counter() - t)
-            if vq_kernel.launches - vq0 != 1 or mixer_block.launches - mix0 < 32:
-                raise AssertionError(
-                    f"batch {b}: vq launches {vq_kernel.launches - vq0} (need 1), mixer "
-                    f"block launches {mixer_block.launches - mix0} (need >= 32)")
-        if tuple(images.shape) != (b, 256, 256, 3):
-            raise AssertionError(f"batch {b}: images {tuple(images.shape)}")
-        if not (torch.isfinite(images).all().item() and images.min().item() >= 0.0
-                and images.max().item() <= 1.0):
-            raise AssertionError(f"batch {b}: images not finite or outside [0, 1]")
-        lat = sorted(latencies)[1]
-        block_ms[b], block_images[b] = lat * 1e3, images
-        log(f"[slice] batch {b}: median latency {lat * 1e3:.2f} ms of 3, {b / lat:.2f} img/s, "
-            f"image mean {images.mean().item():.4f} ({smi})")
-    launches = {"vq": vq_kernel.launches, "mixer_block": mixer_block.launches}
-    log(f"[slice] launches in the run: {launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    launches["mixer_block_stacked"] = slice_stream_mode(smi, block_ms, block_images)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "chip_smoke_grid.png")
-        save_grid(images.cpu().numpy(), path, nrow=8)
-        with open(path, "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError("PNG grid was not written")
-        log(f"[slice] wrote {path} ({os.path.getsize(path)} bytes)")
-    return launches
-
-
-def slice_stream_mode(smi, block_ms, block_images):
-    """`entry(stream_mixer=True)` on the tokens of the per-block run: K4 once per
-    request at batch <= 8, K5 32 times at batch 16, VQ once. The images are held
-    to nothing here (the folded LN2 rounds otherwise in bf16; [stream] holds K4
-    and K5 to their plain versions), only their mean difference is printed. ->
-    K5's launches in the run."""
-    import torch
-
-    from feed_forward_vqgan_clip_tpu_torch.entry import entry, example_tokens
-    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block_stacked
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
-    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.vq_lookup import (
-        nearest_codebook_indices_kernel as vq_kernel,
-    )
-
-    prompt_to_image, _ = entry("cuda", batch=4, seed=SEED, stream_mixer=True)
-    for b in REQUEST_BATCHES:
-        prompt_to_image(example_tokens(b, "cuda"))
-    torch.cuda.synchronize()
-    counters = (vq_kernel, mixer_stream, mixer_block_stacked)
+    counters = (vq_kernel, mixer_stream, mixer_block)
     for fn in counters:
         fn.launches = 0
     for b in REQUEST_BATCHES:
@@ -2094,18 +2039,27 @@ def slice_stream_mode(smi, block_ms, block_images):
             latencies.append(time.perf_counter() - t)
             launched = tuple(fn.launches - c for fn, c in zip(counters, before))
             if launched != want:
-                raise AssertionError(f"stream mode batch {b}: launches (vq, K4, K5) {launched}, "
-                                     f"need {want}")
-        if not (tuple(images.shape) == (b, 256, 256, 3) and torch.isfinite(images).all().item()
-                and images.min().item() >= 0.0 and images.max().item() <= 1.0):
-            raise AssertionError(f"stream mode batch {b}: images not finite in [0, 1]")
-        lat = sorted(latencies)[1] * 1e3
-        diff = (images - block_images[b]).abs().mean().item()
-        log(f"[slice] stream mode batch {b}: median latency {lat:.2f} ms of 3 (per-block path "
-            f"{block_ms[b]:.2f} ms), mean |image - per-block image| {diff:.4f} ({smi})")
-    log(f"[slice] stream-mode launches in the run: vq {vq_kernel.launches}, K4 "
-        f"{mixer_stream.launches}, K5 {mixer_block_stacked.launches}")
-    return mixer_block_stacked.launches
+                raise AssertionError(f"batch {b}: launches (vq, K4, K2) {launched}, need {want}")
+        if tuple(images.shape) != (b, 256, 256, 3):
+            raise AssertionError(f"batch {b}: images {tuple(images.shape)}")
+        if not (torch.isfinite(images).all().item() and images.min().item() >= 0.0
+                and images.max().item() <= 1.0):
+            raise AssertionError(f"batch {b}: images not finite or outside [0, 1]")
+        lat = sorted(latencies)[1]
+        log(f"[slice] batch {b}: median latency {lat * 1e3:.2f} ms of 3, {b / lat:.2f} img/s, "
+            f"image mean {images.mean().item():.4f} ({smi})")
+    log(f"[slice] launches in the run: vq {vq_kernel.launches}, K4 {mixer_stream.launches}, K2 "
+        f"{mixer_block.launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {"vq": vq_kernel.launches, "mixer_block": mixer_block.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chip_smoke_grid.png")
+        save_grid(images.cpu().numpy(), path, nrow=8)
+        with open(path, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("PNG grid was not written")
+        log(f"[slice] wrote {path} ({os.path.getsize(path)} bytes)")
+    return launches
 
 
 def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, side, record,
@@ -2894,7 +2848,10 @@ def mapper_model_run(label, cfg, grids, seed, smi):
     from feed_forward_vqgan_clip_tpu_torch.entry import train_entry
     from feed_forward_vqgan_clip_tpu_torch.io.checkpoint import save_model
     from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
-    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import STREAM_MAX_BATCH
+    from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
+        STREAM_MAX_BATCH,
+        mapper_route,
+    )
     from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
     from feed_forward_vqgan_clip_tpu_torch.train.loop import STAGES as TRAIN_STAGES
 
@@ -2918,7 +2875,8 @@ def mapper_model_run(label, cfg, grids, seed, smi):
         pred = predictor_mod.Predictor([path], device="cuda")
         pred.setup()
         name = f"{label}.th"
-        if list(pred.models) != [name] or (name in pred._stream_params) != mixer:
+        if list(pred.models) != [name] or (
+                mapper_route(pred.models[name][0], 1, pred.device) == "stream") != mixer:
             raise AssertionError(f"[mappers] {label}: Predictor loaded {list(pred.models)}")
         for grid in grids:  # warm-up, outside the counted run
             pred.predict(PROMPT, name, grid_size=grid, seed=seed,
@@ -3085,12 +3043,14 @@ def phase_prior(smi):
             f"({smi})")
 
         inputs = []
-        stream = predictor_mod.streamed_mixer_forward
-        with patched(predictor_mod, streamed_mixer_forward=lambda m, p, x: (
-                inputs.append(x.float().cpu()) or stream(m, p, x))):
+        apply = pred._mapper_apply[name]
+        pred._mapper_apply[name] = lambda x: inputs.append(x.float().cpu()) or apply(x)
+        try:
             for flag in (True, False):
                 pred.predict(PROMPT, name, prior=flag, grid_size="1x1", seed=PRIOR_SEED,
                              out_path=os.path.join(tmp, "flag.png"))
+        finally:
+            pred._mapper_apply[name] = apply
         moved = (inputs[0] - inputs[1]).abs().max().item()
         if moved == 0.0:
             raise AssertionError("[prior] prior=True left the mapper input unchanged")
@@ -4388,9 +4348,9 @@ def parallel_tp_worker(tmp, device):
         out["ckpt_shapes"] = {k: list(sd[k].shape) for k in ("mixer.2.0.fn.0.weight",
                                                               "mixer.2.1.fn.3.weight")}
         served = serve_counters()
-        before = {n: fn.launches for n, fn in served.items()}
         pred = predictor_mod.Predictor([os.path.join(folder, "checkpoint.th")], device="cuda")
-        pred.setup()
+        pred.setup()  # its one-row K4 warm-up is not the request's
+        before = {n: fn.launches for n, fn in served.items()}
         png = pred.predict(PROMPT, "checkpoint.th", grid_size="1x1", seed=SEED,
                            out_path=os.path.join(tmp, "tp_1x1.png"))
         img = read_png(png)
@@ -5191,7 +5151,8 @@ def main():
     mixer_err = phase_mixer(gen)
     errs = phase_mixer_train(gen)
     errs.update(phase_warp(gen))
-    errs.update(phase_stream(gen))
+    stream_errs, k5_launches = phase_stream(gen)
+    errs.update(stream_errs)
     errs.update(phase_mlp_ln(gen))
     phase_c3(gen)
     times = phase_timing(gen, smi)
@@ -5241,8 +5202,6 @@ def main():
          mixer_err),
         ("mixer_stream", "mixer_stream_wgmma.cu", "mixer_block.py:530", launches["mixer_stream"],
          errs["mixer_stream"]),
-        ("mixer_block_stacked", "mixer_block.cu", "mixer_block.py:614",
-         launches["mixer_block_stacked"], errs["mixer_block_stacked"]),
         ("mixer_fwd_res", "mixer_block.cu", "mixer_block.py:726", launches["mixer_fwd_res"],
          errs["mixer_fwd_res"]),
         ("mixer_channel_bwd", "mixer_train.cu", "mixer_block.py:853",
@@ -5278,8 +5237,14 @@ def main():
                     "replaces": None, "launches": launches["residual"], **residual})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    # off the path: no route of either package runs K5; its launches are
+    # [stream]'s own checks against the plain form, apart from the gate above
+    off_path = [{"name": "mixer_block_stacked", "route": "cuda",
+                 "source": csrc + "mixer_block.cu", "replaces": pallas + "mixer_block.py:614",
+                 "launches_in_checks": k5_launches, "checked_by": "[stream]",
+                 "max_abs_err": errs["mixer_block_stacked"], **times["mixer_block_stacked"]}]
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "off_path": off_path}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,8 +17,8 @@ and keys, one a leg:
   * train, `train_step_images_per_sec_single_chip` with `train_step_ms`:
     `entry.train_entry` at `--train-batch` (8), cutn 8, 224-px cutouts (K1,
     K6-K8 x 32, K9 x 2, K10 x 2), from the median repetition.
-  * latency, `p50_latency_batch1_256px_prompt_to_image`: `entry.entry(batch=1,
-    stream_mixer=True)` (K4, then K1), each request timed by the host clock
+  * latency, `p50_latency_batch1_256px_prompt_to_image`: `entry.entry` at
+    batch 1 (K4, then K1), each request timed by the host clock
     from the call to `torch.cuda.synchronize()`; `value` is the median of
     LATENCY_REQUESTS requests.
 
@@ -212,11 +212,11 @@ def infer_bench(args, device) -> str:
 
 
 def latency_bench(args, device):
-    """Batch-1 requests in stream mode: the median host-clock request time."""
+    """Batch-1 requests (K4 on the card): the median host-clock request time."""
     t_leg = time.perf_counter()
     _reset_peak(device)
     count = LaunchCount()
-    fn, _ = entry(device, batch=1, stream_mixer=True)
+    fn, _ = entry(device, batch=1)
     toks = token_stack(np.random.default_rng(0), LATENCY_WARMUP + LATENCY_REQUESTS, 1, device)
     warm(lambda i: fn(toks[i]), device, LATENCY_WARMUP)
     cuda = device.type == "cuda"
@@ -242,7 +242,7 @@ def latency_bench(args, device):
     }), flush=True)
     device_ms = (f"device (CUDA events) p50 {statistics.median(dev):.3f} ms, min {min(dev):.3f}, "
                  f"max {max(dev):.3f}" if dev else "device ms not measured (cpu)")
-    print(f"# latency: batch 1, stream mode, {len(host)} requests after {LATENCY_WARMUP} warm-up; "
+    print(f"# latency: batch 1, {len(host)} requests after {LATENCY_WARMUP} warm-up; "
           f"host p50 {p50:.3f} ms, min {min(host):.3f}, max {max(host):.3f}; {device_ms}; "
           f"{peak_gib(device)}; leg {time.perf_counter() - t_leg:.1f} s; launches "
           f"{count.read()}; {card_line(device)}", file=sys.stderr, flush=True)

@@ -32,14 +32,12 @@ def example_tokens(batch: int, device=None):
     return tokens
 
 
-def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0,
-          stream_mixer: bool = False):
+def entry(device="cuda", *, batch: int = 4, dtype=torch.bfloat16, seed: int = 0):
     """-> (prompt_to_image, (tokens,)): prompt_to_image(tokens) gives images
-    (B, 256, 256, 3) float32 in [0, 1]. `stream_mixer` (`__graft_entry__`'s
-    FFVC_STREAM_MIXER=1) runs the mapper over weights stacked once here: the
-    whole block stack in one kernel launch at batch <= 8, one launch per block
-    above; else each block is one `mixer_block` call."""
-    gen = build_generator(dtype=dtype, device=device, seed=seed, stream_mixer=stream_mixer)
+    (B, 256, 256, 3) float32 in [0, 1]. On the card the mapper runs the whole
+    block stack in one kernel launch at batch <= 8 and one launch per block
+    above (models/mappers/fused.py `mapper_route`)."""
+    gen = build_generator(dtype=dtype, device=device, seed=seed)
 
     def prompt_to_image(tokens):
         return gen.render(gen.encode_tokens(tokens))

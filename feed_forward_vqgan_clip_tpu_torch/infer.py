@@ -24,11 +24,7 @@ from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.images import save_grid
 from feed_forward_vqgan_clip_tpu_torch.models.flow import Prior, load_prior_model
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
-from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
-    make_mapper_apply,
-    make_streamed_mixer_apply,
-    streamed_supported,
-)
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import make_mapper_apply
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import (
     latent_bounds,
@@ -59,17 +55,15 @@ def noise_rows(n: int, noise_dim: int, bank, generator: torch.Generator, device)
 
 
 class Generator:
-    """Mapper + frozen perceptor and VQGAN with the prompt->image path. With
-    `stream_mixer` (and a mapper `streamed_supported` takes) the mapper runs
-    over its stacked weights (`make_streamed_mixer_apply`): the whole block
-    stack in one kernel launch for batches of at most 8, one launch per block
-    above that; else one `mixer_block` call per block. While tracing is on
+    """Mapper + frozen perceptor and VQGAN with the prompt->image path. The
+    mapper runs through `fused.make_mapper_apply`, on the kernels its
+    `mapper_route` picks for each batch. While tracing is on
     (tracing.py), `render` records the span `render`, timed on the device,
     holding `mapper` and synth's `decode`; `encode_tokens` records `text`,
     `encode_prompts` also `tokenize` (host clock)."""
 
     def __init__(self, perceptor, mapper, vqgan, *, noise_dim: int = 0, cfg=None,
-                 noise_bank=None, stream_mixer: bool = False, prior: Optional[Prior] = None):
+                 noise_bank=None, prior: Optional[Prior] = None):
         self.perceptor = perceptor
         self.mapper = mapper.eval()
         self.vq = vqgan.eval()
@@ -77,10 +71,7 @@ class Generator:
         self.cfg = cfg or {}
         self.noise_bank = noise_bank
         self.prior = prior
-        if stream_mixer and streamed_supported(self.mapper):
-            self._mapper_apply = make_streamed_mixer_apply(self.mapper)
-        else:
-            self._mapper_apply = make_mapper_apply(self.mapper)
+        self._mapper_apply = make_mapper_apply(self.mapper)
 
     @classmethod
     def from_checkpoint(cls, model_path: str, *, prior_path: Optional[str] = None,
@@ -158,8 +149,7 @@ def test(model_path: str, text_or_path: str, *, nb_repeats: int = 1, out_path: s
 
 def build_generator(*, clip_model: str = "ViT-B/32", vqgan_config=None, dim: int = 1024,
                     depth: int = 32, vq_image_size: int = 16, noise_dim: int = 0,
-                    dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                    stream_mixer: bool = False) -> Generator:
+                    dtype=torch.bfloat16, device="cuda", seed: int = 0) -> Generator:
     """A Generator with random weights drawn from `seed`, on `device`; the
     defaults are the flagship (`__graft_entry__.entry`): CLIP ViT-B/32 text
     tower, Mixer 32x1024, VQGAN f16-16384."""
@@ -171,4 +161,4 @@ def build_generator(*, clip_model: str = "ViT-B/32", vqgan_config=None, dim: int
                       vq_image_size=vq_image_size, noise_dim=noise_dim)
     mapper = build_mapper(mapper_cfg, vq_channels=int(vq_cfg["embed_dim"]), dtype=dtype,
                           device=device).init_random_(gen)
-    return Generator(perceptor, mapper, vq, noise_dim=noise_dim, stream_mixer=stream_mixer)
+    return Generator(perceptor, mapper, vq, noise_dim=noise_dim)

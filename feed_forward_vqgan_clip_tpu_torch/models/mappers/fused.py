@@ -1,17 +1,16 @@
 """Kernel dispatch for the MLP-Mixer mapper, inference and train.
 
-Port of feed_forward_vqgan_clip_tpu/models/mappers/fused.py: on a CUDA tensor
-every Mixer block is one call of the block kernels (ops/kernels/mixer_block.py),
-`mixer_block` for inference and the differentiable `MixerBlockTrain` for
-training; on a CPU tensor the module runs as it is. The other mapper families
-(VitGAN, x-transformer) have no kernel: `fused_supported` sends them through
-their modules on every device, as the JAX gate does. The streamed forward
-(`streamed_mixer_forward`, the small-request serving path) runs the whole block
+Port of feed_forward_vqgan_clip_tpu/models/mappers/fused.py. `mapper_route` is
+the one rule for which kernels run an inference forward, and `make_mapper_apply`,
+the apply the Generator and the Predictor both build, follows it call by call:
+on a CUDA tensor a Mixer of at most STREAM_MAX_BATCH rows runs its whole block
 stack as one launch of ops/kernels/mixer_stream.py (K4) over weights stacked and
-folded once per loaded model; `stacked_mixer_forward` runs the same stacked
-weights block by block (`mixer_block_stacked`, K5). On a CPU tensor both run
-their kernels' plain versions. The TPU's gates (VMEM budget, Mosaic alignment,
-interpret mode) have no counterpart: the kernels take any shape.
+LN2-folded once (`streamed_mixer_forward`), a larger batch one `mixer_block`
+launch (K2) a block; on a CPU tensor, and for the other mapper families
+(VitGAN, x-transformer), which have no kernel, the module runs as it is, as in
+the JAX Predictor. Training runs each block through the differentiable
+`MixerBlockTrain`. The TPU's gates (VMEM budget, Mosaic alignment, interpret
+mode) have no counterpart: the kernels take any shape.
 """
 
 from typing import NamedTuple
@@ -19,12 +18,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Dropout, Mixer, lean_layer_norm
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer, lean_layer_norm
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     MixerBlockTrain,
     StackedMixerWeights,
     mixer_block,
-    mixer_block_stacked,
     stack_mixer_params,
 )
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import mixer_stream
@@ -52,27 +50,6 @@ def fused_supported(mapper) -> bool:
     return isinstance(mapper, Mixer) and getattr(mapper, "tp", None) is None
 
 
-def make_mapper_apply(mapper):
-    """x -> z for deterministic (inference) forwards of `mapper`.
-
-    CUDA input to a Mixer goes through the block kernel; the blocks' weights are
-    cast to the compute dtype once, at the first CUDA call, so later changes to
-    the mapper's parameters need a new apply function. CPU input, and every
-    other mapper, runs the module."""
-    weights = {}
-    fused = fused_supported(mapper)
-
-    @torch.no_grad()
-    def apply_fn(x):
-        if x.device.type != "cuda" or not fused:
-            return mapper(x)
-        if x.device not in weights:
-            weights[x.device] = [b.kernel_weights(mapper.dtype) for b in mapper.blocks]
-        return fused_mixer_forward(mapper, x, weights[x.device])
-
-    return apply_fn
-
-
 class StreamedMixerParams(NamedTuple):
     """`prepare_streamed_params`' output: the layers around the blocks (`head`:
     proj, embed, final norm and final_proj as {name: tensor} in the compute
@@ -85,8 +62,20 @@ class StreamedMixerParams(NamedTuple):
 def streamed_supported(mapper) -> bool:
     """The streamed forward serves a Mixer mapper whose forwards are
     deterministic (dropout 0). The TPU's VMEM gate has no counterpart."""
-    return fused_supported(mapper) and all(
-        m.p == 0 for m in mapper.modules() if isinstance(m, Dropout))
+    return fused_supported(mapper) and mapper.dropout == 0
+
+
+def mapper_route(mapper, n: int, device: torch.device) -> str:
+    """Which kernels run a deterministic forward of `mapper` over n rows on
+    `device`: "stream" (one K4 launch for the whole block stack) for at most
+    STREAM_MAX_BATCH rows where `streamed_supported` holds, "block" (one K2
+    launch a block) for more rows or dropout > 0, "module" (the mapper's own
+    forward) off CUDA and wherever `fused_supported` does not hold."""
+    if device.type != "cuda" or not fused_supported(mapper):
+        return "module"
+    if n <= STREAM_MAX_BATCH and streamed_supported(mapper):
+        return "stream"
+    return "block"
 
 
 @torch.no_grad()
@@ -107,51 +96,42 @@ def prepare_streamed_params(mapper: Mixer) -> StreamedMixerParams:
     return StreamedMixerParams(head, stack)
 
 
-def _around_blocks(mapper: Mixer, head: dict, x, blocks):
-    """Mixer.forward's layers around the blocks (the channel-major view quirk
-    included) on the prepared `head`, with `blocks(h)` between them."""
-    dt = mapper.dtype
+@torch.no_grad()
+def streamed_mixer_forward(mapper: Mixer, stream_params: StreamedMixerParams, x):
+    """Small-request forward: Mixer.forward's layers around the blocks (the
+    channel-major view quirk included) on the prepared head, and the whole block
+    stack as one `mixer_stream` launch on a CUDA tensor, its plain version on a
+    CPU tensor. `stream_params`: `prepare_streamed_params(mapper)`."""
+    dt, head = mapper.dtype, stream_params.head
     h = F.linear(x.to(dt), head["proj_w"], head["proj_b"])
     h = mapper.mixer[0](h)
-    h = blocks(F.linear(h, head["embed_w"], head["embed_b"]))
+    h = mixer_stream(F.linear(h, head["embed_w"], head["embed_b"]), stream_params.stack)
     h = lean_layer_norm(h, head["norm_w"], head["norm_b"], dt)
     h = F.linear(h, head["final_w"], head["final_b"])
     s = mapper.image_size
     return h.reshape(h.shape[0], s, s, mapper.channels)
 
 
-@torch.no_grad()
-def streamed_mixer_forward(mapper: Mixer, stream_params: StreamedMixerParams, x):
-    """Small-request forward: the whole block stack as one `mixer_stream`
-    launch on a CUDA tensor, its plain version on a CPU tensor.
-    `stream_params`: `prepare_streamed_params(mapper)`."""
-    return _around_blocks(mapper, stream_params.head, x,
-                          lambda h: mixer_stream(h, stream_params.stack))
+def make_mapper_apply(mapper):
+    """x -> z for deterministic (inference) forwards of `mapper`, each call down
+    the route `mapper_route` picks for its rows and device. A route's weights
+    are prepared on its first call on a device: the blocks' weights cast to the
+    compute dtype for "block", `prepare_streamed_params` for "stream"; so later
+    changes to the mapper's parameters need a new apply function."""
+    blocks, stacks = {}, {}
 
-
-@torch.no_grad()
-def stacked_mixer_forward(mapper: Mixer, stream_params: StreamedMixerParams, x):
-    """The same function block by block: one `mixer_block_stacked` call per
-    block, on views into the stacked weights."""
-    def blocks(h):
-        for i in range(mapper.depth):
-            h = mixer_block_stacked(h, stream_params.stack, i)
-        return h
-
-    return _around_blocks(mapper, stream_params.head, x, blocks)
-
-
-def make_streamed_mixer_apply(mapper: Mixer):
-    """x -> z over the stacked weights, prepared once here: at most
-    STREAM_MAX_BATCH rows through `streamed_mixer_forward` (one launch for the
-    stack), more through `stacked_mixer_forward` (one launch per block), so
-    that one weight layout serves every batch."""
-    spp = prepare_streamed_params(mapper)
-
+    @torch.no_grad()
     def apply_fn(x):
-        if len(x) <= STREAM_MAX_BATCH:
-            return streamed_mixer_forward(mapper, spp, x)
-        return stacked_mixer_forward(mapper, spp, x)
+        route = mapper_route(mapper, len(x), x.device)
+        if route == "module":
+            return mapper(x)
+        if route == "stream":
+            if x.device not in stacks:
+                stacks[x.device] = prepare_streamed_params(mapper)
+            return streamed_mixer_forward(mapper, stacks[x.device], x)
+        if x.device not in blocks:
+            blocks[x.device] = [b.kernel_weights(mapper.dtype) for b in mapper.blocks]
+        return fused_mixer_forward(mapper, x, blocks[x.device])
 
     return apply_fn
 

@@ -211,7 +211,7 @@ class Mixer(nn.Module):
         super().__init__()
         self.input_dim, self.image_size, self.channels = input_dim, image_size, channels
         self.dim, self.depth, self.expansion = dim, depth, expansion
-        self.dtype = dtype
+        self.dropout, self.dtype = dropout, dtype
         s = image_size
         self.proj = nn.Linear(input_dim, s * s * channels, device=device)
         self.mixer = nn.Sequential(

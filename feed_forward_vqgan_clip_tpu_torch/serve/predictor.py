@@ -4,17 +4,17 @@ Port of feed_forward_vqgan_clip_tpu/serve/predictor.py. `setup()` loads every
 mapper checkpoint (reference `.th` files, legacy whole-module pickles or the JAX
 package's checkpoint directories) and caches perceptors by
 (clip_model, clip_model_path) and VQGANs by checkpoint and architecture, with
-their latent bounds; for each Mixer mapper it also stacks and folds the weights
-once for the streamed forward. The other mapper families (VitGAN, x-transformer)
-run as modules on every device. Priors are cached by path: each model's prior
-is the one `prior_paths` names, else its released companion (`PRIOR_MODELS`)
-where that file is present. `predict()` runs tokenize -> text encode -> tile to
+their latent bounds. Priors are cached by path: each model's prior is the one
+`prior_paths` names, else its released companion (`PRIOR_MODELS`) where that
+file is present. `predict()` runs tokenize -> text encode -> tile to
 grid_h * grid_w rows -> (with `prior=True` and a prior for the model: the
 prior's samples for those rows) -> + noise -> mapper -> clamp -> VQ + decode ->
-grid -> PNG. A request of at most `STREAM_MAX_BATCH` (8) images goes through the
-depth-streaming Mixer stack (one K4 launch for all blocks on the card); a larger
-one through the per-block path (K2 per block). On the CPU the same routing runs
-the kernels' plain versions and the module path.
+grid -> PNG. Each model's mapper runs through `fused.make_mapper_apply`, whose
+`mapper_route` picks the kernels: on the card a Mixer request of at most 8
+images runs the whole block stack as one K4 launch (its weights stacked and
+folded by a one-row forward in `setup()`), a larger one K2 a block (its weights
+cast at the first such request); on the CPU, and for the other families, the
+module runs.
 
 While tracing is on (tracing.py), a request records the span `request` (its
 model, grid and route; its request id from the Predictor's counter) holding
@@ -40,11 +40,9 @@ from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.images import make_grid, save_image
 from feed_forward_vqgan_clip_tpu_torch.models.flow import Prior, load_prior_model
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
-    STREAM_MAX_BATCH,
     make_mapper_apply,
-    prepare_streamed_params,
-    streamed_mixer_forward,
-    streamed_supported,
+    mapper_route,
+    streamed_mixer_forward,  # noqa: F401 (perfbench/traffic/serve_closed.py:145 wraps it here)
 )
 from feed_forward_vqgan_clip_tpu_torch.models.perceptor import load_perceptor
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds, load_vqgan, synth
@@ -86,7 +84,6 @@ class Predictor:
         self.priors: Dict[str, Prior] = {}  # prior path -> prior
         self.model_prior: Dict[str, str] = {}  # model name -> prior path
         self._mapper_apply: Dict[str, Callable] = {}
-        self._stream_params: Dict[str, object] = {}
         self._request_ids = itertools.count(1)
 
     def setup(self):
@@ -119,15 +116,12 @@ class Predictor:
                 vq = load_vqgan(cfg, dtype, device=self.device)
                 self.vqgans[vkey] = (vq, latent_bounds(vq))
             self._mapper_apply[name] = make_mapper_apply(mapper)
-            if streamed_supported(mapper):
-                self._stream_params[name] = prepare_streamed_params(mapper)
+            if mapper_route(mapper, 1, self.device) == "stream":
+                # one zero row: the stacked, LN2-folded weights and K4's build
+                # land here and not in the first small request
+                self._mapper_apply[name](torch.zeros(1, mapper.input_dim, device=self.device))
         log.info("Predictor ready: %d models, %d perceptors, %d vqgans, %d priors",
                  len(self.models), len(self.perceptors), len(self.vqgans), len(self.priors))
-
-    def route(self, model: str, n: int) -> str:
-        """"stream" (the whole block stack in one launch) or "block" (the
-        per-block path) for a request of n images."""
-        return "stream" if n <= STREAM_MAX_BATCH and model in self._stream_params else "block"
 
     @torch.no_grad()
     def predict(self, prompt: str, model: Optional[str] = None, prior: bool = False,
@@ -145,7 +139,7 @@ class Predictor:
         vq, (lo, hi) = self.vqgans[_vqgan_key(cfg)]
         gh, gw = (int(v) for v in grid_size.split("x"))
         n = gh * gw
-        route = self.route(model, n)
+        route = mapper_route(mapper, n, self.device)
         with request(next(self._request_ids)), \
                 span("request", model=model, grid=grid_size, route=route):
             with span("tokenize"):
@@ -168,10 +162,7 @@ class Predictor:
                     else:
                         nz = torch.randn(n, noise_dim, generator=gen)
                     h = torch.cat([h, nz.to(self.device, h.dtype)], dim=1)
-                if route == "stream":
-                    z = streamed_mixer_forward(mapper, self._stream_params[model], h)
-                else:
-                    z = self._mapper_apply[model](h)
+                z = self._mapper_apply[model](h)
             mark("mapper")
             # float32: the bf16 latent is clamped against the f32 bounds
             imgs = synth(vq, clamp_with_grad(z.float(), lo, hi)).float()

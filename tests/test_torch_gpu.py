@@ -79,7 +79,6 @@ from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     make_mapper_apply,
     make_mapper_train_apply,
-    make_streamed_mixer_apply,
 )
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.mixer import Mixer
 from feed_forward_vqgan_clip_tpu_torch.config import make_config
@@ -518,18 +517,17 @@ def test_mixer_block_stacked_kernel_matches_plain(cuda, dtype):
 
 
 def test_streamed_apply_on_card_matches_cpu(cuda):
-    """The stacked-weight mapper forward, float32: 2 rows through K4 (one
-    launch), 9 rows through K5 (one launch per block), each within 1e-4 of the
-    CPU plain versions."""
+    """make_mapper_apply on the card, float32: 1 and 8 rows through K4 (one
+    launch), 9 rows through K2 (one launch per block), each within 1e-4 of the
+    CPU's module path."""
     mapper = _random_mapper(8, 64, 3, torch.float32, 6)
-    cpu_apply = make_streamed_mixer_apply(mapper)
-    card_apply = make_streamed_mixer_apply(copy.deepcopy(mapper).to(cuda))
-    for rows, k4, k5 in ((2, 1, 0), (9, 0, 3)):
+    cpu_apply = make_mapper_apply(mapper)
+    card_apply = make_mapper_apply(copy.deepcopy(mapper).to(cuda))
+    for rows, k4, k2 in ((1, 1, 0), (8, 1, 0), (9, 0, 3)):
         x = torch.from_numpy(np.random.default_rng(rows).normal(size=(rows, 8)).astype(np.float32))
-        counts = (mixer_stream.launches, mixer_block_stacked.launches)
+        counts = (mixer_stream.launches, mixer_block.launches)
         got = card_apply(x.to(cuda))
-        assert (mixer_stream.launches, mixer_block_stacked.launches) == (
-            counts[0] + k4, counts[1] + k5)
+        assert (mixer_stream.launches, mixer_block.launches) == (counts[0] + k4, counts[1] + k2)
         assert _rel(got.cpu(), cpu_apply(x)) <= 1e-4
 
 
@@ -542,10 +540,11 @@ def test_slice_on_card_matches_cpu_module_path(cuda):
                      copy.deepcopy(cpu.mapper).to(cuda), copy.deepcopy(cpu.vq).to(cuda))
     toks = example_tokens(3)
     toks[1, 1], toks[2, 1:4] = 1000, torch.tensor([2000, 3000, 49407])
-    vq0, mix0 = nearest_codebook_indices_kernel.launches, mixer_block.launches
+    vq0 = nearest_codebook_indices_kernel.launches
+    k4, k2 = mixer_stream.launches, mixer_block.launches
     got = card.render(card.encode_tokens(toks.to(cuda))).cpu()
     assert nearest_codebook_indices_kernel.launches == vq0 + 1
-    assert mixer_block.launches == mix0 + 2
+    assert (mixer_stream.launches, mixer_block.launches) == (k4 + 1, k2)  # 3 rows: K4
     ref = cpu.render(cpu.encode_tokens(toks))
     assert got.shape == (3, 8, 8, 3)
     assert float((got - ref).abs().max()) <= 1e-3
@@ -1174,7 +1173,8 @@ def test_upsample_transposed_matches_reference_on_card(cuda, dtype):
 def test_bench_legs_on_card(cuda, monkeypatch, capsys):
     """`cli bench` at a tiny model on the card: the three JSON lines and the
     headline again, each leg's `#` line with its kernel launches (K1 and K2 in
-    the infer leg, K4 in the latency leg, K6-K8, K9, K10 in the train leg)."""
+    the infer leg at batch 16, K4 in the latency leg at batch 1, K6-K8, K9, K10
+    in the train leg)."""
     import functools
     import json
     import re
@@ -1188,7 +1188,7 @@ def test_bench_legs_on_card(cuda, monkeypatch, capsys):
     monkeypatch.setattr(bench, "train_entry", functools.partial(
         entry_module.train_entry, cutn=2, mapper_config=dict(tiny, vqgan_arch=TINY_VQ)))
     monkeypatch.setattr(bench, "TIMED_SECONDS", 0.5)
-    cli.main(["bench", "--batch", "4", "--train-batch", "2"])
+    cli.main(["bench", "--batch", "16", "--train-batch", "2"])
     out, err = capsys.readouterr()
     lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
     assert [x["metric"] for x in lines] == [bench.METRICS[m] for m in

@@ -9,9 +9,10 @@ side loads it with its own `io.checkpoint.load_model`. The JAX Predictor's CLIP
 ("tiny") and VQGAN (inline arch) are its random inits, carried into the port's
 Predictor by io/from_jax.py. Both read the synthetic BPE table of
 tests/test_tokenizer.py through FFVC_BPE_PATH. Tolerances: mapper outputs in
-float32 within 1e-5 of max |JAX|; PNG grids within 2/255 per pixel (the port's
-1x1 and 2x2 requests take the streamed forward with LN2 folded into W1, the
-JAX Predictor on the CPU its per-block forward; the same function in float32).
+float32 within 1e-5 of max |JAX|; PNG grids within 2/255 per pixel (under the
+card's route the port's 1x1 and 2x2 requests take the streamed forward with LN2
+folded into W1, the JAX Predictor on the CPU its per-block forward; the same
+function in float32).
 """
 
 import gzip
@@ -33,7 +34,8 @@ from feed_forward_vqgan_clip_tpu_torch.io import checkpoint
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import clip_text_state_dict, vqgan_state_dict
 from feed_forward_vqgan_clip_tpu_torch.io.images import decode_png, encode_png
 from feed_forward_vqgan_clip_tpu_torch.models import flow
-from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper, fused
+from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import mapper_route
 from feed_forward_vqgan_clip_tpu_torch.models.vqgan import latent_bounds, load_vqgan, make_vqgan
 from feed_forward_vqgan_clip_tpu_torch.serve import app
 from feed_forward_vqgan_clip_tpu_torch.serve import predictor as predictor_mod
@@ -164,11 +166,12 @@ def test_predictor_serves_other_families_like_jax(family, bpe_table, tmp_path):
     pred.setup()
     _carry_jax_frozen(jpred, pred)
     name = f"{family}.th"
-    assert list(pred.models) == [name] and not pred._stream_params
+    assert list(pred.models) == [name]
     side = 2 * cfg["vq_image_size"]  # the tiny VQGAN upsamples twice
     for n in (1, 2):
         grid = f"{n}x{n}"
-        assert pred.route(name, n * n) == "block"
+        for dev in ("cpu", "cuda"):
+            assert mapper_route(pred.models[name][0], n * n, torch.device(dev)) == "module"
         got = _png(pred.predict(PROMPT, model=name, grid_size=grid, seed=0,
                                 out_path=str(tmp_path / f"port_{grid}.png")))
         want = _png(jpred.predict(PROMPT, model=name, grid_size=grid, seed=0,
@@ -194,8 +197,12 @@ def test_load_model_raises_on_formats_it_does_not_read(tmp_path):
 
 
 def test_predictor_grids_match_jax(bpe_table, model_path, tmp_path, monkeypatch):
-    """The same PNG grids within 2/255 at 1x1, 2x2 (the streamed route) and 3x3
-    (n = 9, the per-block route); a spy records the route of each request."""
+    """Under the card's route (`mapper_route` as on a CUDA device, the kernels'
+    plain versions on the CPU), the same PNG grids within 2/255 at 1x1, 2x2 (the
+    streamed route) and 3x3 (n = 9, the per-block route); a spy records the
+    route each request's mapper apply takes."""
+    card_rule = lambda m, n, device: mapper_route(m, n, torch.device("cuda"))  # noqa: E731
+    monkeypatch.setattr(fused, "mapper_route", card_rule)
     jpred = JPredictor([model_path])
     jpred.setup()
     pred = Predictor([model_path], device="cpu")
@@ -204,11 +211,11 @@ def test_predictor_grids_match_jax(bpe_table, model_path, tmp_path, monkeypatch)
     (name,) = pred.models
     assert list(jpred.models) == [name]
     routes = []
-    stream = predictor_mod.streamed_mixer_forward
-    block = pred._mapper_apply[name]
-    monkeypatch.setattr(predictor_mod, "streamed_mixer_forward",
+    stream, block = fused.streamed_mixer_forward, fused.fused_mixer_forward
+    monkeypatch.setattr(fused, "streamed_mixer_forward",
                         lambda *a: routes.append("stream") or stream(*a))
-    pred._mapper_apply[name] = lambda x: routes.append("block") or block(x)
+    monkeypatch.setattr(fused, "fused_mixer_forward",
+                        lambda *a: routes.append("block") or block(*a))
     for grid, route in (("1x1", "stream"), ("2x2", "stream"), ("3x3", "block")):
         routes.clear()
         got = _png(pred.predict(PROMPT, model=name, grid_size=grid, seed=0,
@@ -290,9 +297,9 @@ def test_predictor_prior_sample_matches_jax(bpe_table, model_path, prior_path, t
     _pin_jax_prior(jpred.priors[prior_path], z, want)
     pred.priors[prior_path].noise = lambda n, gen: torch.from_numpy(z[:n])
     got = []
-    stream = predictor_mod.streamed_mixer_forward
-    monkeypatch.setattr(predictor_mod, "streamed_mixer_forward",
-                        lambda m, p, x: got.append(x.clone()) or stream(m, p, x))
+    (name,) = pred.models
+    apply = pred._mapper_apply[name]
+    pred._mapper_apply[name] = lambda x: got.append(x.clone()) or apply(x)
     a = _png(pred.predict(PROMPT, prior=True, grid_size="2x2", seed=0,
                           out_path=str(tmp_path / "port.png")))
     b = _png(jpred.predict(PROMPT, prior=True, grid_size="2x2", seed=0,
@@ -338,8 +345,38 @@ def test_predictor_setup_dedups_and_skips_unported(model_path, tmp_path):
     pred.setup()
     assert sorted(pred.models) == ["other.th", "tiny_mixer.th"]
     assert len(pred.perceptors) == 1 and len(pred.vqgans) == 1
-    assert sorted(pred._stream_params) == ["other.th", "tiny_mixer.th"]
-    assert pred.route("other.th", 8) == "stream" and pred.route("other.th", 9) == "block"
+    assert sorted(pred._mapper_apply) == ["other.th", "tiny_mixer.th"]
+    other = pred.models["other.th"][0]
+    cuda = torch.device("cuda")
+    assert mapper_route(other, 8, cuda) == "stream" and mapper_route(other, 9, cuda) == "block"
+    assert mapper_route(other, 8, pred.device) == "module"
+
+
+def test_predictor_setup_folds_the_stream_layout(bpe_table, model_path, tmp_path, monkeypatch):
+    """Under the card's rule, `setup()` stacks and folds a dropout-0 Mixer's
+    weights by one zero-row forward, so small requests build nothing; a Mixer
+    with dropout, which takes the per-block route, and a VitGAN are not run."""
+    card_rule = lambda m, n, device: mapper_route(m, n, torch.device("cuda"))  # noqa: E731
+    monkeypatch.setattr(fused, "mapper_route", card_rule)
+    monkeypatch.setattr(predictor_mod, "mapper_route", card_rule)
+    folds, stream = [], fused.streamed_mixer_forward
+    prepare = fused.prepare_streamed_params
+    monkeypatch.setattr(fused, "prepare_streamed_params", lambda m: folds.append(m) or prepare(m))
+    monkeypatch.setattr(fused, "streamed_mixer_forward",
+                        lambda m, p, x: folds.append(tuple(x.shape)) or stream(m, p, x))
+    dropout = checkpoint.save_model(str(tmp_path / "dropout.th"), _mapper(CFG, 5),
+                                    dict(CFG, dropout=0.1))
+    vitgan = checkpoint.save_model(str(tmp_path / "vitgan.th"), _mapper(FAMILIES["vitgan"], 9),
+                                   FAMILIES["vitgan"])
+    pred = Predictor([model_path, dropout, vitgan], device="cpu")
+    pred.setup()
+    mixer = pred.models["tiny_mixer.th"][0]
+    assert folds == [mixer, (1, mixer.input_dim)]
+    folds.clear()
+    for grid in ("1x1", "2x2"):
+        pred.predict(PROMPT, model="tiny_mixer.th", grid_size=grid, seed=0,
+                     out_path=str(tmp_path / f"{grid}.png"))
+    assert folds == [(1, mixer.input_dim), (4, mixer.input_dim)]
 
 
 def test_infer_test_matches_jax(bpe_table, model_path, tmp_path, monkeypatch):
@@ -428,16 +465,24 @@ def test_app_callback_and_gradio_gate(bpe_table, model_path, tmp_path, monkeypat
             app.build_app([model_path], device="cpu")
 
 
-def test_stream_mixer_generator_matches_the_per_block_path():
-    """`build_generator(stream_mixer=True)`, what `entry(stream_mixer=True)` (the
-    keyword counterpart of FFVC_STREAM_MIXER=1) builds, gives the per-block
-    path's images at tiny size (float32)."""
-    vq = dict(TINY_VQ, ch=32)
-    gens = [infer.build_generator(clip_model="tiny", vqgan_config=vq, dim=32, depth=2,
-                                  vq_image_size=4, dtype=torch.float32, device="cpu", seed=3,
-                                  stream_mixer=s) for s in (False, True)]
+def test_stream_mixer_generator_matches_the_per_block_path(monkeypatch):
+    """The Generator `entry` builds, under the card's route: its images at batch
+    2 (the streamed Mixer stack) and at batch 9 (the per-block path) give the
+    module path's at tiny size (float32), each batch through the route it
+    takes."""
     from feed_forward_vqgan_clip_tpu_torch.entry import example_tokens
 
-    h = gens[0].encode_tokens(example_tokens(2))
-    a, b = (g.render(h) for g in gens)
-    assert float((a - b).abs().max()) <= 1e-4
+    vq = dict(TINY_VQ, ch=32)
+    gen = infer.build_generator(clip_model="tiny", vqgan_config=vq, dim=32, depth=2,
+                                vq_image_size=4, dtype=torch.float32, device="cpu", seed=3)
+    h = gen.encode_tokens(example_tokens(9))
+    h[1:] += 0.1 * torch.randn(8, h.shape[1], generator=torch.Generator().manual_seed(4))
+    want = gen.render(h)
+    routes = []
+    monkeypatch.setattr(fused, "mapper_route", lambda m, n, device: routes.append(
+        mapper_route(m, n, torch.device("cuda"))) or routes[-1])
+    card = infer.Generator(gen.perceptor, gen.mapper, gen.vq)
+    for b, route in ((2, "stream"), (9, "block")):
+        got = card.render(h[:b])
+        assert routes[-1] == route
+        assert float((got - want[:b]).abs().max()) <= 1e-4

@@ -1,5 +1,6 @@
 """The port's stacked Mixer layout, its per-block kernel (K5) and its whole-stack
-kernel (K4) against the JAX package's, on the same weights.
+kernel (K4) against the JAX package's, on the same weights; the Mixer's
+inference route (`fused.mapper_route`) and the apply that follows it.
 
 Weights are numpy draws for the port's Mixer, carried to the JAX side by
 io/torch_import.convert_mixer; JAX's stacked arrays reach the port through
@@ -29,9 +30,11 @@ from feed_forward_vqgan_clip_tpu.ops.pallas.mixer_block import (
 )
 from feed_forward_vqgan_clip_tpu_torch.io.from_jax import stacked_mixer_weights
 from feed_forward_vqgan_clip_tpu_torch.models.mappers import fused
+from feed_forward_vqgan_clip_tpu_torch.models.mappers import build_mapper
 from feed_forward_vqgan_clip_tpu_torch.models.mappers.fused import (
     STREAM_MAX_BATCH,
-    make_streamed_mixer_apply,
+    make_mapper_apply,
+    mapper_route,
     prepare_streamed_params,
     streamed_mixer_forward,
     streamed_supported,
@@ -151,31 +154,45 @@ def test_streamed_mixer_forward_matches_jax(dtype):
     assert _rel(got.float(), ref) <= TOL[dtype]
 
 
-def test_streamed_apply_matches_module_path():
-    """The streamed forward computes the module's function: float32, folded LN2
-    against the affine LN2, within 2e-5."""
+@pytest.fixture
+def card_rule(monkeypatch):
+    """`make_mapper_apply` routes a CPU tensor as `mapper_route` routes a CUDA
+    one, so the kernels' plain versions run where the kernels would."""
+    monkeypatch.setattr(fused, "mapper_route",
+                        lambda m, n, device: mapper_route(m, n, torch.device("cuda")))
+
+
+def test_streamed_apply_matches_module_path(card_rule):
+    """The apply's stream route computes the module's function: float32, folded
+    LN2 against the affine LN2, within 2e-5."""
     mapper, _, _ = _pair(2, torch.float32, seed=7)
     x = torch.from_numpy(np.random.default_rng(8).normal(size=(2, IN)).astype(np.float32))
     with torch.no_grad():
         ref = mapper(x)
-    assert _rel(make_streamed_mixer_apply(mapper)(x), ref) <= TOL[torch.float32]
+    assert _rel(make_mapper_apply(mapper)(x), ref) <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize("batch,route", [(STREAM_MAX_BATCH, "stream"),
-                                         (STREAM_MAX_BATCH + 1, "stacked")])
-def test_streamed_apply_routes_by_batch(monkeypatch, batch, route):
-    """At most STREAM_MAX_BATCH rows run the stack in one call, more run it
-    block by block over the same stacked weights; both compute the module's
-    function (float32, within 2e-5)."""
+                                         (STREAM_MAX_BATCH + 1, "block")])
+def test_streamed_apply_routes_by_batch(monkeypatch, card_rule, batch, route):
+    """Under the card's rule at most STREAM_MAX_BATCH rows run the stack in one
+    `mixer_stream` call, more one `mixer_block` call a block; both compute the
+    module's function (float32, within 2e-5). Each layout is built once, at the
+    first call that takes its route."""
     mapper, _, _ = _pair(2, torch.float32, seed=11)
-    calls = []
-    stream, block = fused.mixer_stream, fused.mixer_block_stacked
+    calls, built = [], []
+    stream, block = fused.mixer_stream, fused.mixer_block
+    prepare = fused.prepare_streamed_params
     monkeypatch.setattr(fused, "mixer_stream", lambda *a: calls.append("stream") or stream(*a))
-    monkeypatch.setattr(fused, "mixer_block_stacked",
-                        lambda *a: calls.append("stacked") or block(*a))
+    monkeypatch.setattr(fused, "mixer_block", lambda *a: calls.append("block") or block(*a))
+    monkeypatch.setattr(fused, "prepare_streamed_params",
+                        lambda m: built.append("stack") or prepare(m))
     x = torch.from_numpy(np.random.default_rng(12).normal(size=(batch, IN)).astype(np.float32))
-    got = make_streamed_mixer_apply(mapper)(x)
-    assert calls == ([route] if route == "stream" else [route] * 2)
+    apply_fn = make_mapper_apply(mapper)
+    got, again = apply_fn(x), apply_fn(x)
+    assert calls == ([route] * 2 if route == "stream" else [route] * 4)
+    assert built == (["stack"] if route == "stream" else [])
+    assert torch.equal(got, again)
     with torch.no_grad():
         assert _rel(got, mapper(x)) <= TOL[torch.float32]
 
@@ -195,6 +212,38 @@ def test_streamed_supported():
     assert not streamed_supported(Mixer(input_dim=IN, image_size=4, channels=CH, dim=16,
                                         depth=1, dropout=0.1))
     assert not streamed_supported(torch.nn.Linear(2, 2))
+
+
+ROUTE_FAMILIES = {
+    "mixer": dict(model_type="mlp_mixer", dim=16, depth=1, vq_image_size=4),
+    "mixer_tp": dict(model_type="mlp_mixer", dim=16, depth=1, vq_image_size=4),
+    "vitgan": dict(model_type="vitgan", dim=12, depth=1, vq_image_size=8, num_heads=3),
+    "xtransformer": dict(model_type="xtransformer", dim=16, depth=1, vq_image_size=4,
+                         num_heads=2),
+}
+
+
+@pytest.mark.parametrize("n", [1, STREAM_MAX_BATCH, STREAM_MAX_BATCH + 1, 256])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("family", sorted(ROUTE_FAMILIES))
+def test_mapper_route(family, dropout, device, n):
+    """The one inference rule for the Generator and the Predictor: off CUDA,
+    and for every mapper without a kernel (VitGAN, x-transformer, a Mixer split
+    for tensor parallelism), the module; on CUDA a Mixer of at most
+    STREAM_MAX_BATCH rows with dropout 0 takes K4 ("stream"), any other Mixer
+    K2 a block ("block"). Only the device's type is read: nothing is allocated."""
+    cfg = dict(ROUTE_FAMILIES[family], clip_model="ViT-B/32", dropout=dropout)
+    mapper = build_mapper(cfg, vq_channels=CH, device="meta")
+    if family == "mixer_tp":
+        mapper.tp = object()  # what parallel/tensor_parallel.py marks a split Mixer with
+    if device == "cpu" or family != "mixer":
+        want = "module"
+    elif n <= STREAM_MAX_BATCH and dropout == 0:
+        want = "stream"
+    else:
+        want = "block"
+    assert mapper_route(mapper, n, torch.device(device)) == want
 
 
 @pytest.mark.parametrize("batch,tiles,splits,k_split,barriers", [

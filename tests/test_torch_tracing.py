@@ -116,7 +116,7 @@ def test_enabled_request_records_its_layers_with_one_request_id(predictor, tmp_p
     assert marks == [list(STAGES)] * 2
     roots = [r for r in recs if r.parent is None]
     assert [r.name for r in roots] == ["request", "request"]
-    assert roots[0].attrs == {"model": "tiny_mixer.th", "grid": "1x1", "route": "stream"}
+    assert roots[0].attrs == {"model": "tiny_mixer.th", "grid": "1x1", "route": "module"}
     assert roots[0].request != roots[1].request
     kids = _children(recs)
     by_id = {r.id: r for r in recs}
