@@ -19,13 +19,16 @@ once on one NVIDIA GPU, in phases.
    toolkit has it), with the GEMMs of K11 and of the Mixer kernels that
    launch it, in K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu) and in
    K1's search (csrc/vq_lookup.cu); fails if one the paths launch holds none.
+   The two ping-pong instantiations (csrc/wgmma_gemm_pingpong.cu) likewise, and
+   ptxas's spill bytes for each: fails unless every one reads 0.
 3. [vq] VQ kernel (K1) against its plain version on the card (stated near-tie
    rule) at N = 1024, 1000, 256 and 2048 against the flagship codebook, N=1000
    against 1000 codes, N=77 at C=70 and a tie case; its split kernel's bf16
    pieces bitwise equal to the plain split; two launches bitwise equal.
 4. [mixer] Mixer-block kernel against its plain version, float32 (TF32 off)
    and bf16, with its GEMMs' routes (mixer_block.mixer_gemm_route) and as many
-   wgmma launches as the routes name.
+   wgmma launches as the routes name, as many of them ping-pong as
+   wgmma.wgmma_plan says; the batch cell's B=256 among the shapes.
 5. [mixer-train] The train kernels (forward with residuals, channel backward,
    token backward) against their plain versions, float32 and bf16; the train
    forward's output equal to the inference block's; two backward runs bitwise
@@ -77,6 +80,10 @@ once on one NVIDIA GPU, in phases.
    alone, on the wgmma GEMM at each tile width (the planned one marked), on the
    WMMA tile, and as one bf16 torch.matmul (cuBLAS, a yardstick on no path);
    K10 on the Af, Pe and rectangular draws beside grid_sample's input gradient.
+   `[time] K2 GEMM`: K2's GELU GEMMs (g1, g3) alone at each batch of
+   K2_SCHEDULE_BATCHES, cooperative against ping-pong in turns, bitwise equal,
+   and its residual GEMMs (r, out) at B=256, each beside its bound; then 32 x K2
+   at B=256 all cooperative against as planned (`k2_schedule_timing`).
 10. [reference] The tiny prompt->image slice, card against CPU module path;
    the tiny serving Predictor, card (K4 at 2x2, K2 at 3x3) against CPU.
 11. [train-reference] A tiny train step, f32, with Af and Pe at pinned draws,
@@ -221,8 +228,12 @@ once on one NVIDIA GPU, in phases.
    warps' times, and their launches in [trainer-crops] as the wrappers counted
    them, under "rect"; K1, K2, K4, K6-K8 with [mappers]', [prior]'s,
    [diversity]'s, [eval]'s, [perceptors]', [native-ckpt]'s, [parallel]'s,
-   [verify-weights]' and [bench]'s too; every one must have launched; K5,
-   which no path runs, apart under "off_path" with [stream]'s check calls), then
+   [verify-weights]' and [bench]'s too; every one must have launched; K2's row
+   with `pingpong_launches`, the GEMMs of those same launches that took the
+   ping-pong walk, each phase's held to wgmma.wgmma_plan (`k2_pingpong`: per
+   request in [slice], [serve], [prior] and [mappers], per run in [eval] and in
+   `cli bench`'s infer leg, none through K4); K5, which no path runs, apart
+   under "off_path" with [stream]'s check calls), then
    `{"ok": true, "device": {...}}` last.
 
 Any failed check raises, so the script exits nonzero before the last line. It
@@ -408,6 +419,11 @@ RES_512_BATCH = 64
 # a decode's conv biases handed on to the hand-written passes and left to the
 # library's convs, of the decoder's 58 (models/vqgan.py `Decoder.folded`, `.library`)
 FOLD_DECODE = (41, 17)
+# [mixer]'s B=256 draws and [time]'s K2 GEMMs, cooperative against ping-pong
+PINGPONG_SEED = 240
+# [time] K2 GEMM: the batches at which K2's GELU GEMMs run both schedules; g1 and g3
+# have 64 B tiles each, so 1.9, 2.4, 4.4, 7.8, 31 and 124 tiles a CTA on 132 SMs
+K2_SCHEDULE_BATCHES = (4, 5, 9, 16, 64, 256)
 # [bench]: `cli bench` as a subprocess; K1 and K2 at its sizes first
 BENCH_SEED = 121
 BENCH_TIMEOUT = 480
@@ -425,6 +441,11 @@ WGMMA_USERS = {
     (0, 1, 2): "K11 dgh, K7 da3", (0, 1, 3): "K11 dxn, K7 drn",
     (1, 1, 3): "K7 dW2, K7 dW1, K8 dxn", (1, 1, 2): "K8 da1", (0, 0, 3): "K8 dt2, K8 dt1",
 }
+# the ping-pong walk's instantiations (csrc/wgmma_gemm_pingpong.cu: the inference
+# forward's GELU GEMMs at width 128) and the GEMMs that take it where wgmma.wgmma_plan
+# says so
+PINGPONG_KERNEL = "wgmma_pingpong_kernel"
+PINGPONG_USERS = {(0, 0, 4): "K2/K5 g3", (0, 1, 4): "K2/K5 g1"}
 # K4's persistent bf16 kernel (csrc/mixer_stream_wgmma.cu), which runs the GEMM's tile
 # walk inside itself
 STREAM_WGMMA_KERNEL = "mixer_stream_wgmma_kernel"
@@ -517,11 +538,22 @@ def phase_build():
     build.load_library()
     log(f"[build] {build.library_path().name} built (or found) and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    kernel, spills = None, {}
     for line in (build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            log(f"[build]   {line.split(chr(39))[1]}")  # the mangled kernel name
+            kernel = line.split(chr(39))[1]  # the mangled kernel name
+            log(f"[build]   {kernel}")
         elif "registers" in line or "spill" in line:
             log(f"[build]     {line.strip()}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if found and kernel:
+                spills[kernel] = int(found.group(1)) + int(found.group(2))
+    pingpong_spills = {k: v for k, v in spills.items() if PINGPONG_KERNEL in k}
+    log(f"[build] ptxas spill bytes (stores + loads) of the {len(pingpong_spills)} "
+        f"{PINGPONG_KERNEL} instantiations: {sorted(pingpong_spills.values())}")
+    if len(pingpong_spills) != len(PINGPONG_USERS) or any(pingpong_spills.values()):
+        raise AssertionError(f"{PINGPONG_KERNEL}: need {len(PINGPONG_USERS)} instantiations "
+                             f"without spills, ptxas reports {pingpong_spills}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
@@ -533,9 +565,18 @@ def phase_build():
             elif "HGMMA" in line and kernel:
                 counts[kernel] = counts.get(kernel, 0) + 1
         wgmma = {k: n for k, n in counts.items() if "wgmma_gemm_kernel" in k}
+        pingpong = {k: n for k, n in counts.items() if PINGPONG_KERNEL in k}
         log(f"[build] HGMMA (wgmma) instructions in the SASS: {sum(wgmma.values())} in "
-            f"{len(wgmma)} wgmma_gemm_kernel instantiations, "
-            f"{sum(counts.values()) - sum(wgmma.values())} elsewhere")
+            f"{len(wgmma)} wgmma_gemm_kernel instantiations, {sum(pingpong.values())} in "
+            f"{len(pingpong)} {PINGPONG_KERNEL} instantiations, "
+            f"{sum(counts.values()) - sum(wgmma.values()) - sum(pingpong.values())} elsewhere")
+        for name, n in sorted(pingpong.items()):
+            ta, tb, epi = (int(v) for v in re.search(
+                r"ILi\d+ELi(\d)ELi(\d)ELi(\d)ELb\dE", name).groups())
+            log(f"[build]   {PINGPONG_KERNEL}<128, B {'MN' if tb else 'K'}-major, "
+                f"{WGMMA_EPILOGUES[epi]}>: {n} HGMMA ({PINGPONG_USERS.get((ta, tb, epi), '')})")
+        if len([n for n in pingpong.values() if n]) != len(PINGPONG_USERS):
+            raise AssertionError(f"{PINGPONG_KERNEL} instantiations without HGMMA: {pingpong}")
         users, found = {}, set()
         for name, n in sorted(wgmma.items()):
             # _ZN4ffvc17wgmma_gemm_kernelILi<BN>ELi<A M-major>ELi<B MN-major>ELi<epilogue>
@@ -664,6 +705,37 @@ def random_block_weights(t, d, dtype, gen):
     )
 
 
+def forward_pingpong(b, t, d):
+    """How many of a bf16 Mixer block's four forward GEMMs (g1, r, g3, out at B, T,
+    D; Et = 4T, Ec = 4D) take the ping-pong walk on this card (wgmma.wgmma_plan),
+    where they take the wgmma route."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_gemm_routes
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    routes = mixer_gemm_routes(t, d, 4 * t, 4 * d, torch.bfloat16)
+    shapes = {"g1": (4 * t, d, b, "act_only"), "r": (t, d, b, "res"),
+              "g3": (b * t, 4 * d, 1, "act_only"), "out": (b * t, d, 1, "res")}
+    return sum(routes[name] == "wgmma" and wgmma.wgmma_plan(m, n, sms, batch, epi).pingpong
+               for name, (m, n, batch, epi) in shapes.items())
+
+
+def k2_pingpong(tag, since, k2_launches, n):
+    """The K2 GEMMs that took the ping-pong walk since `since` (a reading of
+    mixer_block.pingpong_launches), held to `k2_launches` flagship blocks at batch n
+    taking forward_pingpong(n, 256, 1024) each; raises otherwise. -> that count."""
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import mixer_block
+
+    got = mixer_block.pingpong_launches - since
+    need = k2_launches * forward_pingpong(n, 256, 1024)
+    if got != need:
+        raise AssertionError(f"{tag}: {got} ping-pong GEMMs in {k2_launches} K2 launches at "
+                             f"batch {n}, need {need}")
+    return got
+
+
 def phase_mixer(gen):
     import torch
 
@@ -677,24 +749,30 @@ def phase_mixer(gen):
     # [eval]'s B=64 last, on a generator of its own: the shared draws stay where they were
     own = torch.Generator(device="cuda").manual_seed(EVAL_SEED)
     cases = [(shape, gen) for shape in ((4, 256, 1024), (3, 64, 96), (2, 50, 100))]
-    for (b, t, d), draw in cases + [((EVAL_BATCH, 256, 1024), own)]:
+    # and the batch cell's B=256 (g1 and g3 ping-pong), on a generator of its own
+    big = torch.Generator(device="cuda").manual_seed(PINGPONG_SEED)
+    for (b, t, d), draw in cases + [((EVAL_BATCH, 256, 1024), own),
+                                    ((BENCH_BATCH, 256, 1024), big)]:
         for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
             w = random_block_weights(t, d, dtype, draw)
             x = torch.randn(b, t, d, generator=draw, device="cuda").to(dtype)
-            before = mixer_block.wgmma_launches
+            before = (mixer_block.wgmma_launches, mixer_block.pingpong_launches)
             got = mixer_block(x, w)
             torch.cuda.synchronize()
             routes = mixer_gemm_routes(t, d, 4 * t, 4 * d, dtype)
-            want = sum(routes[n] == "wgmma" for n in FORWARD_GEMMS)
-            if mixer_block.wgmma_launches - before != want:
-                raise AssertionError(f"mixer_block launched {mixer_block.wgmma_launches - before} "
-                                     f"wgmma GEMMs at {(b, t, d)} {dtype}, its routes {want}")
+            want = (sum(routes[n] == "wgmma" for n in FORWARD_GEMMS),
+                    forward_pingpong(b, t, d) if dtype == torch.bfloat16 else 0)
+            launched = (mixer_block.wgmma_launches - before[0],
+                        mixer_block.pingpong_launches - before[1])
+            if launched != want:
+                raise AssertionError(f"mixer_block launched {launched} wgmma (of them ping-pong) "
+                                     f"GEMMs at {(b, t, d)} {dtype}, its routes and plans {want}")
             ref = mixer_block_plain(x, w)
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             log(f"[mixer] B={b} T={t} D={d} {str(dtype)[6:]}: max abs err {err:.3e}, "
                 f"max|ref| {scale:.3e}, ratio {err / scale:.3e} (ceiling {tol:g}); GEMM routes "
-                f"{[routes[n] for n in FORWARD_GEMMS]}")
+                f"{[routes[n] for n in FORWARD_GEMMS]}, {launched[1]} ping-pong")
             if not (torch.isfinite(got).all().item() and err <= tol * scale):
                 raise AssertionError(f"mixer block kernel disagrees at {(b, t, d)} {dtype}")
             if dtype == torch.bfloat16 and (b, t, d) == (4, 256, 1024):
@@ -1414,6 +1492,7 @@ def phase_timing(gen, smi):
         times[name] = record(f"{name} B={b} T={t} D={d} bf16", k_ms, p_ms, bnd, flops,
                              graph_ms(kernel_fn))
     mixer_gemm_timing(gen, smi)
+    k2_schedule_timing(smi)
     times.update(stream_timing(gen, smi, record))
     times.update(warp_timing(gen, smi, record))
     times.update(mlp_ln_timing(gen, smi, record))
@@ -1805,6 +1884,116 @@ def mixer_gemm_timing(gen, smi):
     return rows
 
 
+def k2_schedule_timing(smi):
+    """K2's GEMMs (T=256, D=1024, Et=1024, Ec=4096, bf16) alone, on a generator of
+    its own, from CUDA graphs (`graph_ms`): the GELU GEMMs g1 and g3 at each batch
+    of K2_SCHEDULE_BATCHES, cooperative against ping-pong in turns (C P P C) at the
+    walk's 128-wide tile, with the two outputs bit for bit equal, and as
+    wgmma.wgmma_plan has it where it picks another width; the
+    residual GEMMs r and out (cooperative only) at B=256; each beside its bound
+    (operations at 989 TFLOP/s, or bytes where more). Then 32 x K2 at B=256, a
+    batch's mapper, every GEMM cooperative against as planned, eager, bitwise. ->
+    {(GEMM name, B): (cooperative ms, ping-pong ms or None, bound ms)}."""
+    import torch
+
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
+    from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
+        _block_forward,
+        _Launcher,
+    )
+
+    b, t, d, et, ec = BENCH_BATCH, 256, 1024, 1024, 4096
+    bt, dt, dev = b * t, torch.bfloat16, torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(PINGPONG_SEED + 1)
+    w = random_block_weights(t, d, dt, gen)
+
+    def act(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    xn, x, g1, rn, g3, r = act(b, t, d), act(b, t, d), act(b, et, d), act(bt, d), act(bt, ec), \
+        act(bt, d)
+
+    def gemms(nb):  # name, A, B, (M, N, K, batch), epilogue, keywords at batch nb
+        return (
+            ("g1", w.t1, xn[:nb], (et, d, t, nb), "act_only",
+             dict(b_mn_major=True, sb=t * d, sc=et * d, bias=w.t1b, bias_rows=True)),
+            ("g3", rn[:nb * t], w.w1, (nb * t, ec, d, 1), "act_only", dict(bias=w.b1)),
+            ("r", w.t2, g1[:nb], (t, d, et, nb), "res",
+             dict(b_mn_major=True, sb=et * d, sc=t * d, bias=w.t2b, bias_rows=True, res=x[:nb])),
+            ("out", g3[:nb * t], w.w2, (nb * t, d, ec, 1), "res", dict(bias=w.b2, res=r[:nb * t])),
+        )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for nb in K2_SCHEDULE_BATCHES:
+        for name, a, bm, (m, n, kk, batch), epi, kw in gemms(nb):
+            both = epi in wgmma.PINGPONG_EPILOGUES
+            if not (both or nb == b):
+                continue
+            outs = {pp: torch.empty(batch, m, n, dtype=dt, device="cuda")
+                    for pp in (False, True, None)}
+
+            def run(pp):  # a launcher per call: graph_ms captures on a stream of its own;
+                # both schedules at the ping-pong walk's width, None: as planned
+                wgmma.gemm(_Launcher(dev, dt), a, bm, outs[pp], m, n, kk, epi, batch=batch,
+                           pingpong=pp, bn=None if pp is None else wgmma.PINGPONG_WIDTH, **kw)
+
+            flops = 2 * m * n * kk * batch
+            bnd = bound([a, bm, kw.get("res")], [outs[False]], flops, "bf16")
+            tiles = wgmma.wgmma_tiles(m, n, 128, batch)
+            plan = wgmma.wgmma_plan(m, n, sms, batch, epi)
+            head = (f"[time] K2 GEMM {name} B={nb} M={m} N={n} K={kk}"
+                    f"{f' x{batch}' if batch > 1 else ''} ({tiles} tiles 128 wide, "
+                    f"{tiles / min(tiles, sms):.2f} a CTA; planned {plan.bn} wide, "
+                    f"{'ping-pong' if plan.pingpong else 'cooperative'})")
+            if not both:
+                coop = graph_ms(lambda: run(False))
+                log(f"{head}: cooperative {coop:.4f} ms ({flops / coop / 1e9:.1f} TFLOP/s); "
+                    f"bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / coop:.1%} of it ({smi})")
+                rows[name, nb] = (coop, None, bnd[0])
+                continue
+            c1, p1, p2, c2 = (graph_ms(lambda: run(pp)) for pp in (False, True, True, False))
+            coop, ping = (c1 + c2) / 2, (p1 + p2) / 2
+            same = torch.equal(outs[False], outs[True])
+            other = ""  # the plan's own tile, where it is not the walk's width
+            if plan.bn != wgmma.PINGPONG_WIDTH:
+                planned = graph_ms(lambda: run(None))
+                other = (f"; as planned (cooperative, {plan.bn} wide) {planned:.4f} ms, the "
+                         f"same bits: {torch.equal(outs[None], outs[False])}")
+            log(f"{head}: at 128 wide, cooperative {coop:.4f} ms ({flops / coop / 1e9:.1f} "
+                f"TFLOP/s; {c1:.4f}, {c2:.4f}), ping-pong {ping:.4f} ms "
+                f"({flops / ping / 1e9:.1f} TFLOP/s; {p1:.4f}, {p2:.4f}), {coop / ping:.3f}x"
+                f"{other}; bound {bnd[0]:.4f} ms ({bnd[1]}): cooperative {bnd[0] / coop:.1%}, "
+                f"ping-pong {bnd[0] / ping:.1%} of it; bitwise equal: {same} ({smi})")
+            if not same:
+                raise AssertionError(f"K2's {name} at B={nb}: the schedules' outputs differ")
+            rows[name, nb] = (coop, ping, bnd[0])
+    del xn, g1, rn, g3, r
+    per_block = [random_block_weights(t, d, dt, gen) for _ in range(STREAM_DEPTH)]
+    outs = {}
+
+    def k2_stack(pp):
+        h = x
+        for wb in per_block:
+            h = _block_forward(h, wb, False, pingpong=pp)[0]
+        outs[pp] = h
+
+    c1, p1, p2, c2 = (cuda_ms(lambda: k2_stack(pp), iters=3, warmup=1)
+                      for pp in (False, None, None, False))
+    coop, ping = (c1 + c2) / 2, (p1 + p2) / 2
+    same = torch.equal(outs[False], outs[None])
+    flops = b * 2 * t * d * (2 * et + 2 * ec) * STREAM_DEPTH
+    bnd = flops / PEAK_FLOPS["bf16"] * 1e3
+    log(f"[time] {STREAM_DEPTH} x K2 B={b} bf16 (a batch's mapper): all cooperative "
+        f"{coop:.2f} ms ({c1:.2f}, {c2:.2f}; {bnd / coop:.1%} of the {bnd:.2f}-ms bound), as "
+        f"planned ({forward_pingpong(b, t, d)} GEMMs a block ping-pong) {ping:.2f} ms ({p1:.2f}, "
+        f"{p2:.2f}; {bnd / ping:.1%}), {coop / ping:.3f}x; bitwise equal: {same} ({smi})")
+    if not same:
+        raise AssertionError(f"{STREAM_DEPTH} x K2 at B={b}: ping-pong and cooperative differ")
+    rows["stack", b] = (coop, ping, bnd)
+    return rows
+
+
 def warp_against(parent):
     """`python3 chip_smoke.py --warp-against DIR`: K9 and K10 of this tree against the
     warp forward and adjoint of another tree's csrc/warp.cu (DIR, a checkout unpacked
@@ -2027,12 +2216,14 @@ def phase_slice(smi):
     counters = (vq_kernel, mixer_stream, mixer_block)
     for fn in counters:
         fn.launches = 0
+    mixer_block.pingpong_launches = 0
     for b in REQUEST_BATCHES:
         tokens = example_tokens(b, "cuda")
         want = (1, 1, 0) if b <= STREAM_MAX_BATCH else (1, 0, STREAM_DEPTH)
         latencies = []
         for _ in range(3):
             before = [fn.launches for fn in counters]
+            pingpong = mixer_block.pingpong_launches
             t = time.perf_counter()
             images = prompt_to_image(tokens)
             torch.cuda.synchronize()
@@ -2040,6 +2231,7 @@ def phase_slice(smi):
             launched = tuple(fn.launches - c for fn, c in zip(counters, before))
             if launched != want:
                 raise AssertionError(f"batch {b}: launches (vq, K4, K2) {launched}, need {want}")
+            k2_pingpong(f"[slice] batch {b}", pingpong, launched[2], b)
         if tuple(images.shape) != (b, 256, 256, 3):
             raise AssertionError(f"batch {b}: images {tuple(images.shape)}")
         if not (torch.isfinite(images).all().item() and images.min().item() >= 0.0
@@ -2049,9 +2241,10 @@ def phase_slice(smi):
         log(f"[slice] batch {b}: median latency {lat * 1e3:.2f} ms of 3, {b / lat:.2f} img/s, "
             f"image mean {images.mean().item():.4f} ({smi})")
     log(f"[slice] launches in the run: vq {vq_kernel.launches}, K4 {mixer_stream.launches}, K2 "
-        f"{mixer_block.launches}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    launches = {"vq": vq_kernel.launches, "mixer_block": mixer_block.launches}
+        f"{mixer_block.launches} ({mixer_block.pingpong_launches} ping-pong GEMMs); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = {"vq": vq_kernel.launches, "mixer_block": mixer_block.launches,
+                "mixer_block_pingpong": mixer_block.pingpong_launches}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "chip_smoke_grid.png")
         save_grid(images.cpu().numpy(), path, nrow=8)
@@ -2084,6 +2277,7 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
         request_ms, stage_ms = [], {st: [] for st in STAGES}
         for i in range(SERVE_REQUESTS):
             before = {k: fn.launches for k, fn in counters.items()}
+            pingpong = counters["mixer_block"].pingpong_launches
             folds = decoder_folds()
             record.clear()
             events = [torch.cuda.Event(enable_timing=True)]
@@ -2104,6 +2298,7 @@ def serve_timed(pred, name, grids, counters, want, route, tag, tmp, seed, smi, s
             launched = {k: fn.launches - before[k] for k, fn in counters.items()}
             if launched != want(n):
                 raise AssertionError(f"{tag} {grid}: launches {launched}, need {want(n)}")
+            k2_pingpong(f"{tag} {grid}", pingpong, launched["mixer_block"], n)
             check_folds(f"{tag} {grid}", folds, 1)
             (imgs,) = record
             if not (imgs.shape == (n, side, side, 3) and np.isfinite(imgs).all()
@@ -2888,6 +3083,7 @@ def mapper_model_run(label, cfg, grids, seed, smi):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        counters["mixer_block"].pingpong_launches = 0
 
         def want(n):
             need = {k: 0 for k in counters}
@@ -2906,6 +3102,7 @@ def mapper_model_run(label, cfg, grids, seed, smi):
         serve_peak = torch.cuda.max_memory_allocated() / 2**30
         for k, fn in counters.items():
             launches[k] += fn.launches
+        launches["mixer_block_pingpong"] = counters["mixer_block"].pingpong_launches
         del pred
     torch.cuda.empty_cache()
 
@@ -3033,12 +3230,14 @@ def phase_prior(smi):
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
+        counters["mixer_block"].pingpong_launches = 0
         serve_timed(pred, name, SERVE_GRIDS, counters, serve_want, mixer_route,
                     "[prior] prior=True", tmp, PRIOR_SEED, smi, 256, record, prior=True)
         serve_timed(pred, name, ("1x1",), counters, serve_want, mixer_route,
                     "[prior] prior=False", tmp, PRIOR_SEED, smi, 256, record)
         peak = torch.cuda.max_memory_allocated() / 2**30
         launches = {k: fn.launches for k, fn in counters.items()}
+        launches["mixer_block_pingpong"] = counters["mixer_block"].pingpong_launches
         log(f"[prior] peak device memory in the requests {peak:.2f} GiB; launches {launches} "
             f"({smi})")
 
@@ -3317,6 +3516,7 @@ def phase_eval(smi):
         out = os.path.join(tmp, "eval")
         for fn in counters.values():
             fn.launches = 0
+        counters["mixer_block"].pingpong_launches = 0
         folds = decoder_folds()
         t = time.perf_counter()
         run_cli(["evaluate", path, toks, "--batch-size", str(EVAL_BATCH), "--compute-fid",
@@ -3330,6 +3530,8 @@ def phase_eval(smi):
                 "residual": batches * RES_DECODE_LAUNCHES}
         if launches != need:
             raise AssertionError(f"[eval] launches {launches}, need {need}")
+        launches["mixer_block_pingpong"] = k2_pingpong("[eval]", 0, launches["mixer_block"],
+                                                       EVAL_BATCH)
         check_folds("[eval]", folds, batches)
         with open(os.path.join(out, "eval_prompts.npz_ViT-B_32.json")) as fd:
             dump = json.load(fd)
@@ -4973,11 +5175,17 @@ def phase_bench(smi):
     for dtype, tol in ((torch.float32, MIXER_F32_TOL), (torch.bfloat16, MIXER_BF16_TOL)):
         w = random_block_weights(256, 1024, dtype, gen)
         x = torch.randn(BENCH_BATCH, 256, 1024, generator=gen, device="cuda").to(dtype)
+        before = mixer_block.pingpong_launches
         ratio = rel_max(mixer_block(x, w), mixer_block_plain(x, w))
+        pingpong = mixer_block.pingpong_launches - before
         log(f"[bench] K2 B={BENCH_BATCH} T=256 D=1024 {str(dtype)[6:]}: max abs err / max|plain| "
-            f"{ratio:.3e} (ceiling {tol:g})")
+            f"{ratio:.3e} (ceiling {tol:g}); {pingpong} ping-pong GEMMs")
         if not ratio <= tol:
             raise AssertionError(f"K2 disagrees at B={BENCH_BATCH} {dtype}")
+        want = forward_pingpong(BENCH_BATCH, 256, 1024) if dtype == torch.bfloat16 else 0
+        if pingpong != want:
+            raise AssertionError(f"K2 at B={BENCH_BATCH} {dtype}: {pingpong} ping-pong GEMMs, "
+                                 f"need {want}")
     del w, x
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5025,6 +5233,15 @@ def phase_bench(smi):
     for leg, names in want.items():
         if leg not in legs or not all(legs[leg].get(n, 0) > 0 for n in names):
             raise AssertionError(f"[bench] the {leg} leg's launches {legs.get(leg)} lack {names}")
+    # K2's GEMMs that took the ping-pong walk (bench.LaunchCount's "mixer_block_pingpong"):
+    # as the plan says at the infer leg's batch, none in the other legs
+    batch = int(re.search(r"^# infer: batch=(\d+),", run.stderr, re.M).group(1))
+    for leg, got in legs.items():
+        k2 = got.get("mixer_block", 0)
+        need = k2 * forward_pingpong(batch, 256, 1024) if leg == "infer" else 0
+        if got.get("mixer_block_pingpong", 0) != need:
+            raise AssertionError(f"[bench] the {leg} leg: {got.get('mixer_block_pingpong', 0)} "
+                                 f"ping-pong GEMMs in {k2} K2 launches, need {need}")
     launches = {}
     for got in legs.values():
         for k, n in got.items():
@@ -5237,6 +5454,10 @@ def main():
                     "replaces": None, "launches": launches["residual"], **residual})
     if any(k["launches"] == 0 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    # K2's GEMMs that took the ping-pong walk in the launches of its row: the path
+    # phases' own, each held to the plan there (k2_pingpong), as its launches are
+    next(k for k in kernels if k["name"] == "mixer_block")["pingpong_launches"] = \
+        launches["mixer_block_pingpong"]
     # off the path: no route of either package runs K5; its launches are
     # [stream]'s own checks against the plain form, apart from the gate above
     off_path = [{"name": "mixer_block_stacked", "route": "cuda",

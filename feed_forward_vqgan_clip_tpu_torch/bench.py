@@ -96,15 +96,23 @@ def card_line(device: torch.device) -> str:
 
 
 class LaunchCount:
-    """The kernels' launches (tracing.kernel_counters) from its creation to `read()`, as JSON."""
+    """The kernels' launches (tracing.kernel_counters) from its creation to `read()`, as
+    JSON; under "<name>_pingpong" those of a wrapper's wgmma GEMMs that took the
+    ping-pong walk, where it counts them (`.pingpong_launches`)."""
 
     def __init__(self):
         self.counters = kernel_counters()
-        self.before = {k: f.launches for k, f in self.counters.items()}
+        self.before = self._counts()
+
+    def _counts(self):
+        counts = {k: f.launches for k, f in self.counters.items()}
+        counts.update({f"{k}_pingpong": f.pingpong_launches for k, f in self.counters.items()
+                       if hasattr(f, "pingpong_launches")})
+        return counts
 
     def read(self) -> str:
-        return json.dumps({k: f.launches - self.before[k] for k, f in self.counters.items()
-                           if f.launches != self.before[k]})
+        return json.dumps({k: n - self.before[k] for k, n in self._counts().items()
+                           if n != self.before[k]})
 
 
 def _sync(device):

@@ -41,7 +41,18 @@
 // is split across blocks there (split-K below). The train forward does the same
 // 43 GFLOP at B=8 (0.044 ms at 989 TFLOP/s) and also writes about 70 MB of bf16
 // residuals (0.021 ms at 3.35 TB/s): still compute-bound; it writes them from the
-// GEMM epilogues, so no extra pass reads the activations.
+// GEMM epilogues, so no extra pass reads the activations. At B=256 (bulk generation)
+// the exact-GELU epilogues, not the K sums, bounded the cooperative wgmma GEMMs: on an
+// H100 SXM at 700 W, g1 ran at 22% of its byte bound and g3 at 36% of its FLOP bound,
+// both warpgroups computing GELUs while the tensor cores idled. The GELU GEMMs g1 and
+// g3, where their tiles are at least twice the SMs (from B=5), take the ping-pong walk
+// of wgmma_gemm.cuh instead, where one warpgroup's epilogue runs under the other
+// warpgroup's wgmma chain and the outputs are the same bits: at B=256 g1 then reads at
+// 34% of its byte bound, g3 at 50% of its FLOP bound (1.25-1.54x the cooperative walk
+// from B=4 to 256). g1 stays bound by L2 reads of xn (the batch-innermost walk reads
+// each image's xn once per row block of t1), g3 by the single warpgroup's chain beside
+// the other's epilogue. r (51% of its byte bound, HBM reads of g1) and out (56% of its
+// FLOP bound) stay cooperative: ping-pong moved them 1-3%.
 
 #include <algorithm>
 #include <type_traits>

@@ -58,6 +58,25 @@
 // lane l) holds, for each 8-column group j, d[4j], d[4j + 1] at row 16w + l/4,
 // columns 8j + 2(l % 4) and + 1, and d[4j + 2], d[4j + 3] eight rows below.
 //
+// Two schedules walk a call's tiles. Cooperative (`wg_consume`, above): both consumer
+// warpgroups on one 128 x BN tile, 64 rows each, its K loop together and then its
+// epilogue together, so the tensor cores idle while the epilogue runs. Ping-pong
+// (`wg_consume_pingpong`, `wgmma_pingpong_kernel`; BN 128, kEpiActOnly):
+// each warpgroup owns whole tiles, the CTA's even ones and its odd ones, as two
+// m64n128 chains; a pair of named barriers makes the two warpgroups' chains take
+// turns, so one warpgroup's epilogue runs while the other's chain runs. The producer
+// (`wg_produce`) and the ring are the same: the tiles' K steps in order. The caller
+// picks the schedule (ops/kernels/wgmma.py `wgmma_plan`): ping-pong where every
+// persistent CTA gets at least two tiles (tiles >= 2 x SMs; with one tile a CTA there
+// is nothing to overlap; on an H100 ping-pong ran the Mixer's GELU GEMMs 1.25-1.54x
+// faster from 1.9 to 124 tiles a CTA) and the epilogue is the one the walk is compiled
+// for, else cooperative. Both give the same bits: each output is the same chain of
+// m64n128k16 wgmma in K order under either, and the epilogues do the same operations
+// with the same rounding points, so which schedule ran cannot show in the output.
+// `pingpong_write` repeats `epilogue`'s kEpiActOnly arithmetic rather than sharing it,
+// so that the cooperative walk's code (K4's and K1's too) stays as it was; the GPU
+// tests hold the two schedules' outputs equal bit for bit.
+//
 // Requirements, checked by the caller (ops/kernels/wgmma.py `tma_ok`): every operand's
 // row length (K or M for A, K or N for B, N for C) a multiple of 8, batch strides
 // multiples of 8 elements, 16-byte-aligned bases (TMA's strides and addresses).
@@ -676,6 +695,201 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------- the ping-pong walk
+
+// The ping-pong walk's shared memory: the ring's stages as WgmmaTile's and, per
+// consumer warpgroup, an output buffer of two 64-row slots (the two halves of its
+// tile). Compiled for the inference forward's kEpiActOnly: one bf16 plane.
+template <int BN>
+struct WgmmaPingTile {
+  static constexpr int kABytes = kWgBM * kWgBK * 2;
+  static constexpr int kBBytes = BN * kWgBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSlotBytes = 64 * BN * 2;
+  static constexpr int kEpiBytes = 2 * kSlotBytes;
+  static constexpr int kFree = 232448 - 1024 - 2 * kEpiBytes - 2 * 6 * 8;
+  static constexpr int kStages = kFree / kStageBytes < 6 ? kFree / kStageBytes : 6;
+  static_assert(kStages >= 3, "the ring needs at least three stages");
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kEpiBytes + 2 * kStages * 8 + 1024;
+};
+
+// The turns of the two consumer warpgroups' wgmma chains: warpgroup c waits on named
+// barrier kTurnBar + c, which the other warpgroup's arrival completes (128 + 128
+// threads) once it has issued the chain of the CTA's tile before.
+constexpr int kTurnBar = 3;  // 0: __syncthreads; 1, 2: the warpgroups' epilogues
+
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(kTurnBar + c) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(kTurnBar + 1 - c) : "memory");
+}
+
+// One 64 x BN half of a ping-pong tile through kEpiActOnly into `buf`, in the layout
+// of the store boxes: the operations of `epilogue`, in its order and with its rounding
+// points, with the activation a template argument (kActFn), so that the unrolled
+// element loop holds no branch and the compiler interleaves the elements (with the
+// test of p.act in the loop the ping-pong epilogue ran 1.7x longer). A copy apart
+// from `epilogue`, so that the cooperative walk (K4's too) compiles as it did. d and
+// rb as `epilogue` reads them.
+template <int BN, bool kRowBias, int kActFn>
+__device__ __forceinline__ void pingpong_write(const WgmmaPhase& p, const float* d,
+                                               const float* rb, unsigned char* buf, int n0) {
+  const int lt = threadIdx.x % 128, warp = lt / 32, lane = lt % 32;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int lc = j * 8 + (lane % 4) * 2, col = n0 + lc;
+    float b0 = 0.f, b1 = 0.f;
+    if constexpr (!kRowBias) {
+      if (col < p.n) {
+        b0 = p.bias[col];
+        b1 = p.bias[col + 1];
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + lane / 4 + half * 8;
+      float g[2] = {d[4 * j + 2 * half] + (kRowBias ? rb[half] : b0),
+                    d[4 * j + 2 * half + 1] + (kRowBias ? rb[half] : b1)};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = g[i];
+        if constexpr (kActFn == kActQuickGelu) {
+          const float s = __frcp_rn(1.f + expf(-1.702f * v));
+          g[i] = v * s;
+        } else {
+          g[i] = gelu_f(v);
+        }
+      }
+      *reinterpret_cast<__nv_bfloat162*>(buf + swizzled(r, lc, 2)) =
+          __floats2bfloat162_rn(g[0], g[1]);
+    }
+  }
+}
+
+// One warpgroup's epilogue of its 128 x BN tile (rows m0 .., columns n0 .. of batch
+// element z) into its two slots, once their previous stores have read them, then one
+// thread stores both: d holds rows 0-63 then rows 64-127, rb the row biases of the
+// first half, read at the tile's start (those of the second are read after the first
+// half). The halves run through one copy of the code, the second half moved into the
+// registers the first one read: with the two halves unrolled, an epilogue of twice the
+// instructions beside the other warpgroup's chain ran 2.5x longer.
+template <class Tile, int BN, bool kRowBias>
+__device__ __forceinline__ void epilogue_pingpong(const WgmmaPhase& p, float* d, float* rb,
+                                                  unsigned char* buf, int m0, int n0, int z,
+                                                  int bar_id) {
+  const int lt = threadIdx.x % 128;
+  if (lt == 0) bulk_wait<true>();  // the previous tile's stores have read the slots
+  warpgroup_sync(bar_id);
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    unsigned char* slot = buf + h * Tile::kSlotBytes;
+    if (p.act == kActQuickGelu)
+      pingpong_write<BN, kRowBias, kActQuickGelu>(p, d, rb, slot, n0);
+    else
+      pingpong_write<BN, kRowBias, kActGelu>(p, d, rb, slot, n0);
+    // rows 64-127 into the registers the code above reads
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = d[i + BN / 2];
+    if (h == 0) epilogue_prefetch<BN, kEpiActOnly, kRowBias>(p, nullptr, rb, m0 + 64, n0, z);
+  }
+  // the generic-proxy writes, visible to the TMA (async proxy), then one thread stores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(bar_id);
+  if (lt == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int bx = 0; bx < BN / 64; ++bx)
+        if (n0 + bx * 64 < p.n)
+          tma_store_3d(p.map_c, buf + h * Tile::kSlotBytes + bx * 8192, n0 + bx * 64,
+                       m0 + 64 * h, z);
+    bulk_commit();
+  }
+}
+
+// A consumer warpgroup's walk in the ping-pong schedule: warpgroup c (0, 1) owns the
+// CTA's tiles i = c, c + 2, ... whole, 128 x BN as two m64nBN wgmma chains (rows 0-63,
+// 64-127) over the same B. The chains of the two warpgroups take turns (turn_wait /
+// turn_pass), so one warpgroup's epilogue runs while the other's chain runs. The ring
+// is wg_produce's: tile i's K steps sit at positions i * k_tiles .., which the
+// warpgroup reads from their stage and parity; it reaches a position only after every
+// earlier one has been read (the turns order them), so a parity wait cannot pass a
+// lap early. Its TMA stores may still be in flight on return.
+template <class Tile, int BN, int kTransA, int kTransB, bool kRowBias>
+__device__ __forceinline__ void wg_consume_pingpong(const WgmmaPhase& p, const WgSmem<Tile>& sm) {
+  const int tiles_n = (p.n + BN - 1) / BN;
+  const int tiles = (p.m + kWgBM - 1) / kWgBM * tiles_n * p.batch;
+  const int k_tiles = (p.k + kWgBK - 1) / kWgBK;
+  const int c = threadIdx.x / 128 - 1, lane = threadIdx.x % 32;
+  float d[BN];
+  float rb[2] = {0.f, 0.f};  // the row biases (kRowBias) of rows 0-63
+  unsigned char* buf = sm.out + c * Tile::kEpiBytes;
+  for (int i = c, t = blockIdx.x + c * gridDim.x; t < tiles; i += 2, t += 2 * gridDim.x) {
+    const WgTile<false> at(t, tiles_n, p.batch, BN, 1);
+    // read while the other warpgroup's chain and this one's run
+    epilogue_prefetch<BN, kEpiActOnly, kRowBias>(p, nullptr, rb, at.m0, at.n0, at.z);
+    if (i > 0) turn_wait(c);
+    int prev = 0;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int q = i * k_tiles + kt, stage = q % Tile::kStages;
+      mbar_wait(&sm.full[stage], (q / Tile::kStages) & 1);
+      wgmma_fence();
+      const unsigned char* a = sm.sa + stage * Tile::kABytes;
+      const unsigned char* b = sm.sb + stage * Tile::kBBytes;
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk) {
+        // descriptors as wg_consume's; rows 64-127 of A start one 8-KB box further
+        const uint64_t db = kTransB ? wgmma_desc(b + kk * 2048, kWgBox, 1024)
+                                    : wgmma_desc(b + kk * 32, 16, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned char* ah = a + h * kWgBox;
+          const uint64_t da = kTransA ? wgmma_desc(ah + kk * 2048, kWgBox, 1024)
+                                      : wgmma_desc(ah + kk * 32, 16, 1024);
+          wgmma_k16<BN, kTransA, kTransB>(d + h * (BN / 2), da, db, (kt | kk) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's group has retired: release that stage
+      if (kt > 0 && lane == 0) mbar_arrive(&sm.empty[prev]);
+      prev = stage;
+    }
+    if (t + gridDim.x < tiles) turn_pass(c);  // the CTA's next tile is the other's
+    wgmma_wait<0>();
+    fence_regs<BN>(d);
+    if (lane == 0) mbar_arrive(&sm.empty[prev]);
+    epilogue_pingpong<Tile, BN, kRowBias>(p, d, rb, buf, at.m0, at.n0, at.z, 1 + c);
+  }
+}
+
+template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_pingpong_kernel(const __grid_constant__ WgmmaParams p) {
+  static_assert(kEpi == kEpiActOnly, "the ping-pong walk's epilogue");
+  using Tile = WgmmaPingTile<BN>;
+  extern __shared__ unsigned char wg_smem_raw[];
+  const WgSmem<Tile> sm(wg_smem_raw);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Tile::kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4);  // one arrival per warp of the warpgroup that read it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const WgmmaPhase ph = phase_of(p);
+  if (threadIdx.x / 128 == 0) {  // producer: registers to the consumers, one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    WgRing ring;
+    if (threadIdx.x == 0) wg_produce<Tile, BN, kTransA, kTransB, false>(ph, sm, ring);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    wg_consume_pingpong<Tile, BN, kTransA, kTransB, kRowBias>(ph, sm);
+    if (threadIdx.x % 128 == 0) bulk_wait<false>();  // the last stores are complete
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 // libcuda's cuTensorMapEncodeTiled, through the runtime's entry-point lookup (no
@@ -724,8 +938,10 @@ inline bool make_tensor_map(CUtensorMap* map, const void* base, long long rows, 
 
 // Fills the maps of A (K-major (m, k), or M-major (k, m)), B (K-major (n, k), or
 // MN-major (k, n)), C (m, n) and, for kEpiAct, aux (m, n), each of p.batch matrices,
-// and launches `grid` persistent CTAs of the BN-wide tile. Returns a cudaError_t as int.
-template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias = false>
+// and launches `grid` persistent CTAs of the BN-wide tile, cooperative or (kPingPong)
+// ping-pong. Returns a cudaError_t as int.
+template <int BN, int kTransA, int kTransB, int kEpi, bool kRowBias = false,
+          bool kPingPong = false>
 int launch_wgmma_gemm(WgmmaParams p, const WgmmaOperands& o, int grid, cudaStream_t s) {
   p.a_batched = o.sa != 0 && p.batch > 1;
   p.b_batched = o.sb != 0 && p.batch > 1;
@@ -737,8 +953,15 @@ int launch_wgmma_gemm(WgmmaParams p, const WgmmaOperands& o, int grid, cudaStrea
       make_tensor_map(&p.map_c, o.c, p.m, p.n, p.batch, p.sc, 64, kEpi == kEpiF32) &&
       (kEpi != kEpiAct || make_tensor_map(&p.map_aux, o.aux, p.m, p.n, p.batch, p.sc, 64));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wgmma_gemm_kernel<BN, kTransA, kTransB, kEpi, kRowBias>;
-  constexpr int smem = WgmmaTile<BN, kEpi>::kSmemBytes;
+  void (*kernel)(WgmmaParams);
+  int smem;
+  if constexpr (kPingPong) {
+    kernel = wgmma_pingpong_kernel<BN, kTransA, kTransB, kEpi, kRowBias>;
+    smem = WgmmaPingTile<BN>::kSmemBytes;
+  } else {
+    kernel = wgmma_gemm_kernel<BN, kTransA, kTransB, kEpi, kRowBias>;
+    smem = WgmmaTile<BN, kEpi>::kSmemBytes;
+  }
   static bool attribute_set = false;  // once per instantiation (and process)
   if (!attribute_set) {
     const cudaError_t e =
@@ -760,6 +983,10 @@ int launch_wgmma_gemm(WgmmaParams p, const WgmmaOperands& o, int grid, cudaStrea
 //                     A M-major, B MN-major: kEpiF32 (dW2, dW1; the token dxn)
 //   wgmma_gemm_tok.cu A M-major, B MN-major: kEpiMul (the token da1); A K-major, B
 //                     K-major: kEpiF32 (the token weight grads' per-element partials)
+//   wgmma_gemm_pingpong.cu  the ping-pong walk at BN 128: A K-major, B K-major (column
+//                     bias) or MN-major (row bias), with kEpiActOnly
+int wgmma_launch_pingpong(const WgmmaParams& p, const WgmmaOperands& o, int b_mn_major, int epi,
+                          int grid, cudaStream_t s);
 int wgmma_launch_kk(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,
                     cudaStream_t s);
 int wgmma_launch_kmn(const WgmmaParams& p, const WgmmaOperands& o, int epi, int bn, int grid,

@@ -87,9 +87,9 @@ _SIGNATURES = {
     # workspace, dtype, stream
     "ffvc_mlp_gemm": [_P, _L, _P, _L, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _P, _I, _P],
     # a, sa, a_m_major, b, sb, b_mn_major, c, sc, m, n, k, batch, epi, bias, bias_rows,
-    # res, mul, aux, act, bn, grid, stream
+    # res, mul, aux, act, bn, grid, pingpong, stream
     "ffvc_wgmma_gemm": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _I, _P, _I,
-                        _P, _P, _P, _I, _I, _I, _P],
+                        _P, _P, _P, _I, _I, _I, _I, _P],
     # x, gamma, beta, pre_bias, out, partial, rows, groups, cg, hw, slice, splits, eps, silu,
     # path, dtype, stream
     "ffvc_group_norm": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 3 + [_P],

@@ -48,7 +48,9 @@ counterpart: gelu and gelu' use `erff` / `expf`.
 Every wrapper launches its kernels for a CUDA tensor, runs its plain PyTorch
 version (the `*_plain` function beside it) only for a CPU tensor, and counts its
 launches on `.launches`; those of the forward and the backward also count the
-wgmma GEMMs their calls launched on `.wgmma_launches`.
+wgmma GEMMs their calls launched on `.wgmma_launches`, and the inference forward's
+(K2, K5) those of them that took the ping-pong walk (`wgmma.wgmma_plan`) on
+`.pingpong_launches`.
 """
 
 from typing import NamedTuple
@@ -401,15 +403,18 @@ def _ptr(t):
 
 
 class _Launcher:
-    """The C entry points of csrc/mixer_*.cu on one device, stream and working dtype."""
+    """The C entry points of csrc/mixer_*.cu on one device, stream and working dtype;
+    `pingpong` pins the wgmma GEMMs' schedule (`wgmma.gemm`), None leaves it to the plan."""
 
-    def __init__(self, device, dtype):
+    def __init__(self, device, dtype, pingpong=None):
         self.lib = build.load_library()
+        self.pingpong = pingpong
         self.device, self.dtype = device, dtype
         self.code = _DTYPE_CODE[dtype]
         self.stream = build.stream_handle(device)
         self.sms = torch.cuda.get_device_properties(device).multi_processor_count
         self.wgmma_launches = 0
+        self.pingpong_launches = 0
 
     def empty(self, *shape, dtype=None):
         return torch.empty(*shape, dtype=dtype or self.dtype, device=self.device)
@@ -458,10 +463,11 @@ class _Launcher:
         one f32 C, the batch's products added in batch order), on the tile `route`
         names: the wgmma GEMM, or the WMMA / FMA tile through `gemm`."""
         if route == "wgmma":
-            wgmma.gemm(self, a, b, c, m, n, kdim, epi, a_m_major=a_m_major,
-                       b_mn_major=b_mn_major, batch=batch, sa=sa, sb=sb, sc=sc, bias=bias,
-                       bias_rows=bias_rows, res=res, mul=mul, aux=aux, act=ACTIVATIONS["gelu"],
-                       batch_sum=batch_sum)
+            self.pingpong_launches += wgmma.gemm(
+                self, a, b, c, m, n, kdim, epi, a_m_major=a_m_major, b_mn_major=b_mn_major,
+                batch=batch, sa=sa, sb=sb, sc=sc, bias=bias, bias_rows=bias_rows, res=res,
+                mul=mul, aux=aux, act=ACTIVATIONS["gelu"], batch_sum=batch_sum,
+                pingpong=self.pingpong)
             self.wgmma_launches += 1
             return
         self.gemm(a, m if a_m_major else kdim, sa, b, n if b_mn_major else kdim, sb, c, n,
@@ -500,14 +506,16 @@ class _Launcher:
         return out
 
 
-def _block_forward(x, w, save):
-    """The block's launches; with `save`, the train forward's residuals too. ->
-    (out, residuals or None, the wgmma GEMMs launched)."""
+def _block_forward(x, w, save, pingpong=None):
+    """The block's launches; with `save`, the train forward's residuals too;
+    `pingpong` as `_Launcher`'s (the tests and chip_smoke.py time and compare the two
+    schedules, which give the same bits). -> (out, residuals or None, the launcher,
+    which counts the wgmma GEMMs launched)."""
     _check(x, w)
     x = x.contiguous()
     b, t, d = x.shape
     et, ec = w.t1.shape[0], w.w1.shape[0]
-    k = _Launcher(x.device, x.dtype)
+    k = _Launcher(x.device, x.dtype, pingpong)
 
     def route(name, *tensors):
         return mixer_gemm_route(name, t, d, et, ec, x.dtype, tensors)
@@ -538,7 +546,14 @@ def _block_forward(x, w, save):
         k.mm(route("out", g3, w.w2, out, r), g3, w.w2, out, b * t, d, ec, "res", bias=w.b2,
              res=r)
     res = MixerResiduals(g1, dg1, rhat, inv2, g3, dg3) if save else None
-    return out, res, k.wgmma_launches
+    return out, res, k
+
+
+def _count(wrapper, k):
+    """One launch of the inference block and the wgmma GEMMs (of them ping-pong) it ran."""
+    wrapper.launches += 1
+    wrapper.wgmma_launches += k.wgmma_launches
+    wrapper.pingpong_launches += k.pingpong_launches
 
 
 def mixer_block(x, w: MixerBlockWeights):
@@ -547,9 +562,8 @@ def mixer_block(x, w: MixerBlockWeights):
     A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
     if x.device.type == "cpu":
         return mixer_block_plain(x, w)
-    out, _, wg = _block_forward(x, w, save=False)
-    mixer_block.launches += 1
-    mixer_block.wgmma_launches += wg
+    out, _, k = _block_forward(x, w, save=False)
+    _count(mixer_block, k)
     return out
 
 
@@ -563,9 +577,8 @@ def mixer_block_stacked(x, sp: StackedMixerWeights, block_idx: int):
         return mixer_block_stacked_plain(x, sp, block_idx)
     if not 0 <= block_idx < sp.t1.shape[0]:
         raise IndexError(f"block_idx {block_idx} outside the stack's {sp.t1.shape[0]} blocks")
-    out, _, wg = _block_forward(x, stacked_block_weights(sp, block_idx), save=False)
-    mixer_block_stacked.launches += 1
-    mixer_block_stacked.wgmma_launches += wg
+    out, _, k = _block_forward(x, stacked_block_weights(sp, block_idx), save=False)
+    _count(mixer_block_stacked, k)
     return out
 
 
@@ -576,9 +589,9 @@ def mixer_block_fwd_res(x, w: MixerBlockWeights):
     A CUDA tensor launches the kernels; a CPU tensor runs the plain version."""
     if x.device.type == "cpu":
         return mixer_block_fwd_res_plain(x, w)
-    out, res, wg = _block_forward(x, w, save=True)
+    out, res, k = _block_forward(x, w, save=True)
     mixer_block_fwd_res.launches += 1
-    mixer_block_fwd_res.wgmma_launches += wg
+    mixer_block_fwd_res.wgmma_launches += k.wgmma_launches
     return out, res
 
 
@@ -693,6 +706,9 @@ mixer_block_stacked.wgmma_launches = 0
 mixer_block_fwd_res.wgmma_launches = 0
 mixer_channel_bwd.wgmma_launches = 0
 mixer_token_bwd.wgmma_launches = 0
+# of those, the inference forward's GEMMs that took the ping-pong walk (wgmma.wgmma_plan)
+mixer_block.pingpong_launches = 0
+mixer_block_stacked.pingpong_launches = 0
 
 
 class MixerBlockTrain(torch.autograd.Function):

@@ -28,7 +28,17 @@ The batch-sum form (`batch_sum`, f32 only; K8's token weight grads) gives one C,
 the sum over z of the batch's products: each product lands as an f32 partial
 (batch, M, N) and csrc/mixer_train.cu `ffvc_batch_sum` adds them in batch order,
 z = 0, 1, ..., one thread per output, so every run gives the same bits.
+
+Two schedules walk a call's tiles (csrc/wgmma_gemm.cuh): cooperative, both
+consumer warpgroups on one 128-row tile, its K loop and then its epilogue
+together; and ping-pong, each warpgroup on whole tiles of its own with the two
+wgmma chains taking turns, so one's GELU epilogue runs under the other's chain.
+`wgmma_plan` takes ping-pong for the inference forward's GELU GEMMs (act_only) where
+the persistent CTAs get enough tiles each (`takes_pingpong`). Each output is the
+same chain of m64 wgmma in K order under either, so both give the same bits.
 """
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,24 +50,55 @@ WGMMA_ROWS = 128
 WGMMA_WIDTHS = (128, 192)
 EPILOGUES = {"act": 0, "res": 1, "mul": 2, "f32": 3, "act_only": 4}  # WgmmaEpilogue
 ACTIVATIONS = {"gelu": 0, "quick_gelu": 1}  # csrc/common.cuh Activation
+# csrc/wgmma_gemm_pingpong.cu: the epilogue and the tile width of the ping-pong walk,
+# and the tiles a persistent CTA must get, at the least, for the plan to take it
+PINGPONG_EPILOGUES = ("act_only",)
+PINGPONG_WIDTH = 128
+PINGPONG_MIN_TILES_PER_SM = 2
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
 
-def wgmma_plan(m: int, n: int, sms: int, batch: int = 1):
-    """(tile width, persistent CTAs) of the wgmma GEMM for `batch` (m, n) outputs
-    on `sms` SMs: the width of WGMMA_WIDTHS whose tiles take the least time in
-    whole waves, waves x width (a tile's time grows with its width), the narrower
-    on a tie. At the train loss's 3200 rows: N = 3072 takes 128 (600 tiles, 5
-    waves on 132 SMs: 5 x 128 against 4 x 192), N = 768 takes 192 (100 tiles, one
-    wave: 1 x 192 against 2 x 128)."""
+class WgmmaPlan(NamedTuple):
+    """How the wgmma GEMM walks one call's tiles: the tile width, the persistent
+    CTAs, and whether the consumer warpgroups run in ping-pong (each owns whole
+    tiles; one's epilogue under the other's wgmma chain) rather than
+    cooperatively (both on one tile, its K loop and then its epilogue together)."""
+
+    bn: int
+    grid: int
+    pingpong: bool
+
+
+def wgmma_plan(m: int, n: int, sms: int, batch: int = 1, epi=None) -> WgmmaPlan:
+    """The WgmmaPlan of the wgmma GEMM for `batch` (m, n) outputs with epilogue
+    `epi` (of EPILOGUES; None: not known) on `sms` SMs. The width of WGMMA_WIDTHS
+    whose tiles take the least time in whole waves, waves x width (a tile's time
+    grows with its width), the narrower on a tie; the grid min(tiles, SMs); the
+    schedule `takes_pingpong`'s. At the train loss's 3200 rows: N = 3072 takes 128
+    (600 tiles, 5 waves on 132 SMs: 5 x 128 against 4 x 192), N = 768 takes 192
+    (100 tiles, one wave: 1 x 192 against 2 x 128)."""
     best = None
     for bn in WGMMA_WIDTHS:
         tiles = wgmma_tiles(m, n, bn, batch)
         cost = -(-tiles // sms) * bn
         if best is None or cost < best[0]:
-            best = (cost, bn, min(tiles, sms))
-    return best[1], best[2]
+            best = (cost, bn, tiles)
+    _, bn, tiles = best
+    return WgmmaPlan(bn, min(tiles, sms), takes_pingpong(tiles, sms, bn, epi))
+
+
+def takes_pingpong(tiles: int, sms: int, bn: int, epi) -> bool:
+    """Whether a call of `tiles` output tiles at width `bn` with epilogue `epi`
+    runs the ping-pong walk: where every persistent CTA gets at least
+    PINGPONG_MIN_TILES_PER_SM tiles (a CTA with one tile has nothing to overlap),
+    for the inference forward's GELU epilogue (PINGPONG_EPILOGUES) at the width
+    the walk is compiled for (PINGPONG_WIDTH: two m64n128 chains hold a
+    warpgroup's 128 accumulators a thread). The train forward's "act" (two output
+    planes), the residual adds ("res": the ping-pong walk gained them 1-3% alone
+    at B=256) and the backward's epilogues stay cooperative."""
+    return (epi in PINGPONG_EPILOGUES and bn == PINGPONG_WIDTH
+            and tiles >= PINGPONG_MIN_TILES_PER_SM * sms)
 
 
 def wgmma_tiles(m: int, n: int, bn: int, batch: int = 1) -> int:
@@ -80,15 +121,18 @@ def _ptr(t):
 
 def gemm(k, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False, batch=1, sa=0,
          sb=0, sc=0, bias=None, bias_rows=False, res=None, mul=None, aux=None, act=0, bn=None,
-         batch_sum=False):
+         batch_sum=False, pingpong=None):
     """One bf16 GEMM of csrc/wgmma_gemm.cuh on launcher `k` (its `lib`, `sms` and
     `stream`): c = a . b with epilogue `epi` of EPILOGUES, as the module docstring
     states; sa, sb, sc batch strides in elements. With `batch_sum` (epi "f32"),
     c (M, N) is the sum over the batch of the products, added in batch order
-    from an f32 partial per element (sc is then unused). The tile width is
-    `wgmma_plan`'s, or `bn` of WGMMA_WIDTHS where given. Raises where an operand
-    is not 16-byte aligned or the launch fails: there is no other route from
-    here."""
+    from an f32 partial per element (sc is then unused). The tile width and the
+    schedule are `wgmma_plan`'s, the width `bn` of WGMMA_WIDTHS where given, the
+    schedule `pingpong` (True: ping-pong, False: cooperative) where given: the
+    tests and chip_smoke.py time and compare the two, which give the same bits.
+    Returns whether the call took the ping-pong walk. Raises where an operand is
+    not 16-byte aligned or the launch fails (the entry point refuses ping-pong for
+    an epilogue or width it is not compiled for): there is no other route from here."""
     for t in (a, b, c, res, mul, aux):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("the wgmma GEMM's operands need 16-byte-aligned bases (TMA)")
@@ -97,16 +141,20 @@ def gemm(k, a, b, c, m, n, kdim, epi, *, a_m_major=False, b_mn_major=False, batc
     out = c
     if batch_sum:
         c, sc = torch.empty(batch, m, n, dtype=torch.float32, device=out.device), m * n
-    planned, grid = wgmma_plan(m, n, k.sms, batch)
-    if bn is not None and bn != planned:
-        grid = min(wgmma_tiles(m, n, bn, batch), k.sms)
+    plan = wgmma_plan(m, n, k.sms, batch, epi)
+    if bn is not None and bn != plan.bn:
+        tiles = wgmma_tiles(m, n, bn, batch)
+        plan = WgmmaPlan(bn, min(tiles, k.sms), takes_pingpong(tiles, k.sms, bn, epi))
+    if pingpong is not None:
+        plan = plan._replace(pingpong=bool(pingpong))
     build.check(k.lib.ffvc_wgmma_gemm(
         a.data_ptr(), sa, int(a_m_major), b.data_ptr(), sb, int(b_mn_major), c.data_ptr(), sc,
         m, n, kdim, batch, EPILOGUES[epi], _ptr(bias), int(bias_rows), _ptr(res), _ptr(mul),
-        _ptr(aux), act, bn or planned, grid, k.stream), "ffvc_wgmma_gemm")
+        _ptr(aux), act, plan.bn, plan.grid, int(plan.pingpong), k.stream), "ffvc_wgmma_gemm")
     if batch_sum:
         build.check(k.lib.ffvc_batch_sum(c.data_ptr(), out.data_ptr(), batch, m * n, k.stream),
                     "ffvc_batch_sum")
+    return plan.pingpong
 
 
 # ---------------------------------------------------------------- plain versions

@@ -18,9 +18,11 @@ path. The wgmma GEMM alone (ops/kernels/wgmma.py) against `gemm_reference`:
 float32 outputs within 1e-5 of max |reference| (the same bf16 products summed
 in another order), bf16 outputs within 8e-3 (a rounding or two of the largest
 value); the GELU epilogue without its derivative equal to the one with it, bit
-for bit. The pools' backward, the tiny trainer's steps and the plain-PyTorch
-backwards of Et, Ts and R (no kernel of their own: a sorted fixed-order segment
-sum and weight-matrix products) must repeat bit for bit. The dot-product test of
+for bit; the ping-pong walk equal to the cooperative one bit for bit, and K2 at
+B=256 on it within the Mixer's bf16 ceiling. The pools' backward, the tiny
+trainer's steps and the plain-PyTorch backwards of Et, Ts and R (no kernel of
+their own: a sorted fixed-order segment sum and weight-matrix products) must
+repeat bit for bit. The dot-product test of
 K9 and K10 in float32: |<K9 x, g> - <x, K10 g>| within 1e-5 of sum |terms|.
 The VitGAN and x-transformer mappers (module path) and the CLIP RN50 perceptor
 (cuDNN convolutions) on the card, float32, within 1e-4 and 1e-3 of max |CPU|.
@@ -95,6 +97,7 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     MixerBlockWeights,
     MixerResiduals,
     TokenGrads,
+    _block_forward,
     _Launcher,
     mixer_block,
     mixer_block_fwd_res,
@@ -433,6 +436,109 @@ def test_wgmma_batch_sum_matches_reference(cuda, bn):
                    batch_sum=True, bn=bn)
     ref, _ = wgmma.gemm_reference(a, b, "f32", batch_sum=True)
     assert _rel(c, ref) <= 1e-5 and torch.equal(c, again)
+
+
+@pytest.mark.parametrize("kdim", [64, 4096], ids=["k_one_stage", "k_4096"])
+@pytest.mark.parametrize("layout", ["column_bias", "row_bias"])
+@pytest.mark.parametrize("epi", ["act_only", "act_only_quick_gelu"])
+def test_wgmma_pingpong_equals_cooperative_bitwise(cuda, epi, layout, kdim):
+    """The ping-pong walk against the cooperative one at pinned schedules
+    (`wgmma.gemm`'s `pingpong`), bit for bit: the channel form (B K-major, a column
+    bias) at M = N = 328 (3 x 3 tiles, both edges ragged) and the token form (a
+    weight shared by the batch, B MN-major, a row bias) at B = 3, M = 200, N = 136
+    (12 tiles), K of one stage and of 4096; on a grid of 4 or 5 CTAs, so that CTAs
+    walk two or three tiles (the third without a partner), and on the card's whole
+    grid (one tile a CTA, the second warpgroup idle). Both within 8e-3 of
+    `gemm_reference`; act_only with exact GELU and with quick_gelu."""
+    act = wgmma.ACTIVATIONS["quick_gelu" if epi.endswith("quick_gelu") else "gelu"]
+    epi = epi.replace("_quick_gelu", "")
+    rng = np.random.default_rng(kdim + len(epi) + len(layout) + act)
+    rows = layout == "row_bias"
+    batch, m, n, sms = (3, 200, 136, 5) if rows else (1, 328, 328, 4)
+    a = _bf16(rng, m, kdim, std=kdim ** -0.5)
+    b = _bf16(rng, batch, kdim, n) if rows else _bf16(rng, n, kdim)
+    bias = torch.linspace(-2, 1, m if rows else n, device=cuda)
+    kw = dict(b_mn_major=True, batch=batch, sb=kdim * n, sc=m * n, bias_rows=True) if rows \
+        else {}
+    outs = {}
+    for grid in (sms, None):
+        for pingpong in (False, True):
+            k = _Launcher(cuda, torch.bfloat16)
+            k.sms = grid or k.sms
+            c = torch.zeros(batch, m, n, dtype=torch.bfloat16, device=cuda)
+            took = wgmma.gemm(k, a, b, c, m, n, kdim, epi, bias=bias, act=act, bn=128,
+                              pingpong=pingpong, **kw)
+            assert took == pingpong
+            outs[grid, pingpong] = c
+    ref, _ = wgmma.gemm_reference(a, b, epi, b_mn_major=rows, bias=bias, bias_rows=rows,
+                                  act="quick_gelu" if act else "gelu")
+    for grid in (sms, None):
+        c0, c1 = outs[grid, False], outs[grid, True]
+        assert torch.equal(c1, c0)
+        assert _rel(c1.view_as(ref), ref) <= 8e-3
+
+
+def test_wgmma_plan_takes_pingpong_at_many_tiles_per_cta(cuda):
+    """On the card's own SM count the plan sends the token g1 at B=8 (512 tiles)
+    to the ping-pong walk and K6's r (128 tiles) to the cooperative one, with the
+    same bits as the other schedule pinned; the entry point refuses the ping-pong
+    walk for the residual add, the train forward's and the backward's epilogues,
+    which it lacks."""
+    rng = np.random.default_rng(24)
+    k = _Launcher(cuda, torch.bfloat16)
+    cases = {"g1": (8, 1024, 1024, 256, "act_only"), "r": (8, 256, 1024, 1024, "res")}
+    for name, (batch, m, n, kdim, epi) in cases.items():
+        a, b = _bf16(rng, m, kdim, std=kdim ** -0.5), _bf16(rng, batch, kdim, n)
+        bias, res = torch.linspace(-1, 1, m, device=cuda), _bf16(rng, batch, m, n)
+        kw = dict(b_mn_major=True, batch=batch, sb=kdim * n, sc=m * n, bias=bias,
+                  bias_rows=True, res=res if epi == "res" else None)
+        planned = wgmma.wgmma_plan(m, n, k.sms, batch, epi)
+        assert planned.pingpong == (epi == "act_only" and wgmma.wgmma_tiles(m, n, 128, batch)
+                                    >= wgmma.PINGPONG_MIN_TILES_PER_SM * k.sms)
+        c, other = (torch.empty(batch, m, n, dtype=torch.bfloat16, device=cuda)
+                    for _ in range(2))
+        assert wgmma.gemm(k, a, b, c, m, n, kdim, epi, **kw) == planned.pingpong
+        if epi == "act_only":
+            assert wgmma.gemm(k, a, b, other, m, n, kdim, epi, pingpong=not planned.pingpong,
+                              **kw) == (not planned.pingpong)
+            assert torch.equal(c, other), name
+    with pytest.raises(RuntimeError):
+        wgmma.gemm(k, a, b, c, m, n, kdim, "res", pingpong=True, **kw)
+    with pytest.raises(RuntimeError):
+        wgmma.gemm(k, a, b, c, m, n, kdim, "mul", b_mn_major=True, batch=batch, sb=kdim * n,
+                   sc=m * n, mul=res, pingpong=True)
+    with pytest.raises(RuntimeError):
+        wgmma.gemm(k, a, b, c, m, n, kdim, "act", b_mn_major=True, batch=batch, sb=kdim * n,
+                   sc=m * n, bias=bias, bias_rows=True, aux=other, pingpong=True)
+
+
+def test_mixer_block_b256_on_pingpong_matches_plain(cuda):
+    """K2 at the batch cell's B=256 (T=256, D=1024, bf16): its GELU GEMMs g1 and
+    g3 take the ping-pong walk (`pingpong_launches` 2 of 4 wgmma GEMMs), within the
+    bf16 ceiling 3e-2 of max |plain|, and bit for bit the block with every GEMM
+    cooperative."""
+    gen = torch.Generator(device=cuda).manual_seed(256)
+    b, t, d = 256, 256, 1024
+    et, ec = 4 * t, 4 * d
+
+    def n(*shape, std):
+        return torch.randn(*shape, generator=gen, device=cuda) * std
+
+    w = MixerBlockWeights(
+        ln1_w=1 + n(d, std=0.1), ln1_b=n(d, std=0.1), t1=n(et, t, std=t ** -0.5).bfloat16(),
+        t1b=n(et, std=0.1), t2=n(t, et, std=et ** -0.5).bfloat16(), t2b=n(t, std=0.1),
+        ln2_w=1 + n(d, std=0.1), ln2_b=n(d, std=0.1), w1=n(ec, d, std=d ** -0.5).bfloat16(),
+        b1=n(ec, std=0.1), w2=n(d, ec, std=ec ** -0.5).bfloat16(), b2=n(d, std=0.1))
+    x = n(b, t, d, std=1.0).bfloat16()
+    before = (mixer_block.wgmma_launches, mixer_block.pingpong_launches)
+    got = mixer_block(x, w)
+    assert (mixer_block.wgmma_launches - before[0], mixer_block.pingpong_launches - before[1]) \
+        == (4, 2)
+    ref = mixer_block_plain(x, w)
+    assert _rel(got, ref) <= 3e-2
+    out, _, k = _block_forward(x, w, False, pingpong=False)
+    assert (k.wgmma_launches, k.pingpong_launches) == (4, 0)
+    assert torch.equal(out, got)
 
 
 def test_wgmma_gemm_raises_on_a_misaligned_base(cuda):

@@ -338,6 +338,17 @@ def test_launch_count_reads_the_counters_through_the_moved_registry(monkeypatch)
     assert json.loads(count.read()) == {"mixer_block": 3}
 
 
+def test_launch_count_reads_the_pingpong_gemms_beside_the_launches(monkeypatch):
+    """K2's GEMMs that took the ping-pong walk read under "mixer_block_pingpong",
+    as `chip_smoke.py` [bench] reads them from `cli bench`'s infer leg."""
+    counters = tracing.kernel_counters()
+    count = bench.LaunchCount()
+    block = counters["mixer_block"]
+    monkeypatch.setattr(block, "launches", block.launches + 32)
+    monkeypatch.setattr(block, "pingpong_launches", block.pingpong_launches + 64)
+    assert json.loads(count.read()) == {"mixer_block": 32, "mixer_block_pingpong": 64}
+
+
 class _FakeEvent:
     """Stands in for torch.cuda.Event: a clock tick at each record."""
 

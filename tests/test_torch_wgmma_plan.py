@@ -1,6 +1,7 @@
 """The Hopper GEMM of csrc/wgmma_gemm.cuh from the CPU side (ops/kernels/wgmma.py):
-the tile planner (tile width and persistent grid, batched walks included), the
-TMA-eligibility predicate, the Mixer block's route of each GEMM
+the tile planner (tile width, persistent grid and the cooperative or ping-pong
+schedule, batched walks included), the TMA-eligibility predicate, the Mixer
+block's route of each GEMM
 (ops/kernels/mixer_block.mixer_gemm_route), and `gemm_reference`, the plain
 version of the GEMM contract that the card tests hold the kernel to, checked
 here against explicit float32 sums. The kernel itself needs the card
@@ -18,7 +19,10 @@ from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_block import (
     stack_mixer_params,
     stacked_block_weights,
 )
+from feed_forward_vqgan_clip_tpu_torch.ops.kernels import wgmma
 from feed_forward_vqgan_clip_tpu_torch.ops.kernels.wgmma import (
+    EPILOGUES,
+    PINGPONG_EPILOGUES,
     WGMMA_ROWS,
     WGMMA_WIDTHS,
     gemm_reference,
@@ -43,16 +47,20 @@ def _cost(m, n, bn, sms, batch=1):
     (3200, 768, (192, 100)),   # fc2, dxn: 100 tiles, one wave (2 waves of 128)
     (100, 3072, (128, 24)),    # ragged rows: one row block
     (100, 96, (128, 1)),
+    (65536, 4096, (128, 132)),  # K2's g3 at B=256: 16384 tiles
+    (65536, 1024, (128, 132)),  # K2's out at B=256: 4096 tiles
 ])
 def test_plan_at_the_path_shapes(m, n, want):
-    assert wgmma_plan(m, n, H100_SMS) == want
+    """Width and grid; without an epilogue the plan is cooperative."""
+    plan = wgmma_plan(m, n, H100_SMS)
+    assert (plan.bn, plan.grid) == want and plan.pingpong is False
 
 
 @pytest.mark.parametrize("sms", [1, 7, 132])
 def test_plan_takes_the_cheapest_width_and_a_grid_within_the_tiles(sms):
     for m in (1, 64, 127, 128, 129, 1000, 3200, 9000):
         for n in (8, 64, 96, 128, 192, 200, 384, 768, 1536, 3072, 4096):
-            bn, grid = wgmma_plan(m, n, sms)
+            bn, grid, _ = wgmma_plan(m, n, sms)
             assert bn in WGMMA_WIDTHS
             cost, tiles = _cost(m, n, bn, sms)
             others = [_cost(m, n, w, sms)[0] for w in WGMMA_WIDTHS]
@@ -68,15 +76,17 @@ def test_plan_takes_the_cheapest_width_and_a_grid_within_the_tiles(sms):
     (1024, 1024, 1, 64, (128, 64)),    # g1 at B=1
     (256, 1024, 16, 256, (128, 132)),  # r at B=16: 2 waves (192: 2 waves of 192)
     (200, 136, 3, 12, (128, 12)),      # ragged: 2 row blocks x 2 column blocks x 3
+    (1024, 1024, 256, 16384, (128, 132)),  # g1 at B=256: 124-125 tiles a CTA
+    (256, 1024, 256, 4096, (128, 132)),    # r at B=256: 31-32 tiles a CTA
 ])
 def test_batched_tiles_and_persistent_grid(m, n, batch, tiles, want):
     """The batch multiplies the tiles of the walk; the grid is min(tiles, SMs)."""
     assert wgmma_tiles(m, n, 128, batch) == -(-m // 128) * -(-n // 128) * batch
-    assert wgmma_plan(m, n, H100_SMS, batch) == want
+    assert wgmma_plan(m, n, H100_SMS, batch)[:2] == want
     assert wgmma_tiles(m, n, want[0], batch) == tiles
     assert wgmma_plan(m, n, H100_SMS, batch)[1] == min(tiles, H100_SMS)
     for sms in (1, 7, 132):
-        bn, grid = wgmma_plan(m, n, sms, batch)
+        bn, grid, _ = wgmma_plan(m, n, sms, batch)
         others = [_cost(m, n, w, sms, batch)[0] for w in WGMMA_WIDTHS]
         assert _cost(m, n, bn, sms, batch)[0] == min(others)
         assert grid == min(wgmma_tiles(m, n, bn, batch), sms)
@@ -164,7 +174,7 @@ def test_routes_of_the_flagship_by_batch(b, tiles):
         m, n, _, batch = _flagship(b)[name]
         assert wgmma_tiles(m, n, 128, batch) == want
     for name, (m, n, _, batch) in _flagship(b).items():
-        bn, grid = wgmma_plan(m, n, H100_SMS, batch)
+        bn, grid, _ = wgmma_plan(m, n, H100_SMS, batch)
         assert bn == 128, name  # narrow tiles win or tie in whole waves at these shapes
         assert grid == min(wgmma_tiles(m, n, bn, batch), H100_SMS)
 
@@ -177,7 +187,65 @@ def test_token_weight_grad_partials_fill_a_wave_at_b8(b, tiles):
     for name in ("dt2", "dt1"):
         m, n, _, batch = _flagship(b)[name]
         assert wgmma_tiles(m, n, 128, batch) == tiles
-        assert wgmma_plan(m, n, H100_SMS, batch) == (128, min(tiles, H100_SMS))
+        assert wgmma_plan(m, n, H100_SMS, batch, "f32") == (128, min(tiles, H100_SMS), False)
+
+
+_FORWARD_EPI = {"g1": "act_only", "r": "res", "g3": "act_only", "out": "res"}  # K2's
+
+
+@pytest.mark.parametrize("chain,b,want", [
+    # (g1, r, g3, out) ping-pong at the flagship
+    ("K2", 256, (True, False, True, False)),   # the batch cell: 16384, 4096, 16384, 4096 tiles
+    ("K2", 16, (True, False, True, False)),    # 1024 and 256 tiles
+    ("K6", 8, (False, False, False, False)),   # g1, g3 take "act"; r, out 128 tiles
+    ("K2", 8, (True, False, True, False)),     # 512 and 128 tiles
+    ("K2", 4, (False, False, False, False)),   # 256 and 64 tiles: fewer than 2 x 132
+    ("K2", 1, (False, False, False, False)),
+    ("K6", 32, (False, False, False, False)),  # r and out: 512 tiles of "res"
+])
+def test_schedule_of_the_mixer_forward(chain, b, want):
+    """The inference forward's GELU GEMMs (g1, g3) take the ping-pong walk where
+    their tiles are at least twice the SMs; the residual GEMMs (r, out) and the
+    train forward's g1 and g3 ("act") stay cooperative; width and grid as before."""
+    for name, pingpong in zip(FORWARD, want):
+        m, n, _, batch = _flagship(b)[name]
+        epi = "act" if chain == "K6" and name in ("g1", "g3") else _FORWARD_EPI[name]
+        plan = wgmma_plan(m, n, H100_SMS, batch, epi)
+        assert plan.pingpong is pingpong, name
+        grid = min(wgmma_tiles(m, n, 128, batch), H100_SMS)
+        assert plan[:2] == wgmma_plan(m, n, H100_SMS, batch)[:2] == (128, grid)
+
+
+@pytest.mark.parametrize("m,n,epi,want", [
+    (3200, 3072, "act", (128, 132, False)),   # K11 fc1: 600 tiles of "act", cooperative
+    (12800, 768, "res", (128, 132, False)),   # K11 fc2 at 4x the rows: 600 tiles of "res"
+    (3200, 768, "res", (192, 100, False)),    # K11 fc2: 100 tiles, one wave of 192
+    (3200, 3072, "mul", (128, 132, False)),   # K11 dgh: the backward stays cooperative
+    (3200, 768, "f32", (192, 100, False)),    # K11 dxn
+    (8 * 256, 4096, "mul", (128, 132, False)),  # K7 da3 at B=8: 512 tiles, cooperative
+])
+def test_schedule_of_the_clip_mlp_and_the_backward(m, n, epi, want):
+    assert wgmma_plan(m, n, H100_SMS, 1, epi) == want
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("epi", list(EPILOGUES) + [None])
+def test_pingpong_exactly_where_every_cta_has_two_tiles(epi, sms):
+    """Over a grid of shapes and batches: ping-pong exactly where the tiles are at
+    least twice the SMs (every persistent CTA walks two or more), the epilogue is
+    the forward's and the width is the walk's 128; width and grid do not depend
+    on the epilogue."""
+    for m in (64, 128, 300, 1024, 3200, 65536):
+        for n in (96, 136, 768, 1024, 3072, 4096):
+            for batch in (1, 3, 8, 256):
+                plan = wgmma_plan(m, n, sms, batch, epi)
+                tiles = wgmma_tiles(m, n, plan.bn, batch)
+                assert plan[:2] == wgmma_plan(m, n, sms, batch)[:2]
+                assert plan.grid == min(tiles, sms)
+                want = epi in PINGPONG_EPILOGUES and plan.bn == 128 and tiles >= 2 * sms
+                assert plan.pingpong is want
+                if plan.pingpong:  # every CTA of the persistent grid gets >= 2 tiles
+                    assert tiles // plan.grid >= 2
 
 
 def test_route_reads_the_bases():
