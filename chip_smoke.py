@@ -58,7 +58,10 @@ once on one NVIDIA GPU, in phases.
    x K2 included, within the absolute 2.4e-2 of ||plain||; on the shared
    draws and on 8 more of a generator of their own. Two K4 launches bitwise
    equal; the stacked-layout block (K5) against its plain version at B=4,
-   blocks 0 and 31.
+   blocks 0 and 31. K4 at the 512-px OpenCLIP Mixer's block (T=1024, D=1024,
+   one block) at B=1 and 4, float32 and bf16, with its route and (bf16, B=1,
+   132 SMs) its plan asserted, against its plain version under the same
+   float32 ceiling and bf16 gates (the whole stack one block, 1 x K2 beside it).
 8. [mlp-ln] The CLIP MLP sublayer (K11) forward, and its backward with dx
    alone and with the six parameter grads, against their plain versions at the
    train loss's shape (3200 x 768 x 3072, quick_gelu), at 100 rows of the same
@@ -123,13 +126,15 @@ once on one NVIDIA GPU, in phases.
 18. [mappers] The released mapper families the flagship is not, at full width
    with random weights from seeds of the phase's own (MAPPER_MODELS): the VitGAN
    Generator 32x1024 (ViT-B/32), the x-transformer 256x16 at 512 px
-   (32 x 32 latent tokens) and the Mixer 32x1024 with the ml-jku CLOOB RN50
-   perceptor. Each saved as a `.th`, served by the Predictor (VitGAN and Mixer
-   at 1x1, 2x2, 4x4, the x-transformer at 1x1, 2x2; per-stage CUDA-event ms,
-   peak memory; images finite in [0, 1]; K1 once a request, the Mixer's K4 at
-   n <= 8 and 32 x K2 above, no Mixer kernel for the others), then one train
+   (32 x 32 latent tokens), the Mixer 32x1024 with the ml-jku CLOOB RN50
+   perceptor and the 512-px OpenCLIP Mixer 1x1024 (one block over 32 x 32
+   latent tokens, OpenCLIP ViT-B-32 with exact GELU). Each saved as a `.th`,
+   served by the Predictor (VitGAN and the CLOOB Mixer at 1x1, 2x2, 4x4, the
+   512-px models at 1x1, 2x2; per-stage CUDA-event ms, peak memory; images
+   finite in [0, 1]; K1 once a request, a Mixer's K4 at n <= 8 and K2 once a
+   block above, no Mixer kernel for the others), then one train
    step through entry.train_entry (finite loss, changed parameters; K1, K9 x 2,
-   K10 x 2, and K6, K7, K8 x 32 for the Mixer).
+   K10 x 2, and K6, K7, K8 once a block for a Mixer).
 19. [prior] The flagship `.th` served with a prior `.th` of the released
    prior's widths (PRIOR_MODEL: 2 flows, hidden 1024, over 512-d embeddings),
    random from a seed: grids 1x1, 2x2, 4x4 with prior=True and 1x1 without
@@ -293,6 +298,12 @@ FORWARD_GEMMS = ("g1", "r", "g3", "out")  # K2, K5, K6 (mixer_block.MIXER_GEMMS)
 CHANNEL_BWD_GEMMS = ("da3", "drn", "dw2", "dw1")  # K7
 TOKEN_BWD_GEMMS = ("da1", "dxn", "dt2", "dt1")  # K8
 STREAM_BATCHES = (1, 4)
+# [stream] at the 512-px OpenCLIP Mixer's block (mlp_mixer_1x1024_openclip_512px: one
+# block over 32 x 32 latent tokens), on a generator of its own, and the wgmma plan
+# a 1x1 request takes there on 132 SMs (tests/test_torch_openclip512.py pins it too)
+OPENCLIP512_TOKENS = 1024
+OPENCLIP512_SEED = 512
+OPENCLIP512_PLAN = dict(tiles=(256, 64, 256, 64), splits=(1, 2, 1, 2), k_split=(16, 32, 16, 32))
 SERVE_GRIDS = ("1x1", "2x2", "4x4")
 SERVE_REQUESTS = 3
 PROMPT = "hello world"
@@ -320,6 +331,10 @@ MAPPER_MODELS = (
     ("mlp_mixer_32x1024_cloob_rn50", dict(clip_model="cloob_rn50", model_type="mlp_mixer",
                                           dim=1024, depth=32, vq_image_size=16),
      ("1x1", "2x2", "4x4")),
+    # "1x1024" read as depth x dim: one block over 32 x 32 latent tokens, 512 px
+    ("mlp_mixer_1x1024_openclip_512px", dict(clip_model="openclip/ViT-B-32/laion2b_e16",
+                                             model_type="mlp_mixer", dim=1024, depth=1,
+                                             vq_image_size=32), ("1x1", "2x2")),
 )
 MAPPERS_SEED = 11
 # [prior]: the released prior of the ViT-B/32 mappers, prior_cc12m_2x1024_clip_ViTB32_v0.4.th,
@@ -1023,7 +1038,7 @@ def stream_error_study(x, per_block, sp):
     """Every bf16 way to the stack on one input x: K4 (mixer_stream's route);
     where that is the wgmma route, also under the plan of half the SMs and
     with every K whole, and the tile-route K4 (csrc/mixer_stream.cu); and
-    32 x K2 on the per-block weights (LN2 unfolded), each against the plain
+    L x K2 on the L per-block weights (LN2 unfolded), each against the plain
     version -> {way: stream_err}."""
     import torch
 
@@ -1048,7 +1063,7 @@ def stream_error_study(x, per_block, sp):
     h = x
     for w in per_block:
         h = mixer_block(h, w)
-    readings["32 x K2"] = stream_err(h, ref)
+    readings[f"{len(per_block)} x K2"] = stream_err(h, ref)
     return readings
 
 
@@ -1076,11 +1091,12 @@ def stream_gates(label, x, sp, per_block):
     first block: blocks 0, 0 and L - 1) at least STREAM_FAULT_MARGIN x both;
     every bf16 way to the whole stack (stream_error_study), 32 x K2 included,
     within the smaller of MIXER_BF16_K2_MULTIPLE x 32 x K2's ||err|| / ||plain||
-    and MIXER_BF16_REL_L2. The planted faults at full depth are held against
-    that limit: block 0's must be STREAM_FAULT_MARGIN x it; block L - 1's is
-    logged (at 32 blocks the last block's bias reads just past the bf16 ways'
-    spread). -> (largest sub-stack max-abs reading over its ceiling, largest
-    multiple of 32 x K2's reading among the other ways, smallest fault margin)."""
+    and MIXER_BF16_REL_L2 (L x K2 on a stack of L blocks). The planted faults at
+    full depth are held against that limit: block 0's must be STREAM_FAULT_MARGIN
+    x it; block L - 1's is logged (at 32 blocks the last block's bias reads just
+    past the bf16 ways' spread). -> (largest sub-stack max-abs reading over its
+    ceiling, largest multiple of L x K2's reading among the other ways, smallest
+    fault margin)."""
     import torch
 
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
@@ -1089,8 +1105,9 @@ def stream_gates(label, x, sp, per_block):
     )
 
     depth = sp.b2.shape[0]
+    k2_way = f"{depth} x K2"
     short, margin = 0.0, float("inf")
-    for lo, hi in ((0, 1), (0, 2), (depth - 1, depth)):
+    for lo, hi in sorted({(0, 1), (0, min(2, depth)), (depth - 1, depth)}):
         sub = substack(sp, lo, hi)
         got = mixer_stream(x, sub)
         _, ratio, rel = stream_err(got, mixer_stream_plain(x, sub))
@@ -1110,25 +1127,25 @@ def stream_gates(label, x, sp, per_block):
                                  "dropped by the margin")
         short, margin = max(short, ratio / MIXER_BF16_SHORT_TOL), min(margin, f_margin)
     readings = stream_error_study(x, per_block, sp)
-    k2 = readings["32 x K2"][2]
+    k2 = readings[k2_way][2]
     limit = min(MIXER_BF16_K2_MULTIPLE * k2, MIXER_BF16_REL_L2)
     multiple = 0.0
     for way, (_, ratio, rel) in readings.items():
         log(f"[stream] {label}, {depth} blocks, {way}: max abs err / max|plain| {ratio:.3e}, "
-            f"||err||/||plain|| {rel:.3e} = {rel / k2:.3f} x 32 x K2's (limit {limit:.3e}: "
-            f"{MIXER_BF16_K2_MULTIPLE:g} x 32 x K2's, at most {MIXER_BF16_REL_L2:g})")
+            f"||err||/||plain|| {rel:.3e} = {rel / k2:.3f} x {k2_way}'s (limit {limit:.3e}: "
+            f"{MIXER_BF16_K2_MULTIPLE:g} x {k2_way}'s, at most {MIXER_BF16_REL_L2:g})")
         if not rel <= limit:
             raise AssertionError(f"{label}: {way} is further from the plain version than "
                                  f"{limit:.3e}")
-        if way != "32 x K2":
+        if way != k2_way:
             multiple = max(multiple, rel / k2)
     got = mixer_stream(x, sp)
-    for block in (0, depth - 1):
+    for block in sorted({0, depth - 1}):
         _, f_ratio, f_rel = dropped_bias_control(x, got, sp, block)
         f_margin = f_rel / limit
         log(f"[stream] {label}, {depth} blocks, planted fault (block {block}'s b2 dropped): "
             f"max abs err / max|plain| {f_ratio:.3e}, ||err||/||plain|| {f_rel:.3e} = "
-            f"{f_rel / k2:.3f} x 32 x K2's, {f_margin:.2f} x the limit"
+            f"{f_rel / k2:.3f} x {k2_way}'s, {f_margin:.2f} x the limit"
             + (f" (must be >= {STREAM_FAULT_MARGIN:g})" if block == 0 else " (logged)"))
         if block == 0:
             if not f_margin >= STREAM_FAULT_MARGIN:
@@ -1148,7 +1165,9 @@ def phase_stream(gen):
     rows TMA cannot read) on the WMMA-tile route, the same checks. Then the gates
     on STREAM_GATE_DRAWS draws of weights and input from a generator of their own
     (STREAM_SEED). K5 against its plain version at B=4 for the first and last
-    block. -> ({kernel name: max abs err at B=4 in bf16}, K5's launches here, the
+    block. K4 at the 512-px OpenCLIP Mixer's block (OPENCLIP512_TOKENS tokens,
+    D=1024, one block) at STREAM_BATCHES in float32 and bf16, by the same checks,
+    its route and (bf16, B=1, 132 SMs) OPENCLIP512_PLAN asserted. -> ({kernel name: max abs err at B=4 in bf16}, K5's launches here, the
     only ones of the run outside [time]: no path runs K5)."""
     import torch
 
@@ -1160,6 +1179,7 @@ def phase_stream(gen):
     )
     from feed_forward_vqgan_clip_tpu_torch.ops.kernels.mixer_stream import (
         STREAM_GEMMS,
+        StreamPlan,
         barriers_per_launch,
         gemm_plans,
         mixer_stream,
@@ -1245,6 +1265,30 @@ def phase_stream(gen):
         log(f"[stream] K4 B={b} T=49 bf16: route wmma, split-K plans "
             f"{gemm_plans(b, 49, 1024, 196, 4096, torch.bfloat16, sms)}")
         k4_twice(f"K4 B={b} T=49 D=1024 L={STREAM_DEPTH} bf16", x, sp, "wmma", per_block)
+    # the 512-px OpenCLIP Mixer's block: the shape its 1x1 and 2x2 requests hand K4
+    t = OPENCLIP512_TOKENS
+    own = torch.Generator(device="cuda").manual_seed(OPENCLIP512_SEED)
+    blocks = [random_block_weights(t, 1024, torch.float32, own)]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        sp = stack_mixer_params(blocks, dtype)
+        per_block = [w._replace(**{n: getattr(w, n).to(dtype) for n in MATRICES})
+                     for w in blocks]
+        route = "fma" if dtype == torch.float32 else "wgmma"
+        for b in STREAM_BATCHES:
+            x = torch.randn(b, t, 1024, generator=own, device="cuda").to(dtype)
+            if route == "wgmma":
+                plan = stream_plan(b, t, 1024, 4 * t, 4096, sms)
+                log(f"[stream] K4 B={b} T={t} bf16: route wgmma, 128 x 128 tiles "
+                    f"{dict(zip(STREAM_GEMMS, plan.tiles))}, split-K "
+                    f"{dict(zip(STREAM_GEMMS, plan.splits))} of "
+                    f"{dict(zip(STREAM_GEMMS, plan.k_split))} K steps of 64; "
+                    f"{plan.barriers(1)} grid barriers")
+                if b == 1 and sms == 132 and plan != StreamPlan(**OPENCLIP512_PLAN):
+                    raise AssertionError(f"K4 at T={t}, B=1 planned {plan}, not "
+                                         f"{OPENCLIP512_PLAN}")
+            k4_twice(f"K4 B={b} T={t} D=1024 L=1 {name}", x, sp, route, per_block)
+    del blocks
     # the bf16 gates over fresh draws of weights and input, on a generator of their own
     own = torch.Generator(device="cuda").manual_seed(STREAM_SEED)
     short, multiple, margin = 0.0, 0.0, float("inf")

@@ -116,6 +116,14 @@ def stream_plan(b, t, d, et, ec, sms):
     return StreamPlan(tuple(tiles), tuple(splits), tuple(k_split))
 
 
+def stream_partial_floats(plan: StreamPlan, b, t, d, et, ec) -> int:
+    """float32 elements of the split-K partials under `plan`: the largest
+    (splits, batch, M, N) of the GEMMs whose K is cut, 0 where none is."""
+    shapes = stream_gemm_shapes(b, t, d, et, ec)
+    return max([s * m * n * batch for s, (m, n, _, batch) in zip(plan.splits, shapes) if s > 1],
+               default=0)
+
+
 def stream_route(x, sp: StackedMixerWeights):
     """The kernel K4 takes for x on `sp`: "fma" in float32, "wgmma" in bf16 where
     TMA can read every operand (`wgmma.tma_ok`: T, D, Et, Ec multiples of 8 and
@@ -211,10 +219,8 @@ def _launch_wgmma(x, sp, plan=None):
     ec = sp.w1f.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = plan or stream_plan(b, t, d, et, ec, sms)
-    shapes = stream_gemm_shapes(b, t, d, et, ec)
-    partial_floats = max([s * m * n * batch for s, (m, n, _, batch) in zip(plan.splits, shapes)
-                          if s > 1], default=0)
-    out, buf, r, xn, g1, g3, partial, barrier = _workspaces(x, et, ec, partial_floats)
+    out, buf, r, xn, g1, g3, partial, barrier = _workspaces(
+        x, et, ec, stream_partial_floats(plan, b, t, d, et, ec))
     ints = ctypes.c_int * 4
     err = build.load_library().ffvc_mixer_stream_wgmma(
         x.data_ptr(), out.data_ptr(), buf.data_ptr(), r.data_ptr(), xn.data_ptr(),

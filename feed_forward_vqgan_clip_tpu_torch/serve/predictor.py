@@ -19,8 +19,9 @@ module runs.
 While tracing is on (tracing.py), a request records the span `request` (its
 model, grid and route; its request id from the Predictor's counter) holding
 `tokenize`, `text`, `prior`, `mapper`, synth's `decode`, `fetch` (the host
-waiting for the images) and `png`, all on the host clock: a request puts no
-CUDA event between its launches.
+waiting for the images) and `png`, which holds the disjoint `png.grid`
+(`make_grid`) and `png.encode` (`save_image`: encode and write), all on the host
+clock: a request puts no CUDA event between its launches.
 
 Everything stays resident on one device. `prior=True` for a model without a
 prior is ignored, as in the JAX package.
@@ -170,5 +171,8 @@ class Predictor:
             with span("fetch"):
                 imgs = imgs.cpu().numpy()
             with span("png"):
-                save_image(make_grid(imgs, nrow=gw), out_path)
+                with span("png.grid"):
+                    grid = make_grid(imgs, nrow=gw)
+                with span("png.encode"):
+                    save_image(grid, out_path)
         return out_path

@@ -39,8 +39,9 @@ and counted by `dropped()`; a timed span's events are resolved and freed once
 PENDING later timed spans have closed.
 
 The spans by layer (README "Tracing" lists them): `request` (with `tokenize`,
-`text`, `prior`, `mapper`, `fetch`, `png`) in `serve/predictor.py`; `render`,
-`mapper`, `text`, `tokenize` in `infer.Generator`; `decode` with `vq`,
+`text`, `prior`, `mapper`, `fetch`, and `png` with `png.grid`, `png.encode`) in
+`serve/predictor.py`; `render`, `mapper`, `text`, `tokenize` in
+`infer.Generator`; `decode` with `vq`,
 `decode.norm`, `decode.conv`, `decode.attn` in `models/vqgan.py`; `step` with
 `step.<stage>`, `step.backward`, `step.adam` in `train/loop.make_train_step`.
 

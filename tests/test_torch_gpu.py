@@ -8,6 +8,10 @@ JAX, so there run it without the conftest:
 
 Tolerances: VQ indices equal except at near-ties (plain top-2 score gap below
 the fp32 bound 4*C*eps*(|x| max|c| + max|c|^2)), at least 99.9% agreement;
+K4 and K2 at the 512-px OpenCLIP Mixer's widths (T = 1024, D = 1024, one
+block) f32 within 1e-3 of max |plain|, bf16 within C4's one-block gate (1.5e-2
+of max |plain| by max abs, 1e-2 by ||err|| / ||plain||); the flagship's K4 on
+its pinned plan bit for bit;
 the Mixer block, the Mixer train kernels (every output and parameter grad),
 the whole-stack kernel (K4) and the stacked-layout block (K5) f32 (TF32 off)
 within 1e-3 and bf16 within 3e-2 of max |plain|; the warp
@@ -603,6 +607,92 @@ def test_mixer_stream_wgmma_plans_agree(cuda):
             got = mixer_stream_module._launch_wgmma(x, sp, plan)
             assert _rel(got, ref) <= 3e-2, plan
             assert torch.equal(got, mixer_stream_module._launch_wgmma(x, sp, plan)), plan
+
+
+def _block_weights_f32(gen, t, d, device):
+    """One Mixer block's weights in float32 (matrices N(0, 1/fan_in), norm scales
+    N(1, 0.1), biases N(0, 0.1)) at T tokens, width D, expansion 4."""
+    et, ec = 4 * t, 4 * d
+
+    def n(*shape, std):
+        return torch.randn(*shape, generator=gen, device=device) * std
+
+    return MixerBlockWeights(
+        ln1_w=1 + n(d, std=0.1), ln1_b=n(d, std=0.1), t1=n(et, t, std=t ** -0.5),
+        t1b=n(et, std=0.1), t2=n(t, et, std=et ** -0.5), t2b=n(t, std=0.1),
+        ln2_w=1 + n(d, std=0.1), ln2_b=n(d, std=0.1), w1=n(ec, d, std=d ** -0.5),
+        b1=n(ec, std=0.1), w2=n(d, ec, std=ec ** -0.5), b2=n(d, std=0.1))
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+# C4's gate for K4 on one block in bf16 (chip_smoke.py MIXER_BF16_SHORT_TOL,
+# MIXER_BF16_SHORT_REL): max abs err / max |plain| and ||err|| / ||plain||
+ONE_BLOCK_BF16 = (1.5e-2, 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 4], ids=["1x1", "2x2"])
+def test_mixer_stream_at_1024_tokens_matches_plain(cuda, dtype, b):
+    """K4 at the 512-px OpenCLIP Mixer's widths (T = 1024 tokens, D = 1024, Et =
+    Ec = 4096, one block) over a 1x1 and a 2x2 request's rows: float32 within 1e-3
+    of max |plain|; bf16 (the wgmma route, its plan cutting r and out in two at
+    one row) within C4's one-block gate; two launches bit for bit equal."""
+    t = d = 1024
+    gen = torch.Generator(device=cuda).manual_seed(1024 + b)
+    sp = stack_mixer_params([_block_weights_f32(gen, t, d, cuda)], dtype)
+    x = torch.randn(b, t, d, generator=gen, device=cuda).to(dtype)
+    if dtype == torch.bfloat16:
+        assert stream_route(x, sp) == "wgmma"
+    before = mixer_stream.launches
+    got = mixer_stream(x, sp)
+    assert mixer_stream.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, mixer_stream(x, sp))
+    ref = mixer_stream_plain(x, sp)
+    if dtype == torch.float32:
+        assert _rel(got, ref) <= 1e-3
+    else:
+        assert _rel(got, ref) <= ONE_BLOCK_BF16[0] and _rel_l2(got, ref) <= ONE_BLOCK_BF16[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_block_at_1024_tokens_matches_plain(cuda, dtype):
+    """K2 at the same widths over a 3x3 request's 9 rows (more than K4 takes):
+    float32 within 1e-3 of max |plain|, bf16 within C4's one-block gate."""
+    t = d = 1024
+    gen = torch.Generator(device=cuda).manual_seed(1025)
+    w32 = _block_weights_f32(gen, t, d, cuda)
+    w = w32._replace(**{k: getattr(w32, k).to(dtype) for k in ("t1", "t2", "w1", "w2")})
+    x = torch.randn(9, t, d, generator=gen, device=cuda).to(dtype)
+    before = mixer_block.launches
+    got = mixer_block(x, w)
+    assert mixer_block.launches == before + 1
+    ref = mixer_block_plain(x, w)
+    if dtype == torch.float32:
+        assert _rel(got, ref) <= 1e-3
+    else:
+        assert _rel(got, ref) <= ONE_BLOCK_BF16[0] and _rel_l2(got, ref) <= ONE_BLOCK_BF16[1]
+
+
+def test_mixer_stream_flagship_keeps_its_plan_and_bits(cuda):
+    """The flagship's K4 (T = 256, D = 1024, 32 blocks, one row, bf16) on a card of
+    132 SMs: the plan it takes is the one it has always taken (r 2 splits, g3 2,
+    out 8; tests/test_torch_openclip512.py pins it without a card), and a launch
+    under that plan written out equals the default launch bit for bit."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the pinned plan is an H100 SXM's (132 SMs), this card has {sms}")
+    gen = torch.Generator(device=cuda).manual_seed(32)
+    sp = stack_mixer_params([_block_weights_f32(gen, 256, 1024, cuda) for _ in range(32)],
+                            torch.bfloat16)
+    x = torch.randn(1, 256, 1024, generator=gen, device=cuda).bfloat16()
+    pinned = StreamPlan(tiles=(64, 16, 64, 16), splits=(1, 2, 2, 8), k_split=(4, 8, 8, 8))
+    assert stream_plan(1, 256, 1024, 1024, 4096, sms) == pinned
+    got = mixer_stream(x, sp)
+    with torch.cuda.device(cuda):
+        assert torch.equal(got, mixer_stream_module._launch_wgmma(x.contiguous(), sp, pinned))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

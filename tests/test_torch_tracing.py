@@ -148,6 +148,32 @@ def test_decode_parts_are_disjoint(predictor, tmp_path):
             assert not _children(recs)[r.id], r
 
 
+def test_png_holds_its_grid_and_encode(predictor, tmp_path):
+    """Each request's `png` holds one `png.grid` then one `png.encode`, disjoint
+    and with no spans inside; the PNG is the same byte for byte with tracing on
+    and off."""
+    out = tmp_path / "o.png"
+    off = []
+    for grid in ("1x1", "2x2"):
+        predictor.predict("hello world", grid_size=grid, seed=3, out_path=str(out))
+        off.append(out.read_bytes())
+    tracing.enable()
+    on = []
+    for grid in ("1x1", "2x2"):
+        predictor.predict("hello world", grid_size=grid, seed=3, out_path=str(out))
+        on.append(out.read_bytes())
+    assert on == off
+    recs = tracing.records()
+    kids = _children(recs)
+    pngs = [r for r in recs if r.name == "png"]
+    assert len(pngs) == 2
+    for png in pngs:
+        grid, encode = kids[png.id]
+        assert (grid.name, encode.name) == ("png.grid", "png.encode")
+        assert png.t0_ns <= grid.t0_ns <= grid.t1_ns <= encode.t0_ns <= encode.t1_ns <= png.t1_ns
+        assert not kids[grid.id] and not kids[encode.id]
+
+
 def test_generator_render_and_encode_spans(predictor):
     mapper, cfg, _ = next(iter(predictor.models.values()))
     perceptor, = predictor.perceptors.values()
